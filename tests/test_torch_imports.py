@@ -1,0 +1,144 @@
+"""The port stands alone: no JAX, flax, optax, pandas or JAX-package import anywhere in it,
+and its numpy copies of the JAX package's host layers give identical results."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from wav2vec_heart_sounds_tpu import config as jax_config
+from wav2vec_heart_sounds_tpu.data import labels as jax_labels
+from wav2vec_heart_sounds_tpu.data import loader as jax_loader
+from wav2vec_heart_sounds_tpu.data.fragments import Fragment as JaxFragment
+from wav2vec_heart_sounds_tpu.data.fragments import FragmentDataset as JaxDataset
+from wav2vec_heart_sounds_tpu.signal import filters as jax_filters
+from wav2vec_heart_sounds_tpu.train.metrics import ConfusionMatrix as JaxConfusionMatrix
+from wav2vec_heart_sounds_tpu_torch import config
+from wav2vec_heart_sounds_tpu_torch.data import loader
+from wav2vec_heart_sounds_tpu_torch.data.fragments import Fragment, FragmentDataset
+from wav2vec_heart_sounds_tpu_torch.ops.kernels import build
+from wav2vec_heart_sounds_tpu_torch.train.metrics import ConfusionMatrix
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "wav2vec_heart_sounds_tpu_torch"
+BLOCKED = ("jax", "flax", "optax", "pandas", "wav2vec_heart_sounds_tpu")
+
+_ISOLATED = f"""
+import sys
+for name in {BLOCKED!r}:
+    sys.modules[name] = None
+import importlib, pkgutil
+import numpy as np, torch
+import wav2vec_heart_sounds_tpu_torch as pkg
+for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(info.name)
+from wav2vec_heart_sounds_tpu_torch.models.build import build_classifier
+from wav2vec_heart_sounds_tpu_torch.models.classifier import ClassifierConfig
+from wav2vec_heart_sounds_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+from wav2vec_heart_sounds_tpu_torch.signal.torchproc import preprocess_pcg
+model = build_classifier(ClassifierConfig(head_hidden=(8,), encoder=Wav2Vec2Config.tiny()))
+x = preprocess_pcg(torch.randn(2, 1000), 2000, 4000)
+with torch.inference_mode():
+    logits = model(x)
+assert logits.shape == (2, 2) and bool(torch.isfinite(logits).all())
+print("PORT_OK", sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}
+                        and sys.modules[m] is not None))
+"""
+
+
+def test_port_imports_and_runs_with_jax_blocked():
+    proc = subprocess.run([sys.executable, "-c", _ISOLATED], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "PORT_OK []" in proc.stdout
+
+
+def test_port_sources_import_no_blocked_module():
+    for path in PACKAGE.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in BLOCKED, f"{path}: imports {name}"
+
+
+def test_constants_match_originals():
+    assert config.PCG_BAND == jax_filters.PCG_BAND
+    assert config.ECG_BAND == jax_filters.ECG_BAND
+    assert config.WIRE_SCALE == jax_loader.WIRE_SCALE
+    assert config.CLASSIFY_FS_CINC == jax_config.CLASSIFY_FS_CINC
+    assert config.CLASSIFY_FS_DEFAULT == jax_config.CLASSIFY_FS_DEFAULT
+    assert set(config.WINDOWS) == set(jax_config.WINDOWS)
+    for name, spec in jax_config.WINDOWS.items():
+        ours = config.WINDOWS[name]
+        assert (ours.window_s, ours.overlap_s, ours.start_pad_s) == \
+            (spec.window_s, spec.overlap_s, spec.start_pad_s)
+        for fs in (2000, 4125, 16000):
+            assert ours.window_len(fs) == spec.window_len(fs)
+
+
+def _fragments(n=11, length=50, seed=0):
+    rng = np.random.default_rng(seed)
+    return [(rng.normal(size=length).astype(np.float32), int(rng.integers(0, 2)), f"p{i % 4}")
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("train,wire_int16,target_len", [
+    (False, False, None), (False, True, 64), (True, False, None), (True, True, 40)])
+def test_batcher_matches_original(train, wire_int16, target_len):
+    frags = _fragments()
+    ours = loader.Batcher(FragmentDataset([Fragment(*f) for f in frags], fs=1000), 4, train,
+                          seed=3, target_len=target_len, wire_int16=wire_int16)
+    theirs = jax_loader.Batcher(JaxDataset([JaxFragment(*f) for f in frags], fs=1000), 4,
+                                train, seed=3, target_len=target_len, wire_int16=wire_int16)
+    assert len(ours) == len(theirs)
+    for _ in range(2):                                   # two epochs: reseeded bootstrap
+        batches = list(zip(ours, theirs, strict=True))
+        for a, b in batches:
+            assert a.keys() == b.keys()
+            for key in a:
+                if isinstance(a[key], np.ndarray):
+                    assert a[key].dtype == b[key].dtype
+                    np.testing.assert_array_equal(a[key], b[key])
+                else:
+                    assert a[key] == b[key]
+
+
+def test_pad_batch_and_balance_weights_match_originals():
+    waves = [np.ones(3, np.float32), np.arange(5, dtype=np.float32)]
+    for target in (None, 4, 7):
+        np.testing.assert_array_equal(loader.pad_batch(waves, target),
+                                      jax_loader.pad_batch(waves, target))
+    labels = [0, 1, 1, 1, 0, 1]
+    np.testing.assert_array_equal(loader.balance_weights(labels),
+                                  jax_labels.balance_weights(labels))
+
+
+def test_confusion_matrix_matches_original():
+    rng = np.random.default_rng(1)
+    ours, theirs = ConfusionMatrix(), JaxConfusionMatrix()
+    for _ in range(3):
+        t, p = rng.integers(0, 2, 17), rng.integers(0, 2, 17)
+        valid = rng.random(17) > 0.2
+        ours.update(t, p, valid)
+        theirs.update(t, p, valid)
+    np.testing.assert_array_equal(ours.m, theirs.m)
+    assert ours.stats() == theirs.stats()
+    assert str(ours) == str(theirs)
+
+
+def test_kernel_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "_libs", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.load_library("attention_qkv_fwd")
+    assert not (tmp_path / "build").exists()

@@ -1,0 +1,111 @@
+"""Host-side batching: balanced sampling and static-shape padded batches.
+
+Copy of ``pad_batch`` and ``Batcher`` from ``wav2vec_heart_sounds_tpu/data/loader.py``
+(numpy only), held to the original by ``tests/test_torch_imports.py``. Device prefetch is
+not ported yet: batches stay numpy and the caller moves them to the card.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator
+
+import numpy as np
+
+from ..config import WIRE_SCALE
+
+
+def pad_batch(waves: list[np.ndarray], target_len: int | None = None) -> np.ndarray:
+    """Zero-pad ``[T]`` / ``[T, C]`` items to a common length and stack to ``[B, L(, C)]``."""
+    max_len = max(w.shape[0] for w in waves)
+    length = target_len or max_len
+    multi = waves[0].ndim == 2
+    shape = (len(waves), length, waves[0].shape[1]) if multi else (len(waves), length)
+    out = np.zeros(shape, dtype=np.float32)
+    for i, w in enumerate(waves):
+        n = min(w.shape[0], length)
+        out[i, :n] = w[:n]
+    return out
+
+
+def balance_weights(labels) -> np.ndarray:
+    """Per-item sampling weights under which every class is drawn equally often
+    (copy of ``wav2vec_heart_sounds_tpu/data/labels.py::balance_weights``)."""
+    labels = np.asarray(list(labels), dtype=np.int64)
+    inv = 1.0 / np.maximum(np.bincount(labels), 1).astype(np.float64)
+    return inv[labels]
+
+
+class Batcher:
+    """Iterate fixed-shape batches over a FragmentDataset-like sequence.
+
+    ``train=True`` draws a class-balanced bootstrap (one epoch = len(dataset) draws with
+    replacement, equal class probability); ``train=False`` iterates in order, padding the last
+    batch by repeating its final item so shapes stay static (the repeated rows carry
+    ``valid=False`` and are ignored by metric accumulation).
+
+    ``wire_int16=True`` ships waveforms as int16 (values scaled by 32767); the consumer
+    dequantises on the device.
+    """
+
+    def __init__(self, dataset, batch_size: int, train: bool, *, seed: int = 0,
+                 target_len: int | None = None, drop_last: bool = False,
+                 wire_int16: bool = False):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.train = train
+        self.seed = seed
+        self.epoch = 0
+        self.target_len = target_len
+        self.drop_last = drop_last
+        self.wire_int16 = wire_int16
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        if self.train:
+            return max(1, n // self.batch_size)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def _epoch_indices(self) -> np.ndarray:
+        n = len(self.dataset)
+        if not self.train:
+            return np.arange(n)
+        rng = np.random.default_rng(self.seed + self.epoch)
+        w = balance_weights(self.dataset.labels)
+        # at least one full batch even for tiny datasets (bootstrap with replacement)
+        draws = max(n, self.batch_size)
+        return rng.choice(n, size=draws, replace=True, p=w / w.sum())
+
+    def __iter__(self) -> Iterator[dict]:
+        idx = self._epoch_indices()
+        self.epoch += 1
+        bs = self.batch_size
+        n_batches = len(self)
+        for b in range(n_batches):
+            chunk = idx[b * bs:(b + 1) * bs]
+            valid = np.ones(bs, dtype=bool)
+            if len(chunk) < bs:                      # eval tail: repeat last item, mark invalid
+                valid[len(chunk):] = False
+                chunk = np.concatenate([chunk, np.full(bs - len(chunk), chunk[-1])])
+            if hasattr(self.dataset, "gather"):
+                batch = self.dataset.gather(chunk)
+                waves, labels, patients = batch["waveform"], batch["label"], batch["patient"]
+                augmented = batch.get("augmented")
+                if self.target_len is not None and waves.shape[1] != self.target_len:
+                    waves = pad_batch(list(waves), self.target_len)
+            else:
+                items = [self.dataset[int(i)] for i in chunk]
+                waves = pad_batch([it["waveform"] for it in items], self.target_len)
+                labels = np.asarray([it["label"] for it in items], dtype=np.int32)
+                patients = [it["patient"] for it in items]
+                augmented = np.asarray([it.get("augmented", False) for it in items])
+            if self.wire_int16:
+                waves = np.clip(np.round(waves * WIRE_SCALE), -32767, 32767).astype(np.int16)
+            out = {
+                "waveform": waves,
+                "label": labels,
+                "patient": patients,
+                "valid": valid,
+            }
+            if augmented is not None:
+                out["augmented"] = np.asarray(augmented, dtype=bool)
+            yield out

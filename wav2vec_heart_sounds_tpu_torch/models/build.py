@@ -1,0 +1,24 @@
+"""Construct a classifier on the meta device, allocate it on the target, init from a seed."""
+
+from __future__ import annotations
+
+import torch
+
+from .classifier import ClassifierConfig, Wav2VecClassifier
+from .wav2vec2 import init_parameters
+
+
+def build_classifier(cfg: ClassifierConfig, seed: int = 0, device="cpu",
+                     dtype: torch.dtype = torch.float32) -> Wav2VecClassifier:
+    """Random-init classifier in eval mode on ``device``, computing in ``dtype``.
+
+    The dtype is the caller's choice, never inferred from the device. Weights come from a
+    CPU ``torch.Generator`` seeded with ``seed``, so the same seed gives the same weights
+    on every device. Load trained or converted weights afterwards with
+    ``model.load_state_dict`` (see :mod:`.from_jax` and :mod:`.hf_port`).
+    """
+    with torch.device("meta"):
+        model = Wav2VecClassifier(cfg, dtype)
+    model.to_empty(device=device)
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    return model.eval()

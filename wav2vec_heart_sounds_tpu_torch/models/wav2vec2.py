@@ -1,0 +1,270 @@
+"""Wav2Vec 2.0 encoder in PyTorch, eval mode (port of ``models/wav2vec2.py``).
+
+wav2vec2-base: a 7-layer strided conv feature encoder (GroupNorm on conv_0), the feature
+projection, a weight-normed grouped positional conv (materialised at load), and 12
+post-norm encoder layers whose attention is the packed-QKV kernel.
+
+Parameter names follow HF's ``Wav2Vec2Model`` state-dict keys, so an HF checkpoint loads
+nearly as-is (:mod:`.hf_port`). The compute dtype is the caller's choice: matmul and conv
+parameters live in it, norm parameters stay float32, and every norm takes float32
+statistics and emits the compute dtype (the JAX package's ``_ln_apply`` and
+``ChannelGroupNorm``). GELU follows the JAX package per dtype: the conv cascade uses the
+tanh form in bfloat16 (``_cascade_gelu``), the FFN and the positional conv keep erf, and
+float32 is erf throughout.
+
+Not ported yet: SpecAugment, dropout and LoRA (training), and ``conv_time_plan``'s tile
+padding, which gives the same numbers as the exact lengths used here.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.kernels import attention as _attention
+
+HIDDEN = 768  # wav2vec2-base hidden size
+
+
+@dataclass(frozen=True)
+class Wav2Vec2Config:
+    """Architecture fields of the JAX package's ``Wav2Vec2Config`` (defaults: wav2vec2-base)."""
+    conv_dim: tuple[int, ...] = (512, 512, 512, 512, 512, 512, 512)
+    conv_kernel: tuple[int, ...] = (10, 3, 3, 3, 3, 2, 2)
+    conv_stride: tuple[int, ...] = (5, 2, 2, 2, 2, 2, 2)
+    hidden_size: int = HIDDEN
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    pos_conv_kernel: int = 128
+    pos_conv_groups: int = 16
+    layer_norm_eps: float = 1e-5
+
+    @classmethod
+    def tiny(cls, **kw) -> "Wav2Vec2Config":
+        """Small config for tests (the JAX package's ``Wav2Vec2Config.tiny()``)."""
+        base = dict(conv_dim=(32, 32), conv_kernel=(10, 3), conv_stride=(5, 2),
+                    hidden_size=32, num_layers=2, num_heads=2, intermediate_size=64,
+                    pos_conv_kernel=16, pos_conv_groups=2)
+        base.update(kw)
+        return cls(**base)
+
+
+def cascade_gelu(x: torch.Tensor) -> torch.Tensor:
+    """Conv-cascade GELU: tanh form in bfloat16 (as the JAX package's default), erf otherwise."""
+    return F.gelu(x, approximate="tanh" if x.dtype == torch.bfloat16 else "none")
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float,
+               dtype: torch.dtype) -> torch.Tensor:
+    """LayerNorm over the last axis: float32 statistics (E[x^2] - E[x]^2), ``dtype`` out."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf * xf).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * weight + bias).to(dtype)
+
+
+class LayerNorm(nn.Module):
+    """:func:`layer_norm` with float32 ``weight``/``bias`` (HF's LayerNorm keys)."""
+
+    def __init__(self, dim: int, eps: float, dtype: torch.dtype):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.eps, self.dtype = eps, dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, self.eps, self.dtype)
+
+
+class ChannelGroupNorm(nn.Module):
+    """Per-channel GroupNorm over time on ``[B, C, T]`` (HF's ``GroupNorm(C, C)`` keys).
+
+    Statistics in float32 as E[x^2] - E[x]^2; normalise and affine in the compute dtype.
+    """
+
+    def __init__(self, channels: int, eps: float, dtype: torch.dtype):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.eps, self.dtype = eps, dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n = x.shape[2]
+        xf = x.float()
+        mean = xf.sum(dim=2, keepdim=True) / n                          # [B, C, 1]
+        var = (xf * xf).sum(dim=2, keepdim=True) / n - mean * mean
+        inv = (torch.rsqrt(var + self.eps) * self.weight[None, :, None]).to(self.dtype)
+        return (x.to(self.dtype) - mean.to(self.dtype)) * inv \
+            + self.bias[None, :, None].to(self.dtype)
+
+
+class ConvLayer(nn.Module):
+    """``gelu(norm?(conv(x)))`` on ``[B, C, T]``: one layer of the feature encoder."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int, group_norm: bool,
+                 eps: float, dtype: torch.dtype):
+        super().__init__()
+        self.conv = nn.Conv1d(cin, cout, kernel, stride=stride, bias=False, dtype=dtype)
+        self.layer_norm = ChannelGroupNorm(cout, eps, dtype) if group_norm else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv(x)
+        if self.layer_norm is not None:
+            h = self.layer_norm(h)
+        return cascade_gelu(h)
+
+
+class FeatureEncoder(nn.Module):
+    """Raw waveform ``[B, T]`` -> conv features ``[B, C, T']`` (group-norm variant)."""
+
+    def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype):
+        super().__init__()
+        cin = (1,) + cfg.conv_dim[:-1]
+        self.dtype = dtype
+        self.conv_layers = nn.ModuleList(
+            ConvLayer(ci, co, k, s, i == 0, cfg.layer_norm_eps, dtype)
+            for i, (ci, co, k, s) in enumerate(zip(cin, cfg.conv_dim, cfg.conv_kernel,
+                                                   cfg.conv_stride)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x[:, None, :].to(self.dtype)
+        for layer in self.conv_layers:
+            h = layer(h)
+        return h
+
+
+class FeatureProjection(nn.Module):
+    def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype):
+        super().__init__()
+        self.layer_norm = LayerNorm(cfg.conv_dim[-1], cfg.layer_norm_eps, dtype)
+        self.projection = nn.Linear(cfg.conv_dim[-1], cfg.hidden_size, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.projection(self.layer_norm(x))
+
+
+class PositionalConvEmbedding(nn.Module):
+    """Grouped conv positional embedding on ``[B, T, D]``: pad k//2 both sides, drop the
+    trailing frame for an even kernel, erf GELU."""
+
+    def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype):
+        super().__init__()
+        k = cfg.pos_conv_kernel
+        self.conv = nn.Conv1d(cfg.hidden_size, cfg.hidden_size, k, padding=k // 2,
+                              groups=cfg.pos_conv_groups, dtype=dtype)
+        self.even = k % 2 == 0
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv(x.transpose(1, 2))
+        if self.even:
+            h = h[:, :, :-1]
+        return F.gelu(h, approximate="none").transpose(1, 2)
+
+
+class SelfAttention(nn.Module):
+    """Packed-QKV self-attention: one ``[D, 3D]`` projection, the attention kernel on the
+    ``[B, 3H, T, d]`` heads, then ``out_proj``."""
+
+    def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype):
+        super().__init__()
+        d = cfg.hidden_size
+        self.num_heads = cfg.num_heads
+        self.q_proj = nn.Linear(d, d, dtype=dtype)
+        self.k_proj = nn.Linear(d, d, dtype=dtype)
+        self.v_proj = nn.Linear(d, d, dtype=dtype)
+        self.out_proj = nn.Linear(d, d, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, T, D = x.shape
+        H = self.num_heads
+        projs = (self.q_proj, self.k_proj, self.v_proj)
+        w = torch.cat([p.weight for p in projs])
+        b = torch.cat([p.bias for p in projs])
+        qkv = F.linear(x, w, b).view(B, T, 3 * H, D // H).transpose(1, 2).contiguous()
+        out = _attention.flash_attention_qkv(qkv, T)                    # [B, H, T, d]
+        return self.out_proj(out.transpose(1, 2).reshape(B, T, D))
+
+
+class FeedForward(nn.Module):
+    def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype):
+        super().__init__()
+        self.intermediate_dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size, dtype=dtype)
+        self.output_dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.output_dense(F.gelu(self.intermediate_dense(x), approximate="none"))
+
+
+class EncoderLayer(nn.Module):
+    """Post-norm transformer block: LN(x + attn(x)), then LN(x + ffn(x))."""
+
+    def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype):
+        super().__init__()
+        self.attention = SelfAttention(cfg, dtype)
+        self.layer_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype)
+        self.feed_forward = FeedForward(cfg, dtype)
+        self.final_layer_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.layer_norm(x + self.attention(x))
+        return self.final_layer_norm(x + self.feed_forward(x))
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype):
+        super().__init__()
+        self.pos_conv_embed = PositionalConvEmbedding(cfg, dtype)
+        self.layer_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype)
+        self.layers = nn.ModuleList(EncoderLayer(cfg, dtype) for _ in range(cfg.num_layers))
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        h = self.layer_norm(h + self.pos_conv_embed(h))
+        for layer in self.layers:
+            h = layer(h)
+        return h
+
+
+class Wav2Vec2Model(nn.Module):
+    """Raw waveform ``[B, T]`` -> contextual representations ``[B, T', hidden]``."""
+
+    def __init__(self, config: Wav2Vec2Config | None = None, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.config = cfg = config or Wav2Vec2Config()
+        self.dtype = dtype
+        self.feature_extractor = FeatureEncoder(cfg, dtype)
+        self.feature_projection = FeatureProjection(cfg, dtype)
+        self.encoder = Encoder(cfg, dtype)
+        # Kept so HF checkpoints load strictly; used only by SpecAugment in training.
+        self.masked_spec_embed = nn.Parameter(torch.zeros(cfg.hidden_size))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.feature_extractor(x).transpose(1, 2)                   # [B, T', C]
+        return self.encoder(self.feature_projection(h))
+
+
+@torch.no_grad()
+def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
+    """Random init from a CPU ``generator``, so every device gets the same weights.
+
+    Follows the JAX package's initialisers: matmul and conv weights ~ N(0, 1/fan_in) (flax
+    lecun_normal, without its truncation), biases 0, norm scales 1, ``masked_spec_embed``
+    ~ U(0, 1).
+    """
+    for name, p in module.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if name.endswith("masked_spec_embed"):
+            v = torch.rand(p.shape, generator=generator)
+        elif "norm" in name:
+            v = torch.ones(p.shape) if leaf == "weight" else torch.zeros(p.shape)
+        elif leaf == "bias":
+            v = torch.zeros(p.shape)
+        else:                                   # [out, in(, k)]: fan_in = prod(shape[1:])
+            fan_in = math.prod(p.shape[1:])
+            v = torch.randn(p.shape, generator=generator) / math.sqrt(fan_in)
+        p.copy_(v)
