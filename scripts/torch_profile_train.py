@@ -1,0 +1,108 @@
+#!/usr/bin/env python3
+"""Where the port's training time goes on one CUDA card.
+
+    python3 scripts/torch_profile_train.py
+
+Builds ``chip_smoke.py``'s training configuration (full-width bf16 wav2vec2-base, 512x3
+head, SGD at lr 1e-3, B=96 raw 2 kHz int16 windows preprocessed on the card) and prints:
+
+* host-clock ms per step for each stage of a train step, each ending in a device sync
+  (median of 5): preprocessing, the training forward with the loss, forward + backward,
+  and the whole step with the optimizer update;
+* one ``torch.profiler`` trace of a train step as ``SupervisedTrainer`` runs it (one
+  batch through ``_run_epoch``, after a warm-up step): device time by kernel, and total
+  device time against wall time (the card's busy share).
+"""
+
+from __future__ import annotations
+
+import statistics
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+from wav2vec_heart_sounds_tpu_torch.data.fragments import FragmentDataset  # noqa: E402
+from wav2vec_heart_sounds_tpu_torch.experiments.cinc import _device_prep  # noqa: E402
+from wav2vec_heart_sounds_tpu_torch.experiments.common import make_loader  # noqa: E402
+from wav2vec_heart_sounds_tpu_torch.models.build import build_classifier  # noqa: E402
+from wav2vec_heart_sounds_tpu_torch.models.classifier import ClassifierConfig  # noqa: E402
+from wav2vec_heart_sounds_tpu_torch.train.classifier import SupervisedTrainer  # noqa: E402
+from wav2vec_heart_sounds_tpu_torch.train.losses import cross_entropy  # noqa: E402
+
+TOP = 30   # kernels listed
+
+
+def host_ms(fn, runs: int = 5) -> float:
+    times = []
+    for _ in range(runs + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[1:])
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    fs_wire, fs, bs = chip_smoke.FS_WIRE, chip_smoke.FS, chip_smoke.TRAIN_BATCH
+    win_len = int(chip_smoke.WINDOW_S * fs)
+    recordings = chip_smoke.synthetic_recordings(1, chip_smoke.TRAIN_PATIENTS,
+                                                 chip_smoke.TRAIN_WINDOWS)
+    loader = make_loader(FragmentDataset(recordings, fs=fs_wire), bs, train=True)
+    model = build_classifier(ClassifierConfig(num_classes=2, head_hidden=(512, 512, 512), fs=fs),
+                             seed=0, device="cuda", dtype=torch.bfloat16, train=True)
+    prep = _device_prep(fs_wire, fs, win_len, "cuda")
+    trainer = SupervisedTrainer(model, optimizer_name="sgd", lr=1e-3, device_preprocess=prep,
+                                log=lambda line: None)
+
+    batch = next(iter(loader))
+    raw = torch.as_tensor(batch["waveform"], device="cuda")
+    y = torch.as_tensor(batch["label"], device="cuda")
+    valid = torch.as_tensor(batch["valid"], device="cuda").float()
+    with torch.no_grad():
+        x = prep(raw)
+    gen = torch.Generator().manual_seed(0)
+
+    def forward():
+        return cross_entropy(model(x, train=True, generator=gen), y, valid)
+
+    def forward_backward():
+        model.zero_grad(set_to_none=True)
+        forward().backward()
+
+    with torch.no_grad():
+        print(f"preprocess [{bs}, {raw.shape[1]}] int16 -> [{bs}, {win_len}]: "
+              f"{host_ms(lambda: prep(raw)):.3f} ms/step")
+    print(f"training forward + loss, bf16 B={bs}: {host_ms(forward):.3f} ms/step")
+    print(f"forward + backward: {host_ms(forward_backward):.3f} ms/step")
+    print(f"whole train step (+ optimizer): "
+          f"{host_ms(lambda: trainer._train_step(x, y, valid, 1e-3)):.3f} ms/step")
+    print(f"peak device memory of a step: {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+    trainer._run_epoch(loader, True, 1)                                  # warm-up
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        trainer._run_epoch(loader, True, 1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"one train step through _run_epoch (batching, transfer, preprocessing included): "
+          f"wall {wall_ms:.1f} ms, device busy {device_ms:.1f} ms "
+          f"({100 * device_ms / wall_ms:.1f}%)")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:TOP]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  {e.key[:100]}")
+
+
+if __name__ == "__main__":
+    main()

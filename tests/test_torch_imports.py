@@ -2,8 +2,11 @@
 and its numpy copies of the JAX package's host layers give identical results."""
 
 import ast
+import inspect
 import subprocess
 import sys
+import textwrap
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -14,11 +17,13 @@ from wav2vec_heart_sounds_tpu.data import labels as jax_labels
 from wav2vec_heart_sounds_tpu.data import loader as jax_loader
 from wav2vec_heart_sounds_tpu.data.fragments import Fragment as JaxFragment
 from wav2vec_heart_sounds_tpu.data.fragments import FragmentDataset as JaxDataset
+from wav2vec_heart_sounds_tpu.experiments import common as jax_common
 from wav2vec_heart_sounds_tpu.signal import filters as jax_filters
 from wav2vec_heart_sounds_tpu.train.metrics import ConfusionMatrix as JaxConfusionMatrix
 from wav2vec_heart_sounds_tpu_torch import config
 from wav2vec_heart_sounds_tpu_torch.data import loader
 from wav2vec_heart_sounds_tpu_torch.data.fragments import Fragment, FragmentDataset
+from wav2vec_heart_sounds_tpu_torch.experiments import common
 from wav2vec_heart_sounds_tpu_torch.ops.kernels import build
 from wav2vec_heart_sounds_tpu_torch.train.metrics import ConfusionMatrix
 
@@ -44,6 +49,12 @@ x = preprocess_pcg(torch.randn(2, 1000), 2000, 4000)
 with torch.inference_mode():
     logits = model(x)
 assert logits.shape == (2, 2) and bool(torch.isfinite(logits).all())
+from wav2vec_heart_sounds_tpu_torch.train.classifier import SupervisedTrainer
+trained = build_classifier(ClassifierConfig(head_hidden=(8,), encoder=Wav2Vec2Config.tiny()),
+                           train=True)
+batch = {{"waveform": np.random.default_rng(0).normal(size=(2, 1000)).astype(np.float32),
+         "label": np.array([0, 1]), "valid": np.ones(2, bool)}}
+SupervisedTrainer(trained, log=lambda s: None).fit([batch], [batch], 1)
 print("PORT_OK", sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}
                         and sys.modules[m] is not None))
 """
@@ -142,3 +153,57 @@ def test_kernel_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.load_library("attention_qkv_fwd")
     assert not (tmp_path / "build").exists()
+
+
+def _code(fn) -> str:
+    """The function's AST without its docstring (comments are not in the AST)."""
+    node = ast.parse(textwrap.dedent(inspect.getsource(fn))).body[0]
+    if ast.get_docstring(node) is not None:
+        node.body = node.body[1:]
+    return ast.dump(node)
+
+
+@pytest.mark.parametrize("ours,theirs", [
+    (loader.prefetch_threaded, jax_loader.prefetch_threaded),
+    (common.make_loader, jax_common.make_loader)])
+def test_copied_functions_have_the_originals_code(ours, theirs):
+    assert _code(ours) == _code(theirs)
+
+
+def test_prefetch_threaded_matches_original():
+    def fail_at_3():
+        for i in range(5):
+            if i == 3:
+                raise KeyError("worker")
+            yield i
+
+    for prefetch in (loader.prefetch_threaded, jax_loader.prefetch_threaded):
+        assert list(prefetch(range(7), lambda i: i * i, depth=2)) == [i * i for i in range(7)]
+        got = []
+        with pytest.raises(KeyError, match="worker"):
+            for item in prefetch(fail_at_3()):
+                got.append(item)
+        assert got == [0, 1, 2]
+        before = threading.active_count()
+        for i, _ in enumerate(prefetch(range(1000), depth=1)):     # abandoned early
+            if i == 2:
+                break
+        for _ in range(50):                                         # the worker winds down
+            if threading.active_count() <= before:
+                break
+            threading.Event().wait(0.05)
+        assert threading.active_count() <= before
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_make_loader_matches_original(train):
+    frags = _fragments(n=9)
+    ours = common.make_loader(FragmentDataset([Fragment(*f) for f in frags], fs=1000), 4, train,
+                              seed=2, target_len=60)
+    theirs = jax_common.make_loader(JaxDataset([JaxFragment(*f) for f in frags], fs=1000), 4,
+                                    train, seed=2, target_len=60)
+    assert ours.wire_int16 == theirs.wire_int16 == train
+    for a, b in zip(ours, theirs, strict=True):
+        assert a["waveform"].dtype == b["waveform"].dtype
+        np.testing.assert_array_equal(a["waveform"], b["waveform"])
+        np.testing.assert_array_equal(a["label"], b["label"])

@@ -1,13 +1,20 @@
-// Packed-QKV attention forward for NVIDIA Hopper (sm_90a), eval mode (no dropout).
+// Packed-QKV attention forward for NVIDIA Hopper (sm_90a), with attention dropout.
 //
 // Replaces the TPU kernel wav2vec_heart_sounds_tpu/ops/pallas/attention.py::_packed_fwd
-// (flash_attention_qkv at rate 0). Computes, for every (batch b, head h):
+// (flash_attention_qkv). Computes, for every (batch b, head h):
 //
-//     out[b, h] = softmax(q k^T / sqrt(d), keys >= t_keys masked) v
+//     p = softmax(q k^T / sqrt(d), keys >= t_keys masked)
+//     out[b, h] = (keep ? p * scale : 0) v,   lse[b, h] = log-sum-exp of the scaled scores
 //
 // where q, k and v are heads h, H + h and 2H + h of ONE packed [B, 3H, T, d] tensor, read
 // in place (no slice copies). Scores, softmax and the PV sum are float32; the output is
-// [B, H, T, d] in the input dtype (float32 or bfloat16).
+// [B, H, T, d] in the input dtype (float32 or bfloat16); lse (float32 [B, H, T], written
+// when its pointer is not null) is what the backward (attention_qkv_bwd.cu) recomputes the
+// probabilities from. Dropout drops the normalised probabilities, as the JAX kernel
+// (attention.py:125-131): the online softmax accumulates the kept e * v while l sums every
+// e, the algebraically identical deferred form (:116-123). keep is Philox4x32-10 of
+// (seed, site) at element index ((b*H + h)*T + q)*T + k (philox.cuh), the index the
+// backward and the plain version use; threshold 0 (rate 0, eval) skips it.
 //
 // What bounds it on this card: at wav2vec2-base's T ~ 199 and d = 64 one (b, h) pair is
 // ~5 MFLOP against 76 KB of q/k/v (bf16), far too little work per byte and per launch for
@@ -25,11 +32,17 @@
 //   * an online softmax (running max and sum per row) walks the key tiles, so any T and
 //     the ragged last tile need no padding, and the [T, T] probabilities never leave
 //     registers.
-// No wgmma or TMA yet: the first version is the simple one that is right.
+// No wgmma or TMA yet: the first version is the simple one that is right. With dropout on,
+// each lane draws one Philox call per (row, key) it owns: about as many integer
+// operations again as the score step, paid only in training.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <cstdint>
+
+#include "philox.cuh"
 
 namespace {
 
@@ -56,10 +69,13 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T, int D>
+// kTrain = false is the eval instantiation (no dropout, no lse): exactly the rate-0 kernel
+// that came before training, so adding training costs eval nothing.
+template <typename T, int D, bool kTrain>
 __global__ void __launch_bounds__(kThreads)
-attention_qkv_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int heads,
-                         int seq, int t_keys, float scale) {
+attention_qkv_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
+                         float* __restrict__ lse, int heads, int seq, int t_keys, float scale,
+                         uint32_t seed, uint32_t site, uint32_t thr, float drop_scale) {
   constexpr int KT = 64;                  // keys per shared-memory tile
   constexpr int KPL = KT / 32;            // keys per lane in the score step
   constexpr int DPL = D / 32;             // output columns per lane in the PV step
@@ -160,6 +176,13 @@ attention_qkv_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int hea
       m[rr] = m_new;
 #pragma unroll
       for (int i = 0; i < DPL; ++i) acc[rr][i] *= corr;
+      if (kTrain && thr) {                      // dropout: l keeps every e, PV only the kept
+        const unsigned long long row_index =
+            (static_cast<unsigned long long>(bh) * seq + q0 + row0 + rr) * seq + k0 + lane;
+#pragma unroll
+        for (int j = 0; j < KPL; ++j)
+          if (w2v::philox_bits(seed, site, row_index + j * 32) < thr) s[rr][j] = 0.f;
+      }
     }
 
     // PV: lane owns columns lane + 32 i; probabilities arrive by shuffle from their lane.
@@ -181,7 +204,9 @@ attention_qkv_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int hea
   for (int rr = 0; rr < kRowsPerWarp; ++rr) {
     const int row = q0 + row0 + rr;
     if (row >= seq) continue;
-    const float inv = 1.f / l[rr];
+    const float inv = (kTrain ? drop_scale : 1.f) / l[rr];
+    if (kTrain && lse != nullptr && lane == 0)
+      lse[static_cast<size_t>(bh) * seq + row] = m[rr] + logf(l[rr]);
 #pragma unroll
     for (int i = 0; i < DPL; ++i)
       store(o_g + static_cast<size_t>(row) * D + lane + 32 * i, acc[rr][i] * inv);
@@ -192,20 +217,29 @@ attention_qkv_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int hea
 constexpr int kHeadDim = 64;
 
 template <typename T>
-int launch(const void* qkv, void* out, int batch, int heads, int seq, int t_keys,
-           float scale, cudaStream_t stream) {
+int launch(const void* qkv, void* out, void* lse, int batch, int heads, int seq, int t_keys,
+           float scale, uint32_t seed, uint32_t site, uint32_t thr, float drop_scale,
+           cudaStream_t stream) {
   const dim3 grid(batch * heads, (seq + kQueryTile - 1) / kQueryTile);
-  attention_qkv_fwd_kernel<T, kHeadDim><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), heads, seq, t_keys, scale);
+  if (lse == nullptr && thr == 0)
+    attention_qkv_fwd_kernel<T, kHeadDim, false><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(qkv), static_cast<T*>(out), nullptr, heads, seq, t_keys, scale,
+        seed, site, thr, drop_scale);
+  else
+    attention_qkv_fwd_kernel<T, kHeadDim, true><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(qkv), static_cast<T*>(out), static_cast<float*>(lse), heads,
+        seq, t_keys, scale, seed, site, thr, drop_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16. Returns the
-// cudaError_t of the launch (0 = launched); the caller raises on anything else.
-extern "C" int attention_qkv_fwd(const void* qkv, void* out, int batch, int heads, int seq,
-                                 int head_dim, int t_keys, float scale, int dtype,
+// C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16. lse may be null
+// (eval; with thr 0 too, the eval instantiation runs). thr = uint32(rate * (2^32 - 1)) (0 = no dropout), drop_scale = 1 / (1 - rate).
+// Returns the cudaError_t of the launch (0 = launched); the caller raises on anything else.
+extern "C" int attention_qkv_fwd(const void* qkv, void* out, void* lse, int batch, int heads,
+                                 int seq, int head_dim, int t_keys, float scale, uint32_t seed,
+                                 uint32_t site, uint32_t thr, float drop_scale, int dtype,
                                  void* stream) {
   if (batch <= 0 || heads <= 0 || seq <= 0 || t_keys <= 0 || t_keys > seq ||
       head_dim != kHeadDim)
@@ -213,9 +247,11 @@ extern "C" int attention_qkv_fwd(const void* qkv, void* out, int batch, int head
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch<float>(qkv, out, batch, heads, seq, t_keys, scale, s);
+      return launch<float>(qkv, out, lse, batch, heads, seq, t_keys, scale, seed, site, thr,
+                           drop_scale, s);
     case 1:
-      return launch<__nv_bfloat16>(qkv, out, batch, heads, seq, t_keys, scale, s);
+      return launch<__nv_bfloat16>(qkv, out, lse, batch, heads, seq, t_keys, scale, seed, site,
+                                   thr, drop_scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,13 +1,14 @@
-"""Host-side batching: balanced sampling and static-shape padded batches.
+"""Host-side batching: balanced sampling, static-shape padded batches, threaded prefetch.
 
-Copy of ``pad_batch`` and ``Batcher`` from ``wav2vec_heart_sounds_tpu/data/loader.py``
-(numpy only), held to the original by ``tests/test_torch_imports.py``. Device prefetch is
-not ported yet: batches stay numpy and the caller moves them to the card.
+Copy of ``pad_batch``, ``Batcher`` and ``prefetch_threaded`` from
+``wav2vec_heart_sounds_tpu/data/loader.py`` (numpy and the standard library only), held to
+the original by ``tests/test_torch_imports.py``. Batches stay numpy; the trainer moves
+them to the card inside ``prefetch_threaded``'s transform, on its side thread.
 """
 
 from __future__ import annotations
 
-from typing import Iterator
+from typing import Iterable, Iterator
 
 import numpy as np
 
@@ -109,3 +110,50 @@ class Batcher:
             if augmented is not None:
                 out["augmented"] = np.asarray(augmented, dtype=bool)
             yield out
+
+
+def prefetch_threaded(iterator: Iterable, transform=None, depth: int = 2) -> Iterator:
+    """Background-thread prefetch: batch assembly (and an optional transform, e.g. the
+    host->device transfer) runs ahead of consumption on a side thread, overlapping with
+    device compute. Order-preserving; worker exceptions re-raise at the consumer."""
+    import queue as queue_mod
+    import threading
+
+    q: "queue_mod.Queue" = queue_mod.Queue(maxsize=depth)
+    stop = object()
+    cancelled = threading.Event()
+    failure: list[BaseException] = []
+
+    def put(item) -> bool:
+        # Bounded put that aborts when the consumer abandoned the generator (e.g. a
+        # max_batches break) — otherwise the worker blocks forever on the full queue,
+        # leaking the thread and ~depth device-resident batches per abandoned epoch.
+        while not cancelled.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue_mod.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in iterator:
+                if not put(transform(item) if transform is not None else item):
+                    return
+        except BaseException as exc:   # noqa: BLE001 — re-raised at the consumer
+            failure.append(exc)
+        finally:
+            put(stop)
+
+    threading.Thread(target=worker, daemon=True).start()
+    try:
+        while True:
+            item = q.get()
+            if item is stop:
+                if failure:
+                    raise failure[0]
+                return
+            yield item
+    finally:
+        cancelled.set()

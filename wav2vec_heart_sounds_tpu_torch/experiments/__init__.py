@@ -1,1 +1,1 @@
-"""Runners: the CinC scoring path."""
+"""Runners: the CinC scoring path, and the loader helper of the training runners."""

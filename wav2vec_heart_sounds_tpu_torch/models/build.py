@@ -9,8 +9,11 @@ from .wav2vec2 import init_parameters
 
 
 def build_classifier(cfg: ClassifierConfig, seed: int = 0, device="cpu",
-                     dtype: torch.dtype = torch.float32) -> Wav2VecClassifier:
-    """Random-init classifier in eval mode on ``device``, computing in ``dtype``.
+                     dtype: torch.dtype = torch.float32, train: bool = False
+                     ) -> Wav2VecClassifier:
+    """Random-init classifier on ``device``, computing in ``dtype``, in eval mode, or in
+    ``.train()`` mode for a trainer with ``train=True`` (the forward's ``train`` argument
+    picks the training path).
 
     The dtype is the caller's choice, never inferred from the device. Weights come from a
     CPU ``torch.Generator`` seeded with ``seed``, so the same seed gives the same weights
@@ -21,4 +24,4 @@ def build_classifier(cfg: ClassifierConfig, seed: int = 0, device="cpu",
         model = Wav2VecClassifier(cfg, dtype)
     model.to_empty(device=device)
     init_parameters(model, torch.Generator().manual_seed(seed))
-    return model.eval()
+    return model.train(train)

@@ -1,7 +1,8 @@
 """Wav2Vec 2.0 heart-sound classifier (port of ``models/classifier.py``, single channel).
 
 Mean-pooled encoder output (float32) feeds a small MLP head whose hidden layers run in the
-compute dtype and whose logits layer runs in float32, as in the JAX package.
+compute dtype and whose logits layer runs in float32, as in the JAX package. Every
+parameter trains: LoRA adapters and the frozen encoder come with the vest slice.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ class ClassifierConfig:
     num_classes: int = 2
     num_channels: int = 1
     head_hidden: tuple[int, ...] = (256,)
+    lora: bool = False
+    freeze_encoder: bool = False
     fs: int = 4125
     encoder: Wav2Vec2Config = field(default_factory=Wav2Vec2Config)
 
@@ -50,16 +53,24 @@ class Wav2VecClassifier(nn.Module):
             raise NotImplementedError(
                 "multichannel input (the sinc beamformer) is not ported yet; it comes "
                 "with the vest slice")
+        if config.lora or config.freeze_encoder:
+            raise NotImplementedError(
+                "LoRA adapters and the frozen encoder (the optimizer's freeze mask) are not "
+                "ported yet; they come with the vest slice")
         self.config = config
         self.encoder = Wav2Vec2Model(config.encoder, dtype)
         self.head = MLPHead(config.encoder.hidden_size, config.head_hidden,
                             config.num_classes, dtype)
 
-    def encode(self, x: torch.Tensor) -> torch.Tensor:
+    def encode(self, x: torch.Tensor, train: bool = False,
+               generator: torch.Generator | None = None) -> torch.Tensor:
         """Mean-pooled encoder features ``[B, hidden]`` (float32) for ``[B, T]`` or ``[B, T, C]``."""
         if x.ndim == 3:
             x = x[:, :, 0] if x.shape[2] == 1 else x.mean(dim=2)
-        return self.encoder(x).mean(dim=1).float()
+        return self.encoder(x, train, generator).mean(dim=1).float()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.head(self.encode(x))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """Logits; ``train=True`` runs the training forward (dropout, SpecAugment) with its
+        randomness drawn from ``generator`` (see ``Wav2Vec2Model.forward``)."""
+        return self.head(self.encode(x, train, generator))

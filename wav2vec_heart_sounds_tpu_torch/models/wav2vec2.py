@@ -1,4 +1,4 @@
-"""Wav2Vec 2.0 encoder in PyTorch, eval mode (port of ``models/wav2vec2.py``).
+"""Wav2Vec 2.0 encoder in PyTorch (port of ``models/wav2vec2.py``), eval and training.
 
 wav2vec2-base: a 7-layer strided conv feature encoder (GroupNorm on conv_0), the feature
 projection, a weight-normed grouped positional conv (materialised at load), and 12
@@ -12,8 +12,18 @@ statistics and emits the compute dtype (the JAX package's ``_ln_apply`` and
 tanh form in bfloat16 (``_cascade_gelu``), the FFN and the positional conv keep erf, and
 float32 is erf throughout.
 
-Not ported yet: SpecAugment, dropout and LoRA (training), and ``conv_time_plan``'s tile
-padding, which gives the same numbers as the exact lengths used here.
+Training (``forward(x, train=True, generator=g)``) follows the JAX package's accelerator
+path with the decomposed FFN (``W2VHS_FFN_MEGA=0``, ``wav2vec2.py:783-789``), through the
+port's kernels at any rate: feature-projection and encoder dropout (K1,
+:mod:`..ops.kernels.dropout`), attention with dropout (K3b), both residual tails
+``LN(x + dropout(h))`` (K2, :mod:`..ops.kernels.resid`) and the FFN activation
+``dropout(gelu(x W1 + b1))`` (K5, :mod:`..ops.kernels.ffn`); SpecAugment time masking
+fills masked frames with ``masked_spec_embed``. One base seed per forward is drawn from
+``g`` (a CPU ``torch.Generator``), then the SpecAugment span starts; each dropout site
+keys its Philox mask with that seed and its own site index (:func:`layer_sites`).
+
+Not ported yet: LoRA, and ``conv_time_plan``'s tile padding, which gives the same numbers
+as the exact lengths used here.
 """
 
 from __future__ import annotations
@@ -26,8 +36,20 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels import attention as _attention
+from ..ops.kernels.dropout import dropout
+from ..ops.kernels.ffn import dense_gelu_dropout
+from ..ops.kernels.resid import dropout_add_layernorm
 
 HIDDEN = 768  # wav2vec2-base hidden size
+
+# Dropout sites: each keys its Philox mask with (step seed, site).
+SITE_FEATURE_PROJECTION, SITE_ENCODER = 0, 1
+
+
+def layer_sites(index: int) -> tuple[int, int, int, int]:
+    """Sites of encoder layer ``index``: attention, attention tail, FFN activation, FFN tail."""
+    base = 2 + 4 * index
+    return base, base + 1, base + 2, base + 3
 
 
 @dataclass(frozen=True)
@@ -43,6 +65,12 @@ class Wav2Vec2Config:
     pos_conv_kernel: int = 128
     pos_conv_groups: int = 16
     layer_norm_eps: float = 1e-5
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    activation_dropout: float = 0.1
+    feat_proj_dropout: float = 0.1
+    mask_time_prob: float = 0.05
+    mask_time_length: int = 10
 
     @classmethod
     def tiny(cls, **kw) -> "Wav2Vec2Config":
@@ -180,14 +208,19 @@ class SelfAttention(nn.Module):
         self.v_proj = nn.Linear(d, d, dtype=dtype)
         self.out_proj = nn.Linear(d, d, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seed: int | None = None, site: int = 0,
+                rate: float = 0.0) -> torch.Tensor:
+        """Eval with ``seed=None``; else training attention with dropout ``rate``."""
         B, T, D = x.shape
         H = self.num_heads
         projs = (self.q_proj, self.k_proj, self.v_proj)
         w = torch.cat([p.weight for p in projs])
         b = torch.cat([p.bias for p in projs])
         qkv = F.linear(x, w, b).view(B, T, 3 * H, D // H).transpose(1, 2).contiguous()
-        out = _attention.flash_attention_qkv(qkv, T)                    # [B, H, T, d]
+        if seed is None:
+            out = _attention.flash_attention_qkv(qkv, T)                # [B, H, T, d]
+        else:
+            out = _attention.attention_qkv_train(qkv, T, rate, seed, site)
         return self.out_proj(out.transpose(1, 2).reshape(B, T, D))
 
 
@@ -202,31 +235,51 @@ class FeedForward(nn.Module):
 
 
 class EncoderLayer(nn.Module):
-    """Post-norm transformer block: LN(x + attn(x)), then LN(x + ffn(x))."""
+    """Post-norm transformer block: LN(x + attn(x)), then LN(x + ffn(x)).
 
-    def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype):
+    In training (``seed`` given) both tails are ``LN(x + dropout(h))`` (K2) and the FFN's
+    first product feeds the activation kernel ``dropout(gelu(.))`` (K5)."""
+
+    def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype, index: int = 0):
         super().__init__()
+        self.cfg = cfg
+        self.sites = layer_sites(index)
         self.attention = SelfAttention(cfg, dtype)
         self.layer_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype)
         self.feed_forward = FeedForward(cfg, dtype)
         self.final_layer_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.layer_norm(x + self.attention(x))
-        return self.final_layer_norm(x + self.feed_forward(x))
+    def forward(self, x: torch.Tensor, seed: int | None = None) -> torch.Tensor:
+        if seed is None:
+            x = self.layer_norm(x + self.attention(x))
+            return self.final_layer_norm(x + self.feed_forward(x))
+        cfg, (s_attn, s_tail1, s_act, s_tail2) = self.cfg, self.sites
+        eps, rate = cfg.layer_norm_eps, cfg.hidden_dropout
+        attn = self.attention(x, seed, s_attn, cfg.attention_dropout)
+        x = dropout_add_layernorm(attn, x, self.layer_norm.weight, self.layer_norm.bias, seed,
+                                  s_tail1, rate, eps)
+        ffn = self.feed_forward
+        h = dense_gelu_dropout(x, ffn.intermediate_dense.weight, ffn.intermediate_dense.bias,
+                               seed, s_act, cfg.activation_dropout)
+        h = ffn.output_dense(h)
+        return dropout_add_layernorm(h, x, self.final_layer_norm.weight,
+                                     self.final_layer_norm.bias, seed, s_tail2, rate, eps)
 
 
 class Encoder(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype):
         super().__init__()
+        self.rate = cfg.hidden_dropout
         self.pos_conv_embed = PositionalConvEmbedding(cfg, dtype)
         self.layer_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype)
-        self.layers = nn.ModuleList(EncoderLayer(cfg, dtype) for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(EncoderLayer(cfg, dtype, i) for i in range(cfg.num_layers))
 
-    def forward(self, h: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, seed: int | None = None) -> torch.Tensor:
         h = self.layer_norm(h + self.pos_conv_embed(h))
+        if seed is not None:
+            h = dropout(h, seed, SITE_ENCODER, self.rate)
         for layer in self.layers:
-            h = layer(h)
+            h = layer(h, seed)
         return h
 
 
@@ -243,9 +296,34 @@ class Wav2Vec2Model(nn.Module):
         # Kept so HF checkpoints load strictly; used only by SpecAugment in training.
         self.masked_spec_embed = nn.Parameter(torch.zeros(cfg.hidden_size))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """``train=True`` draws the step's dropout seed, then the SpecAugment spans, from
+        ``generator`` (a CPU ``torch.Generator``; ``None`` takes torch's default)."""
         h = self.feature_extractor(x).transpose(1, 2)                   # [B, T', C]
-        return self.encoder(self.feature_projection(h))
+        h = self.feature_projection(h)
+        if not train:
+            return self.encoder(h)
+        cfg = self.config
+        seed = int(torch.randint(0, 2 ** 32, (1,), generator=generator))
+        h = dropout(h, seed, SITE_FEATURE_PROJECTION, cfg.feat_proj_dropout)
+        if cfg.mask_time_prob > 0:
+            mask = sample_time_mask(generator, h.shape[0], h.shape[1], cfg.mask_time_prob,
+                                    cfg.mask_time_length).to(h.device)
+            h = torch.where(mask[:, :, None], self.masked_spec_embed.to(h.dtype), h)
+        return self.encoder(h, seed)
+
+
+def sample_time_mask(generator: torch.Generator | None, batch: int, length: int, prob: float,
+                     span: int) -> torch.Tensor:
+    """SpecAugment boolean time mask ``[B, T']`` on the CPU (``_sample_time_mask`` of the
+    JAX package): ``max(1, int(prob * T'))`` span starts per row, uniform in
+    ``[0, max(1, T' - span))``, each masking ``span`` frames."""
+    num_spans = max(1, int(prob * length))
+    starts = torch.randint(0, max(1, length - span), (batch, num_spans), generator=generator)
+    pos = torch.arange(length)
+    hit = (pos >= starts[:, :, None]) & (pos < starts[:, :, None] + span)
+    return hit.any(dim=1)
 
 
 @torch.no_grad()

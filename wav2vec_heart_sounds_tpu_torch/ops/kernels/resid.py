@@ -1,0 +1,134 @@
+"""Residual tail ``LayerNorm(x + dropout(h))`` (K2): CUDA kernels, plain versions, autograd op.
+
+Port of ``wav2vec_heart_sounds_tpu/ops/pallas/resid.py::dropout_add_layernorm``. The sum is
+rounded to the compute dtype before the float32 statistics and saved for the backward, which
+regenerates the Philox mask of ``(seed, site)`` (:mod:`..philox`) instead of storing it.
+``weight``/``bias`` are the float32 LayerNorm parameters. :func:`dropout_add_layernorm`
+takes the plain versions only for CPU tensors; CUDA tensors go to ``csrc/resid.cu`` or
+raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import philox
+from . import build
+from .dropout import DTYPE_CODES, check_cuda
+
+_P, _U32, _F, _I = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float, ctypes.c_int
+MAX_COLS = 768      # widest row the kernel takes (wav2vec2-base's hidden size)
+PARTIAL_BLOCKS = 1024
+
+
+def _stats(sf: torch.Tensor, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    mean = sf.mean(dim=-1, keepdim=True)
+    var = ((sf * sf).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    return mean, torch.rsqrt(var + eps)
+
+
+def resid_fwd_reference(h, x, weight, bias, seed: int, site: int, rate: float, eps: float):
+    """Plain forward: ``(out, s)`` with ``s = round(x + dropout(h))`` in ``h.dtype``."""
+    keep = philox.keep_mask(seed, site, h.shape, rate, h.device)
+    hf = torch.where(keep, h.float() * philox.keep_scale(rate), 0.0)
+    s = (x.float() + hf).to(h.dtype)
+    sf = s.float()
+    mean, rstd = _stats(sf, eps)
+    return ((sf - mean) * rstd * weight + bias).to(h.dtype), s
+
+
+def resid_bwd_reference(g, s, weight, seed: int, site: int, rate: float, eps: float):
+    """Plain backward: ``(dh, dx, dweight, dbias)``; the vector gradients are float32."""
+    sf, gf = s.float(), g.float()
+    mean, rstd = _stats(sf, eps)
+    shat = (sf - mean) * rstd
+    gs = gf * weight
+    ds = rstd * (gs - gs.mean(dim=-1, keepdim=True)
+                 - shat * (gs * shat).mean(dim=-1, keepdim=True))
+    keep = philox.keep_mask(seed, site, g.shape, rate, g.device)
+    dh = torch.where(keep, ds * philox.keep_scale(rate), 0.0).to(g.dtype)
+    c = g.shape[-1]
+    return dh, ds.to(g.dtype), (gf * shat).reshape(-1, c).sum(0), gf.reshape(-1, c).sum(0)
+
+
+def _check(name, rows_like: torch.Tensor, *vectors: torch.Tensor) -> tuple[int, int]:
+    c = rows_like.shape[-1]
+    if c % 128 or c > MAX_COLS:
+        raise ValueError(f"{name}: row width {c}; the kernel takes multiples of 128 up to "
+                         f"{MAX_COLS}")
+    for v in vectors:
+        if v.dtype != torch.float32 or not v.is_cuda or tuple(v.shape) != (c,):
+            raise ValueError(f"{name}: LayerNorm parameters must be float32 CUDA [{c}]")
+    return rows_like.numel() // c, c
+
+
+def resid_fwd_kernel(h, x, weight, bias, seed: int, site: int, rate: float, eps: float):
+    """Launch the forward of ``csrc/resid.cu``; counts launches in ``.launches``."""
+    check_cuda("resid_fwd_kernel", h, x)
+    if x.dtype != h.dtype or x.shape != h.shape:
+        raise ValueError("resid_fwd_kernel: h and x must share shape and dtype")
+    rows, cols = _check("resid_fwd_kernel", h, weight, bias)
+    out, s = torch.empty_like(h), torch.empty_like(h)
+    fn = build.entry("resid", "resid_fwd",
+                     (_P, _P, _P, _P, _P, _P, _I, _I, _F, _U32, _U32, _U32, _F, _I, _I, _P))
+    blocks = min(-(-rows // 4), 65535)
+    build.check(fn(h.data_ptr(), x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                   out.data_ptr(), s.data_ptr(), rows, cols, eps, seed, site,
+                   philox.threshold(rate), philox.keep_scale(rate), blocks,
+                   DTYPE_CODES[h.dtype], build.stream(h)), "resid_fwd_kernel")
+    resid_fwd_kernel.launches += 1
+    return out, s
+
+
+def resid_bwd_kernel(g, s, weight, seed: int, site: int, rate: float, eps: float):
+    """Launch the backward of ``csrc/resid.cu``; counts launches in ``.launches``."""
+    check_cuda("resid_bwd_kernel", g, s)
+    if s.dtype != g.dtype or s.shape != g.shape:
+        raise ValueError("resid_bwd_kernel: g and s must share shape and dtype")
+    rows, cols = _check("resid_bwd_kernel", g, weight)
+    blocks = min(-(-rows // 4), PARTIAL_BLOCKS)
+    dh, dx = torch.empty_like(g), torch.empty_like(g)
+    parts = torch.empty((2, blocks, cols), dtype=torch.float32, device=g.device)
+    fn = build.entry("resid", "resid_bwd",
+                     (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _U32, _U32, _U32, _F, _I, _I, _P))
+    build.check(fn(g.data_ptr(), s.data_ptr(), weight.data_ptr(), dh.data_ptr(), dx.data_ptr(),
+                   parts[0].data_ptr(), parts[1].data_ptr(), rows, cols, eps, seed, site,
+                   philox.threshold(rate), philox.keep_scale(rate), blocks,
+                   DTYPE_CODES[g.dtype], build.stream(g)), "resid_bwd_kernel")
+    resid_bwd_kernel.launches += 1
+    dweight, dbias = parts.sum(dim=1)
+    return dh, dx, dweight, dbias
+
+
+resid_fwd_kernel.launches = 0
+resid_bwd_kernel.launches = 0
+
+
+class _ResidTail(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, x, weight, bias, seed, site, rate, eps):
+        args = (seed, site, rate, eps)
+        if h.device.type == "cpu":
+            out, s = resid_fwd_reference(h, x, weight, bias, *args)
+        else:
+            out, s = resid_fwd_kernel(h.contiguous(), x.contiguous(), weight, bias, *args)
+        ctx.save_for_backward(s, weight)
+        ctx.args = args
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        s, weight = ctx.saved_tensors
+        if g.device.type == "cpu":
+            dh, dx, dw, db = resid_bwd_reference(g, s, weight, *ctx.args)
+        else:
+            dh, dx, dw, db = resid_bwd_kernel(g.contiguous(), s, weight, *ctx.args)
+        return dh, dx, dw, db, None, None, None, None
+
+
+def dropout_add_layernorm(h, x, weight, bias, seed: int, site: int, rate: float,
+                          eps: float = 1e-5) -> torch.Tensor:
+    """``LayerNorm(x + dropout(h))`` over the last axis, in ``h.dtype``; differentiable."""
+    return _ResidTail.apply(h, x.to(h.dtype), weight, bias, seed, site, rate, eps)

@@ -1,1 +1,1 @@
-"""Evaluation and metrics."""
+"""Training (losses, the float32-master optimizer, the supervised trainer), evaluation and metrics."""

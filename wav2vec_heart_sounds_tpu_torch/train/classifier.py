@@ -1,0 +1,120 @@
+"""Supervised classifier training (port of ``train/classifier.py::SupervisedTrainer``).
+
+The JAX trainer's epoch loop, with its semantics: batches arrive through
+``prefetch_threaded`` (the host-to-device copy runs on its side thread), the raw wire is
+preprocessed on the device by ``device_preprocess`` and dequantised, and each train step
+runs the model's training forward (dropout, SpecAugment), the valid-masked cross-entropy,
+the backward through the port's kernels, and the float32-master update
+(:class:`..optim.MasterOptimizer`: global-norm clip at 5.0, sgd / adam / adamw, the
+per-epoch learning rate of :func:`..optim.lr_schedule`). Losses and predictions stay on
+the card until the end of the epoch, so the host never waits on a step. The eval epoch
+runs the serving forward under ``torch.inference_mode``. ``fit`` keeps the parameters of
+the best validation MCC, restores them at the end and refreshes the float32 master.
+
+Randomness: one CPU ``torch.Generator`` seeded from ``seed``; each train step's forward
+draws its dropout seed and its SpecAugment spans from it.
+
+Not ported yet: on-device batch augmentation (``batch_transform``), the contrastive-focal
+criterion, freeze and LoRA masks, multi-card data parallelism, the scalar logger and
+on-disk checkpoints.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..data.loader import prefetch_threaded
+from .evaluate import dequant
+from .losses import cross_entropy
+from .metrics import ConfusionMatrix
+from .optim import MasterOptimizer, lr_schedule
+
+
+class SupervisedTrainer:
+    def __init__(self, model: torch.nn.Module, *, optimizer_name: str = "sgd",
+                 lr: float = 1e-3, weight_decay: float = 1e-5,
+                 device_preprocess: Callable | None = None, seed: int = 0,
+                 log: Callable[[str], None] = print):
+        self.model = model
+        self.device = next(model.parameters()).device
+        self.device_preprocess = device_preprocess
+        self.log = log
+        self.optimizer = MasterOptimizer(model.parameters(), optimizer_name, weight_decay)
+        self.schedule = lr_schedule(optimizer_name, lr)
+        self.generator = torch.Generator().manual_seed(seed)
+        self.epoch = 0
+
+    def _to_device(self, batch: dict):
+        """Runs on the prefetch thread: the host-to-device copies overlap the card's work."""
+        def put(a):
+            t = torch.as_tensor(np.asarray(a))
+            if self.device.type == "cuda":
+                t = t.pin_memory()
+            return t.to(self.device, non_blocking=True)
+
+        return (batch, put(batch["waveform"]), put(batch["label"]),
+                put(np.asarray(batch["valid"], dtype=np.float32)))
+
+    def _train_step(self, x, y, valid, lr: float):
+        self.optimizer.zero_grad()
+        logits = self.model(x, train=True, generator=self.generator)
+        loss = cross_entropy(logits, y, valid)
+        loss.backward()
+        self.optimizer.step(lr)
+        return loss.detach(), logits.detach().argmax(dim=1)
+
+    def _eval_step(self, x, y, valid):
+        with torch.inference_mode():
+            logits = self.model(x)
+            return cross_entropy(logits, y, valid), logits.argmax(dim=1)
+
+    def _run_epoch(self, batcher, train: bool, max_batches: int | None
+                   ) -> tuple[ConfusionMatrix, float]:
+        """One epoch; the device syncs wait until its end."""
+        cm = ConfusionMatrix()
+        pending = []
+        lr = self.schedule(self.epoch)
+        self.model.train(train)
+        for i, (batch, x, y, valid) in enumerate(prefetch_threaded(batcher, self._to_device)):
+            if max_batches is not None and i >= max_batches:
+                break
+            with torch.no_grad():
+                if self.device_preprocess is not None:
+                    x = self.device_preprocess(x)
+                x = dequant(x)
+            step = self._train_step(x, y, valid, lr) if train else self._eval_step(x, y, valid)
+            pending.append((*step, batch["label"], batch["valid"]))
+        running = 0.0
+        for loss, preds, labels, valid in pending:
+            cm.update(labels, preds.cpu().numpy(), valid)
+            running += float(loss)
+        return cm, running / max(1, len(pending))
+
+    def fit(self, train_batcher, valid_batcher, epochs: int,
+            max_batches: int | None = None, label: str = "") -> float:
+        """Train ``epochs`` epochs; with a ``valid_batcher``, keep and finally restore the
+        parameters of the best validation MCC. Returns that MCC (-1.0 without one)."""
+        best_mcc, best = -1.0, None
+        prefix = f"{label} " if label else ""
+        for epoch in range(1, epochs + 1):
+            t0 = time.time()
+            train_cm, train_loss = self._run_epoch(train_batcher, True, max_batches)
+            self.epoch += 1
+            line = (f"{prefix}epoch {epoch}/{epochs}: loss={train_loss:.3f} "
+                    f"train {train_cm} [{time.time() - t0:.1f}s]")
+            if valid_batcher is not None:
+                valid_cm, _ = self._run_epoch(valid_batcher, False, max_batches)
+                mcc = valid_cm.stats()["mcc"]
+                line += f" | valid {valid_cm}"
+                if mcc > best_mcc:
+                    best_mcc = mcc
+                    best = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+            self.log(line)
+        if valid_batcher is not None and best is not None:
+            self.model.load_state_dict(best)
+            self.optimizer.refresh()
+        return best_mcc
