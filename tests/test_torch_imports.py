@@ -2,6 +2,7 @@
 and its numpy copies of the JAX package's host layers give identical results."""
 
 import ast
+import importlib
 import inspect
 import subprocess
 import sys
@@ -17,15 +18,25 @@ from wav2vec_heart_sounds_tpu.data import labels as jax_labels
 from wav2vec_heart_sounds_tpu.data import loader as jax_loader
 from wav2vec_heart_sounds_tpu.data.fragments import Fragment as JaxFragment
 from wav2vec_heart_sounds_tpu.data.fragments import FragmentDataset as JaxDataset
+from wav2vec_heart_sounds_tpu.data import cinc as jax_data_cinc
+from wav2vec_heart_sounds_tpu.data import common as jax_data_common
 from wav2vec_heart_sounds_tpu.experiments import common as jax_common
+from wav2vec_heart_sounds_tpu.utils import observe as jax_observe
 from wav2vec_heart_sounds_tpu.signal import filters as jax_filters
 from wav2vec_heart_sounds_tpu.train.metrics import ConfusionMatrix as JaxConfusionMatrix
 from wav2vec_heart_sounds_tpu_torch import config
+from wav2vec_heart_sounds_tpu_torch.data import cinc as data_cinc
+from wav2vec_heart_sounds_tpu_torch.data import common as data_common
 from wav2vec_heart_sounds_tpu_torch.data import loader
 from wav2vec_heart_sounds_tpu_torch.data.fragments import Fragment, FragmentDataset
 from wav2vec_heart_sounds_tpu_torch.experiments import common
 from wav2vec_heart_sounds_tpu_torch.ops.kernels import build
 from wav2vec_heart_sounds_tpu_torch.train.metrics import ConfusionMatrix
+from wav2vec_heart_sounds_tpu_torch.utils import observe
+
+# the JAX package's signal/__init__ re-exports a function named ``segment``
+jax_segment = importlib.import_module("wav2vec_heart_sounds_tpu.signal.segment")
+segment = importlib.import_module("wav2vec_heart_sounds_tpu_torch.signal.segment")
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "wav2vec_heart_sounds_tpu_torch"
@@ -44,14 +55,15 @@ from wav2vec_heart_sounds_tpu_torch.models.build import build_classifier
 from wav2vec_heart_sounds_tpu_torch.models.classifier import ClassifierConfig
 from wav2vec_heart_sounds_tpu_torch.models.wav2vec2 import Wav2Vec2Config
 from wav2vec_heart_sounds_tpu_torch.signal.torchproc import preprocess_pcg
-model = build_classifier(ClassifierConfig(head_hidden=(8,), encoder=Wav2Vec2Config.tiny()))
+model = build_classifier(ClassifierConfig(head_hidden=(8,), encoder=Wav2Vec2Config.tiny()),
+                         device="cpu")
 x = preprocess_pcg(torch.randn(2, 1000), 2000, 4000)
 with torch.inference_mode():
     logits = model(x)
 assert logits.shape == (2, 2) and bool(torch.isfinite(logits).all())
 from wav2vec_heart_sounds_tpu_torch.train.classifier import SupervisedTrainer
 trained = build_classifier(ClassifierConfig(head_hidden=(8,), encoder=Wav2Vec2Config.tiny()),
-                           train=True)
+                           device="cpu", train=True)
 batch = {{"waveform": np.random.default_rng(0).normal(size=(2, 1000)).astype(np.float32),
          "label": np.array([0, 1]), "valid": np.ones(2, bool)}}
 SupervisedTrainer(trained, log=lambda s: None).fit([batch], [batch], 1)
@@ -165,9 +177,41 @@ def _code(fn) -> str:
 
 @pytest.mark.parametrize("ours,theirs", [
     (loader.prefetch_threaded, jax_loader.prefetch_threaded),
-    (common.make_loader, jax_common.make_loader)])
+    (common.make_loader, jax_common.make_loader),
+    (common.append_result, jax_common.append_result),
+    (observe.ScalarLogger, jax_observe.ScalarLogger),
+    (segment.window_starts, jax_segment.window_starts),
+    (segment.pad_or_crop, jax_segment.pad_or_crop),
+    (segment.segment, jax_segment.segment),
+    (config.WindowSpec.hop_len, jax_segment.WindowSpec.hop_len),
+    (config.WindowSpec.start_offset, jax_segment.WindowSpec.start_offset),
+    (data_common.balanced_copy_counts, jax_data_common.balanced_copy_counts),
+    (data_common.binary_label, jax_data_common.binary_label),
+    (data_common.progress, jax_data_common.progress),
+    (data_cinc.read_record, jax_data_cinc.read_record),
+    (data_cinc._variants, jax_data_cinc._variants)])
 def test_copied_functions_have_the_originals_code(ours, theirs):
     assert _code(ours) == _code(theirs)
+
+
+def _module_code(module) -> str:
+    """The module's AST without its docstring."""
+    tree = ast.parse(inspect.getsource(module))
+    if ast.get_docstring(tree) is not None:
+        tree.body = tree.body[1:]
+    return ast.dump(tree)
+
+
+COPIED_MODULES = ("data.wfdb_io", "signal.despike", "signal.normalize", "signal.resample",
+                  "signal.filters", "signal.preprocess", "augment.pipelines",
+                  "augment.primitives", "augment.dsp", "augment.noise_sources")
+
+
+@pytest.mark.parametrize("name", COPIED_MODULES)
+def test_copied_modules_have_the_originals_code(name):
+    ours = importlib.import_module(f"wav2vec_heart_sounds_tpu_torch.{name}")
+    theirs = importlib.import_module(f"wav2vec_heart_sounds_tpu.{name}")
+    assert _module_code(ours) == _module_code(theirs)
 
 
 def test_prefetch_threaded_matches_original():

@@ -77,7 +77,8 @@ def test_scoring_path_matches_jax(jax_classifier, wire_int16):
                                              wire_int16=wire_int16))
 
     port = build_classifier(ClassifierConfig(num_classes=2, head_hidden=(16,),
-                                             encoder=Wav2Vec2Config.tiny(), fs=FS))
+                                             encoder=Wav2Vec2Config.tiny(), fs=FS),
+                            device="cpu")
     port.load_state_dict(from_jax(variables["params"]), strict=True)
     ds = FragmentDataset([Fragment(w, y, p) for w, y, p in recs], fs=FS_WIRE)
     got = score(port, Batcher(ds, BATCH, False, target_len=loader_len, wire_int16=wire_int16),

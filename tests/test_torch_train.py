@@ -75,10 +75,10 @@ def _recorded(trainer):
     return losses
 
 
-def _port_trainer(variables, name, lr, seed=0):
-    model = build_classifier(ClassifierConfig(head_hidden=(16,), fs=FS,
-                                              encoder=Wav2Vec2Config.tiny(**NO_NOISE)),
-                             train=True)
+def _port_trainer(variables, name, lr, seed=0, ffn_mega=True):
+    encoder = Wav2Vec2Config.tiny(**NO_NOISE, ffn_mega=ffn_mega)
+    model = build_classifier(ClassifierConfig(head_hidden=(16,), fs=FS, encoder=encoder),
+                             device="cpu", train=True)
     model.load_state_dict(from_jax(variables["params"]), strict=True)
     return model, SupervisedTrainer(model, optimizer_name=name, lr=lr, weight_decay=1e-5,
                                     device_preprocess=_device_prep(FS_WIRE, FS, WIN, "cpu"),
@@ -95,8 +95,10 @@ def _compare_params(port_model, jax_params):
         np.testing.assert_allclose(a, np.asarray(b), atol=2e-4, rtol=2e-3, err_msg=str(path))
 
 
+@pytest.mark.parametrize("ffn_mega", [True, False])
 @pytest.mark.parametrize("name,lr", [("sgd", 5e-3), ("adamw", 1e-3)])
-def test_fit_matches_jax_trainer(jax_init, name, lr):
+def test_fit_matches_jax_trainer(jax_init, name, lr, ffn_mega):
+    """Both FFN routes of the port (K4, and the K5 + K2 control) against the JAX trainer."""
     model, variables = jax_init
     train = _batches(2, seed=0)
     jax_trainer = JaxTrainer(model, variables, optimizer_name=name, lr=lr, weight_decay=1e-5,
@@ -104,7 +106,7 @@ def test_fit_matches_jax_trainer(jax_init, name, lr):
                              log=lambda s: None)
     jax_losses = _recorded(jax_trainer)
     jax_trainer.fit(train, None, 3)
-    port, trainer = _port_trainer(variables, name, lr)
+    port, trainer = _port_trainer(variables, name, lr, ffn_mega=ffn_mega)
     losses = _recorded(trainer)
     trainer.fit(train, None, 3)
     assert len(losses) == len(jax_losses) == 3
@@ -143,6 +145,16 @@ def test_fit_restores_best_mcc_like_jax(jax_init):
         torch.testing.assert_close(p.detach().float(), m, rtol=0, atol=0)
 
 
+def test_build_classifier_defaults_to_the_card():
+    """Every entry point runs on the card unless the caller asks for the CPU."""
+    import inspect
+
+    assert inspect.signature(build_classifier).parameters["device"].default == "cuda"
+    model = build_classifier(ClassifierConfig(head_hidden=(8,), random_init=True,
+                                              encoder=Wav2Vec2Config.tiny()), device="meta")
+    assert next(model.parameters()).device.type == "meta"
+
+
 def test_cross_entropy_matches_jax():
     rng = np.random.default_rng(0)
     logits = rng.normal(size=(6, 2)).astype(np.float32)
@@ -175,7 +187,7 @@ def test_spec_augment_spans():
 def test_masked_frames_take_the_embedding_and_pass_its_gradient():
     cfg = ClassifierConfig(head_hidden=(8,), fs=FS,
                            encoder=Wav2Vec2Config.tiny(**{**NO_NOISE, "mask_time_prob": 0.3}))
-    model = build_classifier(cfg, seed=1, train=True)
+    model = build_classifier(cfg, seed=1, device="cpu", train=True)
     x = torch.from_numpy(np.random.default_rng(0).normal(size=(3, WIN)).astype(np.float32))
     logits = model(x, train=True, generator=torch.Generator().manual_seed(4))
     logits.sum().backward()
@@ -190,7 +202,7 @@ def test_masked_frames_take_the_embedding_and_pass_its_gradient():
 def test_training_forward_draws_from_the_generator_and_uses_every_site(monkeypatch):
     cfg = Wav2Vec2Config.tiny()
     model = build_classifier(ClassifierConfig(head_hidden=(8,), fs=FS, encoder=cfg),
-                             train=True)
+                             device="cpu", train=True)
     sites = []
     real = k_dropout.dropout
 

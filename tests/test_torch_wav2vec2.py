@@ -65,7 +65,7 @@ def test_tiny_classifier_matches_jax():
     ref_feats = np.asarray(jc.apply({"params": params}, jnp.asarray(x),
                                     method=JaxClassifier.encode))
     cfg = ClassifierConfig(num_classes=2, head_hidden=(16, 8), encoder=Wav2Vec2Config.tiny())
-    model = build_classifier(cfg, seed=0)
+    model = build_classifier(cfg, seed=0, device="cpu")
     model.load_state_dict(from_jax.from_jax(params), strict=True)
     with torch.inference_mode():
         logits = model(torch.from_numpy(x)).numpy()
@@ -120,8 +120,8 @@ def test_gelu_follows_dtype():
 
 def test_build_classifier_is_seeded_and_typed():
     cfg = ClassifierConfig(head_hidden=(8,), encoder=Wav2Vec2Config.tiny())
-    a = build_classifier(cfg, seed=3, dtype=torch.bfloat16)
-    b = build_classifier(cfg, seed=3, dtype=torch.bfloat16)
+    a = build_classifier(cfg, seed=3, device="cpu", dtype=torch.bfloat16)
+    b = build_classifier(cfg, seed=3, device="cpu", dtype=torch.bfloat16)
     for (name, pa), pb in zip(a.state_dict().items(), b.state_dict().values()):
         torch.testing.assert_close(pa, pb, rtol=0, atol=0)
         norm_or_f32 = "norm" in name or name.startswith("head.logits") or "masked_spec" in name

@@ -5,6 +5,8 @@ counterpart is easy to find, but imports only ``torch``, ``numpy`` and ``scipy``
 imports JAX, Flax, pandas or the JAX package, so it runs on a machine that has none of them.
 
 Ported so far: the scoring path (raw PCG windows -> preprocessing -> wav2vec2-base ->
-fragment and patient verdicts), with the packed-QKV attention forward as a hand-written
-CUDA kernel (``csrc/attention_qkv_fwd.cu``).
+fragment and patient verdicts), the training step (``train.classifier.SupervisedTrainer``)
+and the CinC runner (``experiments.cinc.run``), with every TPU kernel on those paths as a
+hand-written CUDA kernel in ``csrc/``. Entry points run on the card unless the caller asks
+for the CPU.
 """

@@ -1,0 +1,156 @@
+"""Batched waveform augmentation on the card (port of ``augment/jaxaug.py``, mono PCG).
+
+The on-device twin of the host PCG pipeline's tensor-friendly subset: additive white
+noise, the sinusoidal volume envelope and a random parametric EQ (five first-order
+Butterworth band sections, edges shared across the batch), each applied through a
+per-row Bernoulli gate and followed by abs-max renormalisation, in the JAX package's
+stage order (noise, envelope, EQ, noise). Rows that do not participate at all
+(``row_mask`` / ``pristine_prob``, :func:`participation`) pass through bit-identically.
+
+Randomness is split from the arithmetic so both can be tested: :func:`draw_pcg_batch`
+takes every draw from a CPU ``torch.Generator`` in a fixed order (small per-row
+uniforms on the host; each ``[B, T]`` white-noise field on the card from a
+``torch.Generator`` seeded from it), and :func:`apply_pcg_batch` is the deterministic
+core. Uniforms are unit draws scaled here exactly as ``jax.random.uniform`` scales them.
+Time-stretch and HPSS have no tensor form and stay on the host (:mod:`.pipelines`).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..ops.iir import biquad_dynamic, butter1_bandpass_coeffs
+from ..ops.normalize import abs_max_normalise as _normalise
+from .pipelines import AugmentConfig
+
+NOISE_STDS = (0.0001, 0.001, 0.01)
+SINE_BANDS = ((0.05, 0.5), (0.001, 0.05))       # fast and slow envelope sinusoids, Hz
+EQ_BANDS = 5
+EQ_RANGE = (2.0, 500.0)                          # the PCG parametric EQ's band limits, Hz
+
+
+def _uniform(generator: torch.Generator, *shape) -> torch.Tensor:
+    return torch.rand(shape, generator=generator, dtype=torch.float32)
+
+
+def _noise_draws(generator: torch.Generator, b: int, t: int, device) -> dict:
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
+    field = torch.Generator(device=device).manual_seed(seed)
+    return {"gate": _uniform(generator, b),
+            "std": int(torch.randint(0, len(NOISE_STDS), (1,), generator=generator)),
+            "scale": _uniform(generator, b),
+            "normal": torch.randn((b, t), generator=field, device=device)}
+
+
+def draw_pcg_batch(generator: torch.Generator, b: int, t: int, device,
+                   cfg: AugmentConfig | None = None, *, row_mask: torch.Tensor | None = None,
+                   pristine_prob: float | None = None) -> dict:
+    """Every random draw of one :func:`augment_pcg_batch` call, in a fixed order: the
+    stages that run (probability > 0, as the JAX package drops zero-probability stages),
+    then participation."""
+    cfg = cfg or AugmentConfig()
+    draws: dict = {}
+    if cfg.prob_noise > 0:
+        draws["noise1"] = _noise_draws(generator, b, t, device)
+    if cfg.prob_wandering_volume > 0:
+        draws["envelope"] = {"gate": _uniform(generator, b), "amp": _uniform(generator, 2, b),
+                             "freq": _uniform(generator, 2, b),
+                             "phase": _uniform(generator, 2, b)}
+    if cfg.prob_banding > 0:
+        draws["eq"] = {"gate": _uniform(generator, b), "low": _uniform(generator, EQ_BANDS),
+                       "high": _uniform(generator, EQ_BANDS)}
+    if cfg.prob_noise > 0:
+        draws["noise2"] = _noise_draws(generator, b, t, device)
+    if pristine_prob is not None:
+        draws["participate"] = _uniform(generator, b) >= pristine_prob
+    elif row_mask is not None:
+        draws["participate"] = torch.as_tensor(row_mask).cpu() > 0.5
+    return draws
+
+
+def _blend(x: torch.Tensor, transformed: torch.Tensor, gate: torch.Tensor,
+           prob: float) -> torch.Tensor:
+    """Rows whose gate uniform is below ``prob`` take the transform; then renormalise."""
+    mask = (gate < prob).to(x.dtype).to(x.device)[:, None]
+    return _normalise(mask * transformed + (1.0 - mask) * x)
+
+
+def add_white_noise(x: torch.Tensor, d: dict) -> torch.Tensor:
+    scale = (d["scale"].to(x.device, x.dtype) * 0.1)[:, None]
+    return x + scale * NOISE_STDS[d["std"]] * d["normal"].to(x.dtype)
+
+
+def two_band_sines(t: torch.Tensor, d: dict, amp_lo: float, amp_span: float) -> torch.Tensor:
+    """Per-row fast and slow random sinusoids ``[B, T]`` at times ``t`` (seconds)."""
+    out = torch.zeros((d["amp"].shape[1], t.shape[0]), dtype=t.dtype, device=t.device)
+    for i, (lo, hi) in enumerate(SINE_BANDS):
+        amp = (amp_lo + d["amp"][i] * amp_span).to(t.device)[:, None]
+        freq = (lo + d["freq"][i] * (hi - lo)).to(t.device)[:, None]
+        phase = d["phase"][i].to(t.device)[:, None]
+        out = out + amp * torch.sin(2 * math.pi * (freq * t + phase))
+    return out
+
+
+def sinusoidal_envelope(x: torch.Tensor, fs: int, d: dict) -> torch.Tensor:
+    t = torch.arange(x.shape[-1], dtype=x.dtype, device=x.device) / fs
+    return x * (1.0 + two_band_sines(t, d, 0.01, 0.24))
+
+
+def eq_edges(d: dict, fs: float, low: float = EQ_RANGE[0],
+             high: float = EQ_RANGE[1]) -> list[tuple[float, float]]:
+    """The bands' (low, high) edges in Hz, kept inside (0, Nyquist) at any rate."""
+    nyq = fs / 2.0
+    high = min(high, 0.99 * nyq)
+    low = min(low, 0.5 * high)
+    edges = []
+    for u_lo, u_hi in zip(d["low"].tolist(), d["high"].tolist()):
+        b_low = low + u_lo * (0.95 * high - low)
+        start = b_low + 0.05 * (high - low)
+        edges.append((b_low, start + u_hi * (high - start)))
+    return edges
+
+
+def parametric_eq(x: torch.Tensor, fs: float, d: dict) -> torch.Tensor:
+    """Blend with a stack of random narrow band sections (edges shared across the batch)."""
+    nyq = fs / 2.0
+    coloured = x
+    for b_low, b_high in eq_edges(d, fs):
+        b, a = butter1_bandpass_coeffs(b_low / nyq, b_high / nyq)
+        coloured = biquad_dynamic(coloured, b, a)
+    return _normalise(_normalise(coloured) / 50.0 + _normalise(x))
+
+
+def apply_pcg_batch(x: torch.Tensor, fs: int, cfg: AugmentConfig, draws: dict) -> torch.Tensor:
+    """The deterministic core of :func:`augment_pcg_batch` for given ``draws``."""
+    y = _normalise(x)
+    if "noise1" in draws:
+        y = _blend(y, add_white_noise(y, draws["noise1"]), draws["noise1"]["gate"],
+                   cfg.prob_noise / 4)
+    if "envelope" in draws:
+        y = _blend(y, sinusoidal_envelope(y, fs, draws["envelope"]), draws["envelope"]["gate"],
+                   cfg.prob_wandering_volume)
+    if "eq" in draws:
+        y = _blend(y, parametric_eq(y, fs, draws["eq"]), draws["eq"]["gate"], cfg.prob_banding)
+    if "noise2" in draws:
+        y = _blend(y, add_white_noise(y, draws["noise2"]), draws["noise2"]["gate"],
+                   cfg.prob_noise / 4)
+    part = draws.get("participate")
+    if part is None:
+        return y
+    return torch.where(part.to(x.device)[:, None], y, x)
+
+
+def augment_pcg_batch(generator: torch.Generator, x: torch.Tensor, fs: int,
+                      cfg: AugmentConfig | None = None, *,
+                      row_mask: torch.Tensor | None = None,
+                      pristine_prob: float | None = None) -> torch.Tensor:
+    """Augment a float batch ``[B, T]`` on its device, with every draw from the CPU
+    ``generator``. ``pristine_prob`` (a fresh Bernoulli draw keeps about that fraction of
+    rows pristine) overrides ``row_mask`` (the loader's replica flag; rows at 0 stay
+    pristine); with neither, every row participates."""
+    cfg = cfg or AugmentConfig()
+    draws = draw_pcg_batch(generator, x.shape[0], x.shape[1], x.device, cfg,
+                           row_mask=row_mask, pristine_prob=pristine_prob)
+    return apply_pcg_batch(x, fs, cfg, draws)

@@ -12,13 +12,19 @@ from dataclasses import dataclass
 
 @dataclass(frozen=True)
 class WindowSpec:
-    """Segmentation window (copy of ``wav2vec_heart_sounds_tpu/signal/segment.py:16-22``)."""
+    """Segmentation window (copy of ``wav2vec_heart_sounds_tpu/signal/segment.py:15-28``)."""
     window_s: float
     overlap_s: float = 0.25
     start_pad_s: float = 0.3
 
     def window_len(self, fs: float) -> int:
         return int(round(self.window_s * fs))
+
+    def hop_len(self, fs: float) -> int:
+        return max(1, int(round((self.window_s - self.overlap_s) * fs)))
+
+    def start_offset(self, fs: float) -> int:
+        return int(round(self.start_pad_s * fs))
 
 
 # Classification sample rates (wav2vec_heart_sounds_tpu/config.py:13-14).

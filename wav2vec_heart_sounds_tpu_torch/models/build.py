@@ -4,24 +4,36 @@ from __future__ import annotations
 
 import torch
 
+from . import hf_port
 from .classifier import ClassifierConfig, Wav2VecClassifier
 from .wav2vec2 import init_parameters
 
 
-def build_classifier(cfg: ClassifierConfig, seed: int = 0, device="cpu",
+def build_classifier(cfg: ClassifierConfig, seed: int = 0, device="cuda",
                      dtype: torch.dtype = torch.float32, train: bool = False
                      ) -> Wav2VecClassifier:
-    """Random-init classifier on ``device``, computing in ``dtype``, in eval mode, or in
+    """Random-init classifier on ``device`` (the card unless the caller asks for the CPU),
+    computing in ``dtype``, in eval mode, or in
     ``.train()`` mode for a trainer with ``train=True`` (the forward's ``train`` argument
     picks the training path).
 
     The dtype is the caller's choice, never inferred from the device. Weights come from a
     CPU ``torch.Generator`` seeded with ``seed``, so the same seed gives the same weights
-    on every device. Load trained or converted weights afterwards with
-    ``model.load_state_dict`` (see :mod:`.from_jax` and :mod:`.hf_port`).
+    on every device. With ``cfg.random_init`` False the encoder takes the pretrained
+    ``cfg.pretrained_name`` from the local HF cache when it is there, and otherwise keeps
+    its random init and says so in one printed line, as the JAX package's builder does
+    offline. Load trained or converted weights afterwards with ``model.load_state_dict``
+    (see :mod:`.from_jax` and :mod:`.hf_port`).
     """
     with torch.device("meta"):
         model = Wav2VecClassifier(cfg, dtype)
     model.to_empty(device=device)
     init_parameters(model, torch.Generator().manual_seed(seed))
+    if not cfg.random_init:
+        pretrained = hf_port.load_pretrained_encoder(cfg.pretrained_name)
+        if pretrained is None:
+            print(f"build_classifier: no local checkpoint of {cfg.pretrained_name}; the "
+                  f"encoder keeps its random init (seed {seed})")
+        else:
+            model.encoder.load_state_dict(pretrained, strict=True)
     return model.train(train)

@@ -20,6 +20,8 @@ class ClassifierConfig:
     num_classes: int = 2
     num_channels: int = 1
     head_hidden: tuple[int, ...] = (256,)
+    pretrained_name: str = "facebook/wav2vec2-base-960h"
+    random_init: bool = False
     lora: bool = False
     freeze_encoder: bool = False
     fs: int = 4125

@@ -9,6 +9,9 @@ HF keys to arrays or tensors will do.
 
 from __future__ import annotations
 
+import importlib.util
+import os
+
 import numpy as np
 import torch
 
@@ -44,3 +47,25 @@ def load_hf_state_dict(model: Wav2Vec2Model, sd: dict) -> Wav2Vec2Model:
     """Load an HF-layout state dict into ``model`` (strict: every key must match)."""
     model.load_state_dict(convert_state_dict(sd, model.config.hidden_size), strict=True)
     return model
+
+
+def _hub_dir(name: str) -> str:
+    home = os.environ.get("HF_HOME") or os.path.join(os.path.expanduser("~"), ".cache",
+                                                     "huggingface")
+    hub = os.environ.get("HF_HUB_CACHE") or os.path.join(home, "hub")
+    return os.path.join(hub, "models--" + name.replace("/", "--"))
+
+
+def load_pretrained_encoder(name: str = "facebook/wav2vec2-base-960h"
+                            ) -> dict[str, torch.Tensor] | None:
+    """The HF checkpoint ``name`` from the local HF cache as a port state dict, or None when
+    the checkpoint or ``transformers`` is not on this machine. Never downloads."""
+    if importlib.util.find_spec("transformers") is None or not os.path.isdir(_hub_dir(name)):
+        return None
+    try:
+        from transformers import Wav2Vec2Model as HFWav2Vec2Model
+
+        hf = HFWav2Vec2Model.from_pretrained(name, local_files_only=True)
+    except Exception:
+        return None
+    return convert_state_dict(hf.state_dict(), hf.config.hidden_size)

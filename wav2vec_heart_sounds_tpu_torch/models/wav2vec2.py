@@ -13,12 +13,14 @@ tanh form in bfloat16 (``_cascade_gelu``), the FFN and the positional conv keep 
 float32 is erf throughout.
 
 Training (``forward(x, train=True, generator=g)``) follows the JAX package's accelerator
-path with the decomposed FFN (``W2VHS_FFN_MEGA=0``, ``wav2vec2.py:783-789``), through the
-port's kernels at any rate: feature-projection and encoder dropout (K1,
-:mod:`..ops.kernels.dropout`), attention with dropout (K3b), both residual tails
-``LN(x + dropout(h))`` (K2, :mod:`..ops.kernels.resid`) and the FFN activation
-``dropout(gelu(x W1 + b1))`` (K5, :mod:`..ops.kernels.ffn`); SpecAugment time masking
-fills masked frames with ``masked_spec_embed``. One base seed per forward is drawn from
+path (``wav2vec2.py:760-789``), through the port's kernels at any rate: feature-projection
+and encoder dropout (K1, :mod:`..ops.kernels.dropout`), attention with dropout (K3b), the
+attention tail ``LN(x + dropout(h))`` (K2, :mod:`..ops.kernels.resid`) and the FFN
+sublayer. By default (``Wav2Vec2Config.ffn_mega``, the JAX package's ``W2VHS_FFN_MEGA=1``)
+the FFN sublayer is one op, K4 (:mod:`..ops.kernels.megakernel`); with ``ffn_mega=False``
+it is the decomposed route, the activation ``dropout(gelu(x W1 + b1))`` (K5,
+:mod:`..ops.kernels.ffn`), ``output_dense`` and K2. Both routes draw the same masks.
+SpecAugment time masking fills masked frames with ``masked_spec_embed``. One base seed per forward is drawn from
 ``g`` (a CPU ``torch.Generator``), then the SpecAugment span starts; each dropout site
 keys its Philox mask with that seed and its own site index (:func:`layer_sites`).
 
@@ -38,6 +40,7 @@ from torch import nn
 from ..ops.kernels import attention as _attention
 from ..ops.kernels.dropout import dropout
 from ..ops.kernels.ffn import dense_gelu_dropout
+from ..ops.kernels.megakernel import ffn_block
 from ..ops.kernels.resid import dropout_add_layernorm
 
 HIDDEN = 768  # wav2vec2-base hidden size
@@ -71,6 +74,9 @@ class Wav2Vec2Config:
     feat_proj_dropout: float = 0.1
     mask_time_prob: float = 0.05
     mask_time_length: int = 10
+    # Training FFN sublayer: K4 (True, the JAX package's default W2VHS_FFN_MEGA=1) or the
+    # decomposed K5 + output_dense + K2 route (False, the A/B control).
+    ffn_mega: bool = True
 
     @classmethod
     def tiny(cls, **kw) -> "Wav2Vec2Config":
@@ -237,8 +243,9 @@ class FeedForward(nn.Module):
 class EncoderLayer(nn.Module):
     """Post-norm transformer block: LN(x + attn(x)), then LN(x + ffn(x)).
 
-    In training (``seed`` given) both tails are ``LN(x + dropout(h))`` (K2) and the FFN's
-    first product feeds the activation kernel ``dropout(gelu(.))`` (K5)."""
+    In training (``seed`` given) the attention tail is ``LN(x + dropout(h))`` (K2) and the
+    FFN sublayer is K4, or with ``ffn_mega=False`` the activation kernel
+    ``dropout(gelu(.))`` (K5) after the first product, then the second product and K2."""
 
     def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype, index: int = 0):
         super().__init__()
@@ -258,12 +265,15 @@ class EncoderLayer(nn.Module):
         attn = self.attention(x, seed, s_attn, cfg.attention_dropout)
         x = dropout_add_layernorm(attn, x, self.layer_norm.weight, self.layer_norm.bias, seed,
                                   s_tail1, rate, eps)
-        ffn = self.feed_forward
+        ffn, ln = self.feed_forward, self.final_layer_norm
+        if cfg.ffn_mega:
+            return ffn_block(x, ffn.intermediate_dense.weight, ffn.intermediate_dense.bias,
+                             ffn.output_dense.weight, ffn.output_dense.bias, ln.weight, ln.bias,
+                             seed, s_act, s_tail2, cfg.activation_dropout, rate, eps)
         h = dense_gelu_dropout(x, ffn.intermediate_dense.weight, ffn.intermediate_dense.bias,
                                seed, s_act, cfg.activation_dropout)
         h = ffn.output_dense(h)
-        return dropout_add_layernorm(h, x, self.final_layer_norm.weight,
-                                     self.final_layer_norm.bias, seed, s_tail2, rate, eps)
+        return dropout_add_layernorm(h, x, ln.weight, ln.bias, seed, s_tail2, rate, eps)
 
 
 class Encoder(nn.Module):

@@ -22,7 +22,9 @@ stable. Complex numbers are carried as (re, im) float32 pairs; only ``Re(y)`` is
 for a conjugate pair (output ``C x + 2 Re(y)``).
 
 The design keeps the JAX package's fs-normalised cutoff convention: ``butter(order,
-cutoff / fs)``, *not* ``cutoff / (fs / 2)``.
+cutoff / fs)``, *not* ``cutoff / (fs / 2)``. The random parametric EQ of the on-device
+augmentation (:mod:`..augment.torchaug`) designs its first-order band-pass sections on the
+host too (:func:`butter1_bandpass_coeffs`, :func:`biquad_dynamic`).
 """
 
 from __future__ import annotations
@@ -113,8 +115,8 @@ def first_order_scan_real(x: torch.Tensor, p: complex, r: complex) -> torch.Tens
     return y_re.reshape(R, n_chunks * L)[:, :T]
 
 
-def _biquad(x: torch.Tensor, section) -> torch.Tensor:
-    pf = _partial_fractions(section)
+def _biquad(x: torch.Tensor, section, pf) -> torch.Tensor:
+    """One section on ``[R, T]`` from its partial fractions ``pf``."""
     if pf is None:
         raise NotImplementedError(
             f"biquad {section} has a repeated pole; Butterworth sections never do")
@@ -129,7 +131,7 @@ def sosfilt(x: torch.Tensor, sos) -> torch.Tensor:
     lead, T = x.shape[:-1], x.shape[-1]
     y = x.reshape(-1, T)
     for section in sos:
-        y = _biquad(y, section)
+        y = _biquad(y, section, _partial_fractions(section))
     return y.reshape(lead + (T,))
 
 
@@ -145,3 +147,29 @@ def bandpass_cascade(x: torch.Tensor, fs: float, low: float, high: float,
                      order: int = 2) -> torch.Tensor:
     """Causal LP at the high edge then HP at the low edge (the PCG/ECG preprocessing band)."""
     return highpass(lowpass(x, fs, high, order=order), fs, low, order=order)
+
+
+def butter1_bandpass_coeffs(low: float, high: float) -> tuple[tuple[float, ...], tuple[float, ...]]:
+    """First-order Butterworth band-pass (scipy ``butter(1, [low, high], 'band')``) for
+    Nyquist-normalised edges in (0, 1): the JAX package's closed-form bilinear transform of
+    ``H(s) = Bw s / (s^2 + Bw s + Wo^2)`` at fs = 2, evaluated on the host in float64.
+    Returns ``(b, a)`` with ``a[0] = 1``."""
+    w1 = 4.0 * math.tan(math.pi * low / 2.0)
+    w2 = 4.0 * math.tan(math.pi * high / 2.0)
+    bw = w2 - w1
+    wo2 = w1 * w2
+    a0 = 16.0 + 4.0 * bw + wo2
+    return ((4.0 * bw / a0, 0.0, -4.0 * bw / a0),
+            (1.0, (2.0 * wo2 - 32.0) / a0, (16.0 - 4.0 * bw + wo2) / a0))
+
+
+def biquad_dynamic(x: torch.Tensor, b, a) -> torch.Tensor:
+    """One biquad with per-call coefficients ``b = (b0, b1, b2)``, ``a = (1, a1, a2)`` along
+    the last axis (zero initial state), for the random parametric EQ. The JAX package
+    traces the partial-fraction split inside jit; here the coefficients are host floats,
+    so the split is the float64 host one of :func:`sosfilt` (not cached: every call draws
+    new edges) and the recurrences run in the same blocked scan."""
+    section = (float(b[0]), float(b[1]), float(b[2]), 1.0, float(a[1]), float(a[2]))
+    lead, T = x.shape[:-1], x.shape[-1]
+    y = _biquad(x.reshape(-1, T), section, _partial_fractions.__wrapped__(section))
+    return y.reshape(lead + (T,))

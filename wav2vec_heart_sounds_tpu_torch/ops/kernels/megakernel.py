@@ -1,0 +1,175 @@
+"""FFN sublayer ``LN(x + drop(W2 drop(gelu(W1 x + b1)) + b2))`` (K4): CUDA kernels, plain
+versions, autograd op.
+
+Port of ``wav2vec_heart_sounds_tpu/ops/pallas/megakernel.py::ffn_block``, the JAX package's
+default training FFN. The plain versions are the decomposed route's composition
+(``F.linear`` -> :func:`.ffn.ffn_act_fwd_reference` -> ``F.linear`` ->
+:func:`.resid.resid_fwd_reference`, and its backward in the same ops), so on the CPU this
+op is bit for bit the K5 + K2 route. The masks are the Philox masks of ``(seed, s_act)``
+over ``[N, F]`` and ``(seed, s_hid)`` over ``[N, D]``, the same as that route's.
+
+The kernel pair (``csrc/ffn_mega.cu``) computes the forward's two products and the
+backward's ``dhid W2`` itself; ``dx = dpre W1 + ds``, ``dW1 = dpre^T x`` and
+``dW2 = dhid^T h`` stay matrix products here, as the JAX package leaves them to XLA.
+:func:`ffn_block` takes the plain versions only for CPU tensors; CUDA tensors go to the
+kernels or raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from .. import philox
+from . import build
+from .dropout import DTYPE_CODES, check_cuda
+from .ffn import ffn_act_bwd_reference, ffn_act_fwd_reference
+from .resid import PARTIAL_BLOCKS, resid_bwd_reference, resid_fwd_reference
+
+_P, _U32, _F, _I = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float, ctypes.c_int
+HIDDEN = 768        # the row width the kernels take (wav2vec2-base); (B) owns whole rows
+UP_ROWS = 128       # row tile of (A) and (D): the db1 partials have ceil(N / 128) rows
+
+
+def ffn_mega_fwd_reference(x, w1, b1, w2, b2, weight, bias, seed: int, s_act: int, s_hid: int,
+                           rate_act: float, rate_hid: float, eps: float):
+    """Plain forward over ``[N, D]`` rows: ``(y, s, pre)``, each in ``x.dtype``."""
+    pre = F.linear(x, w1, b1)
+    h = ffn_act_fwd_reference(pre, seed, s_act, rate_act)
+    y, s = resid_fwd_reference(F.linear(h, w2, b2), x, weight, bias, seed, s_hid, rate_hid, eps)
+    return y, s, pre
+
+
+def ffn_mega_bwd_reference(g, s, pre, w2, weight, seed: int, s_act: int, s_hid: int,
+                           rate_act: float, rate_hid: float, eps: float):
+    """Plain backward without the three large products: ``(ds, dhid, dpre, h, db1, db2,
+    dweight, dbias)``. ``dh = dhid W2`` is rounded to the compute dtype, as the decomposed
+    route materialises it; db2 is that route's bias gradient (a sum in the compute dtype)."""
+    dhid, ds, dweight, dbias = resid_bwd_reference(g, s, weight, seed, s_hid, rate_hid, eps)
+    dh = dhid @ w2
+    dpre, db1 = ffn_act_bwd_reference(dh, pre, seed, s_act, rate_act)
+    h = ffn_act_fwd_reference(pre, seed, s_act, rate_act)
+    return ds, dhid, dpre, h, db1, dhid.sum(0), dweight, dbias
+
+
+def _check(name: str, rows_like: torch.Tensor, f: int, *vectors: torch.Tensor) -> int:
+    if rows_like.dim() != 2 or rows_like.shape[1] != HIDDEN or f % 128:
+        raise ValueError(f"{name}: takes [N, {HIDDEN}] rows and an FFN width that is a "
+                         f"multiple of 128, got {tuple(rows_like.shape)} and {f}")
+    for v in vectors:
+        if v.dtype != torch.float32 or not v.is_cuda or tuple(v.shape) != (HIDDEN,):
+            raise ValueError(f"{name}: LayerNorm parameters must be float32 CUDA [{HIDDEN}]")
+    return rows_like.shape[0]
+
+
+def _same(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: every tensor but the LayerNorm parameters must be {dtype}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be 16-byte aligned")
+
+
+def ffn_mega_fwd_kernel(x, w1, b1, w2, b2, weight, bias, seed: int, s_act: int, s_hid: int,
+                        rate_act: float, rate_hid: float, eps: float):
+    """Launch the forward of ``csrc/ffn_mega.cu`` ((A) then (B)); counts calls in
+    ``.launches``. ``x`` is ``[N, 768]``; the weights are ``nn.Linear``'s ``[out, in]``."""
+    check_cuda("ffn_mega_fwd_kernel", x, w1, b1, w2, b2)
+    f = w1.shape[0]
+    rows = _check("ffn_mega_fwd_kernel", x, f, weight, bias)
+    if tuple(w1.shape) != (f, HIDDEN) or tuple(w2.shape) != (HIDDEN, f):
+        raise ValueError("ffn_mega_fwd_kernel: w1 must be [F, 768] and w2 [768, F]")
+    _same("ffn_mega_fwd_kernel", x.dtype, x, w1, b1, w2, b2)
+    pre = x.new_empty((rows, f))
+    h = torch.empty_like(pre)
+    s, y = torch.empty_like(x), torch.empty_like(x)
+    fn = build.entry("ffn_mega", "ffn_mega_fwd",
+                     (_P,) * 11 + (_I, _I, _I) + (_U32,) * 5 + (_F, _F, _F, _I, _P))
+    build.check(fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                   weight.data_ptr(), bias.data_ptr(), pre.data_ptr(), h.data_ptr(),
+                   s.data_ptr(), y.data_ptr(), rows, HIDDEN, f, seed, s_act, s_hid,
+                   philox.threshold(rate_act), philox.threshold(rate_hid),
+                   philox.keep_scale(rate_act), philox.keep_scale(rate_hid), eps,
+                   DTYPE_CODES[x.dtype], build.stream(x)), "ffn_mega_fwd_kernel")
+    ffn_mega_fwd_kernel.launches += 1
+    return y, s, pre
+
+
+def ffn_mega_bwd_kernel(g, s, pre, w2, weight, seed: int, s_act: int, s_hid: int,
+                        rate_act: float, rate_hid: float, eps: float):
+    """Launch the backward of ``csrc/ffn_mega.cu`` ((C) then (D)); counts calls in
+    ``.launches``. Returns what :func:`ffn_mega_bwd_reference` returns; the vector
+    gradients are float32."""
+    check_cuda("ffn_mega_bwd_kernel", g, s, pre, w2)
+    f = pre.shape[-1]
+    rows = _check("ffn_mega_bwd_kernel", g, f, weight)
+    if s.shape != g.shape or tuple(pre.shape) != (rows, f) or tuple(w2.shape) != (HIDDEN, f):
+        raise ValueError("ffn_mega_bwd_kernel: g, s [N, 768], pre [N, F] and w2 [768, F]")
+    _same("ffn_mega_bwd_kernel", g.dtype, g, s, pre, w2)
+    row_blocks = min(-(-rows // 4), PARTIAL_BLOCKS)
+    ds, dhid = torch.empty_like(g), torch.empty_like(g)
+    dpre, h = torch.empty_like(pre), torch.empty_like(pre)
+    parts = torch.empty((3, row_blocks, HIDDEN), dtype=torch.float32, device=g.device)
+    db1_parts = torch.empty((-(-rows // UP_ROWS), f), dtype=torch.float32, device=g.device)
+    fn = build.entry("ffn_mega", "ffn_mega_bwd",
+                     (_P,) * 13 + (_I, _I, _I) + (_U32,) * 5 + (_F, _F, _F, _I, _I, _P))
+    build.check(fn(g.data_ptr(), s.data_ptr(), pre.data_ptr(), w2.data_ptr(), weight.data_ptr(),
+                   ds.data_ptr(), dhid.data_ptr(), dpre.data_ptr(), h.data_ptr(),
+                   parts[0].data_ptr(), parts[1].data_ptr(), parts[2].data_ptr(),
+                   db1_parts.data_ptr(), rows, HIDDEN, f, seed, s_act, s_hid,
+                   philox.threshold(rate_act), philox.threshold(rate_hid),
+                   philox.keep_scale(rate_act), philox.keep_scale(rate_hid), eps, row_blocks,
+                   DTYPE_CODES[g.dtype], build.stream(g)), "ffn_mega_bwd_kernel")
+    ffn_mega_bwd_kernel.launches += 1
+    dweight, dbias, db2 = parts.sum(dim=1)
+    return ds, dhid, dpre, h, db1_parts.sum(0), db2, dweight, dbias
+
+
+ffn_mega_fwd_kernel.launches = 0
+ffn_mega_bwd_kernel.launches = 0
+
+
+class _FfnBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, weight, bias, seed, s_act, s_hid, rate_act, rate_hid,
+                eps):
+        args = (seed, s_act, s_hid, rate_act, rate_hid, eps)
+        x2 = x.reshape(-1, x.shape[-1])
+        if x.device.type == "cpu":
+            y, s, pre = ffn_mega_fwd_reference(x2, w1, b1, w2, b2, weight, bias, *args)
+        else:
+            y, s, pre = ffn_mega_fwd_kernel(x2.contiguous(), w1.contiguous(), b1, w2.contiguous(),
+                                            b2, weight, bias, *args)
+        ctx.save_for_backward(x2, w1, w2, weight, s, pre)
+        ctx.args = args
+        ctx.dtypes = (b1.dtype, b2.dtype)
+        return y.reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w1, w2, weight, s, pre = ctx.saved_tensors
+        g2 = g.reshape(s.shape)
+        if g.device.type == "cpu":
+            ds, dhid, dpre, h, db1, db2, dweight, dbias = ffn_mega_bwd_reference(
+                g2, s, pre, w2, weight, *ctx.args)
+        else:
+            ds, dhid, dpre, h, db1, db2, dweight, dbias = ffn_mega_bwd_kernel(
+                g2.contiguous(), s, pre, w2.contiguous(), weight, *ctx.args)
+        # The three large products, in the decomposed route's forms.
+        dx = (dpre @ w1 + ds).reshape(g.shape)
+        dw1 = dpre.t() @ x2
+        dw2 = dhid.t() @ h
+        b1_dtype, b2_dtype = ctx.dtypes
+        return (dx, dw1, db1.to(b1_dtype), dw2, db2.to(b2_dtype), dweight, dbias,
+                None, None, None, None, None, None)
+
+
+def ffn_block(x, w1, b1, w2, b2, weight, bias, seed: int, s_act: int, s_hid: int,
+              rate_act: float, rate_hid: float, eps: float = 1e-5) -> torch.Tensor:
+    """``LN(x + dropout(W2 dropout(gelu(W1 x + b1)) + b2))`` over the last axis of ``x``,
+    in ``x.dtype``; ``w1``/``w2`` are ``nn.Linear``'s ``[out, in]``, ``weight``/``bias`` the
+    float32 LayerNorm parameters. Differentiable."""
+    return _FfnBlock.apply(x, w1, b1, w2, b2, weight, bias, seed, s_act, s_hid, rate_act,
+                           rate_hid, eps)

@@ -11,12 +11,19 @@ the card until the end of the epoch, so the host never waits on a step. The eval
 runs the serving forward under ``torch.inference_mode``. ``fit`` keeps the parameters of
 the best validation MCC, restores them at the end and refreshes the float32 master.
 
-Randomness: one CPU ``torch.Generator`` seeded from ``seed``; each train step's forward
-draws its dropout seed and its SpecAugment spans from it.
+On-device batch augmentation: ``batch_transform(generator, x, row_mask=aug)`` runs on the
+card after preprocessing and dequantisation, with ``aug`` the loader's per-row replica
+flag (``augmented``; all ones when the batches carry none); rows at 0 stay pristine
+unless the transform draws its own participation (``pristine_prob``). Per-epoch
+confusion-matrix statistics and the training loss go to ``log_dir`` through
+:class:`..utils.observe.ScalarLogger`.
 
-Not ported yet: on-device batch augmentation (``batch_transform``), the contrastive-focal
-criterion, freeze and LoRA masks, multi-card data parallelism, the scalar logger and
-on-disk checkpoints.
+Randomness: one CPU ``torch.Generator`` seeded from ``seed``. Each train step draws in a
+fixed order from it: the augmentation (whose large noise fields come from a card
+generator seeded from it), then the forward's dropout seed, then its SpecAugment spans.
+
+Not ported yet: the contrastive-focal criterion, freeze and LoRA masks, multi-card data
+parallelism and on-disk checkpoints.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import numpy as np
 import torch
 
 from ..data.loader import prefetch_threaded
+from ..utils.observe import ScalarLogger
 from .evaluate import dequant
 from .losses import cross_entropy
 from .metrics import ConfusionMatrix
@@ -37,18 +45,21 @@ from .optim import MasterOptimizer, lr_schedule
 class SupervisedTrainer:
     def __init__(self, model: torch.nn.Module, *, optimizer_name: str = "sgd",
                  lr: float = 1e-3, weight_decay: float = 1e-5,
+                 batch_transform: Callable | None = None,
                  device_preprocess: Callable | None = None, seed: int = 0,
-                 log: Callable[[str], None] = print):
+                 log: Callable[[str], None] = print, log_dir: str | None = None):
         self.model = model
         self.device = next(model.parameters()).device
+        self.batch_transform = batch_transform
         self.device_preprocess = device_preprocess
         self.log = log
+        self.scalars = ScalarLogger(log_dir)
         self.optimizer = MasterOptimizer(model.parameters(), optimizer_name, weight_decay)
         self.schedule = lr_schedule(optimizer_name, lr)
         self.generator = torch.Generator().manual_seed(seed)
         self.epoch = 0
 
-    def _to_device(self, batch: dict):
+    def _to_device(self, batch: dict, want_aug: bool = False):
         """Runs on the prefetch thread: the host-to-device copies overlap the card's work."""
         def put(a):
             t = torch.as_tensor(np.asarray(a))
@@ -56,10 +67,18 @@ class SupervisedTrainer:
                 t = t.pin_memory()
             return t.to(self.device, non_blocking=True)
 
+        aug = None
+        if want_aug:
+            mask = batch.get("augmented")
+            aug = put(np.ones(len(batch["valid"]), dtype=np.float32) if mask is None
+                      else np.asarray(mask, dtype=np.float32))
         return (batch, put(batch["waveform"]), put(batch["label"]),
-                put(np.asarray(batch["valid"], dtype=np.float32)))
+                put(np.asarray(batch["valid"], dtype=np.float32)), aug)
 
-    def _train_step(self, x, y, valid, lr: float):
+    def _train_step(self, x, y, valid, lr: float, aug=None):
+        if self.batch_transform is not None:
+            with torch.no_grad():
+                x = self.batch_transform(self.generator, x, row_mask=aug)
         self.optimizer.zero_grad()
         logits = self.model(x, train=True, generator=self.generator)
         loss = cross_entropy(logits, y, valid)
@@ -79,14 +98,17 @@ class SupervisedTrainer:
         pending = []
         lr = self.schedule(self.epoch)
         self.model.train(train)
-        for i, (batch, x, y, valid) in enumerate(prefetch_threaded(batcher, self._to_device)):
+        want_aug = train and self.batch_transform is not None
+        to_device = lambda batch: self._to_device(batch, want_aug)   # noqa: E731
+        for i, (batch, x, y, valid, aug) in enumerate(prefetch_threaded(batcher, to_device)):
             if max_batches is not None and i >= max_batches:
                 break
             with torch.no_grad():
                 if self.device_preprocess is not None:
                     x = self.device_preprocess(x)
                 x = dequant(x)
-            step = self._train_step(x, y, valid, lr) if train else self._eval_step(x, y, valid)
+            step = (self._train_step(x, y, valid, lr, aug) if train
+                    else self._eval_step(x, y, valid))
             pending.append((*step, batch["label"], batch["valid"]))
         running = 0.0
         for loss, preds, labels, valid in pending:
@@ -100,20 +122,25 @@ class SupervisedTrainer:
         parameters of the best validation MCC. Returns that MCC (-1.0 without one)."""
         best_mcc, best = -1.0, None
         prefix = f"{label} " if label else ""
+        tag = label.strip("[] ").replace(" ", "_") or "run"
         for epoch in range(1, epochs + 1):
             t0 = time.time()
             train_cm, train_loss = self._run_epoch(train_batcher, True, max_batches)
             self.epoch += 1
             line = (f"{prefix}epoch {epoch}/{epochs}: loss={train_loss:.3f} "
                     f"train {train_cm} [{time.time() - t0:.1f}s]")
+            self.scalars.scalars(f"{tag}/train", train_cm.stats(), self.epoch)
+            self.scalars.scalar(f"{tag}/train_loss", train_loss, self.epoch)
             if valid_batcher is not None:
                 valid_cm, _ = self._run_epoch(valid_batcher, False, max_batches)
                 mcc = valid_cm.stats()["mcc"]
                 line += f" | valid {valid_cm}"
+                self.scalars.scalars(f"{tag}/valid", valid_cm.stats(), self.epoch)
                 if mcc > best_mcc:
                     best_mcc = mcc
                     best = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
             self.log(line)
+        self.scalars.flush()
         if valid_batcher is not None and best is not None:
             self.model.load_state_dict(best)
             self.optimizer.refresh()
