@@ -35,12 +35,25 @@ Phases, each of which exits non-zero on failure:
    median of 3 epochs each, in turns);
 8. the CinC runner ``experiments.cinc.run`` on a synthetic CinC directory (PCG+ECG records
    written with the port's ``wfdb_io``), full width, bfloat16, 16 kHz: the raw wire with
-   augmentation on the card, and the host chain with augmented copies.
+   augmentation on the card, and the host chain with augmented copies;
+9. the vest slice's kernels against their plain versions at the vest shapes: K6
+   (``csrc/flash_kv.cu``, ``[16, 8250, 4, 8]`` in float32 and through the bfloat16
+   boundary cast, timed beside ``scaled_dot_product_attention``) and K7
+   (``csrc/sinc_delay.cu``, ``[96, 8250]`` rows, delays in [0, 41.25] with integers), each
+   beside its bound; K3b at the vest encoder's T = 25 and K4 at its 400 rows;
+10. one full-width float32 vest training step (B=2, 6 microphones, LoRA under the freeze
+   mask, the waveform's gradient asked for too) kernels against all-plain versions;
+11. ``SupervisedTrainer.fit`` on bench.py's vest config (B=16, bfloat16, AdamW, lazy host
+   augmentation): exact launches per step and vest training windows/s (median of 3);
+12. the vest runner ``experiments.multichannel.run`` on a synthetic vest directory (9-column
+   int16 WAVs), full width, bfloat16: the host chain with cross-entropy, and device
+   augmentation with the contrastive-focal loss.
 
 Prints the card's name and power limit, one JSON line describing the kernels (launches
-from phase 7's ``fit`` of the route that runs each kernel: K4's for all but K5, which runs
-only on the control), and as its last line ``{"ok": true, "device": {...}}``. Imports
-nothing of JAX.
+from the ``fit`` of the path that runs each kernel: phase 7's K4 route for the CinC
+kernels but K5, which runs only on its control; phase 11 for K6 and K7, but K7's input
+gradient, which only phase 10 asks for), and as its last line ``{"ok": true, "device":
+{...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -62,7 +75,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 CSRC = "wav2vec_heart_sounds_tpu_torch/csrc/"
 PALLAS = "wav2vec_heart_sounds_tpu/ops/pallas/"
-SOURCES = ("attention_qkv_fwd", "attention_qkv_bwd", "dropout", "resid", "ffn_act", "ffn_mega")
+SOURCES = ("attention_qkv_fwd", "attention_qkv_bwd", "dropout", "resid", "ffn_act", "ffn_mega",
+           "flash_kv", "sinc_delay")
 
 # Serving configuration: 4 s windows at 16 kHz (the CinC window) from a 2 kHz raw wire.
 FS_WIRE, FS, WINDOW_S, BATCH = 2000, 16000, 4.0, 32
@@ -71,6 +85,10 @@ PATIENTS, WINDOWS_PER_PATIENT = 12, 9
 TRAIN_BATCH, TRAIN_PATIENTS, TRAIN_WINDOWS, RATE = 96, 48, 8, 0.1
 H, T, D, HIDDEN, FFN = 12, 199, 64, 768, 3072
 ROWS = TRAIN_BATCH * T
+# Vest configuration (bench.py's run_vest_bench): 6 microphones, 2 s windows at 4125 Hz,
+# B=16; the delay predictor's attention is [B, T, 4, 8] over every sample.
+VEST_BATCH, VEST_MICS, VEST_FS, VEST_T, VEST_FRAMES = 16, 6, 4125, 8250, 25
+KV_HEADS, KV_DIM = 4, 8
 
 
 def check(ok: bool, msg: str) -> None:
@@ -295,14 +313,25 @@ def kernel_wrappers() -> dict:
     from wav2vec_heart_sounds_tpu_torch.ops.kernels import attention, dropout, ffn, resid
     from wav2vec_heart_sounds_tpu_torch.ops.kernels import megakernel as mk
 
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import flash_kv, sinc_delay
+
     return {"attention_qkv_fwd": attention.attention_qkv_fwd,
             "attention_qkv_bwd": attention.attention_qkv_bwd,
             "dropout": dropout.dropout_kernel,
             "resid_fwd": resid.resid_fwd_kernel, "resid_bwd": resid.resid_bwd_kernel,
             "ffn_act_fwd": ffn.ffn_act_fwd_kernel, "ffn_act_bwd": ffn.ffn_act_bwd_kernel,
-            "ffn_mega_fwd": mk.ffn_mega_fwd_kernel, "ffn_mega_bwd": mk.ffn_mega_bwd_kernel}
+            "ffn_mega_fwd": mk.ffn_mega_fwd_kernel, "ffn_mega_bwd": mk.ffn_mega_bwd_kernel,
+            "flash_kv_fwd": flash_kv.flash_kv_fwd_kernel,
+            "flash_kv_bwd": flash_kv.flash_kv_bwd_kernel,
+            "sinc_delay_fwd": sinc_delay.sinc_fwd_kernel,
+            "sinc_delay_grad_d": sinc_delay.sinc_grad_d_kernel,
+            "sinc_delay_grad_x": sinc_delay.sinc_grad_x_kernel}
 
 
+# The kernels only the vest path runs; their launches come from its fit (phase 11), K7's
+# input gradient's from the vest step (phase 9), the one run that needs it.
+VEST_KERNELS = ("flash_kv_fwd", "flash_kv_bwd", "sinc_delay_fwd", "sinc_delay_grad_d",
+                "sinc_delay_grad_x")
 # name -> (source, the TPU kernel it replaces)
 KERNELS = {
     "attention_qkv_fwd": ("attention_qkv_fwd.cu", "attention.py:343"),
@@ -314,6 +343,11 @@ KERNELS = {
     "ffn_act_bwd": ("ffn_act.cu", "ffn.py:143"),
     "ffn_mega_fwd": ("ffn_mega.cu", "megakernel.py:206"),
     "ffn_mega_bwd": ("ffn_mega.cu", "megakernel.py:260"),
+    "flash_kv_fwd": ("flash_kv.cu", "flash_kv.py:210"),
+    "flash_kv_bwd": ("flash_kv.cu", "flash_kv.py:273"),
+    "sinc_delay_fwd": ("sinc_delay.cu", "beamformer.py:111"),
+    "sinc_delay_grad_d": ("sinc_delay.cu", "beamformer.py:167"),
+    "sinc_delay_grad_x": ("sinc_delay.cu", "beamformer.py:176"),
 }
 
 
@@ -330,9 +364,16 @@ def counts() -> dict:
 def plain_route():
     """Every kernel wrapper replaced by its plain version (same signature and contract)."""
     from wav2vec_heart_sounds_tpu_torch.ops.kernels import attention, dropout, ffn, resid
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import flash_kv as fk
     from wav2vec_heart_sounds_tpu_torch.ops.kernels import megakernel as mk
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import sinc_delay as sk
 
-    pairs = [(mk, "ffn_mega_fwd_kernel", mk.ffn_mega_fwd_reference),
+    pairs = [(fk, "flash_kv_fwd_kernel", fk.attention_kv_fwd_reference),
+             (fk, "flash_kv_bwd_kernel", fk.attention_kv_bwd_reference),
+             (sk, "sinc_fwd_kernel", sk.sinc_fwd_reference),
+             (sk, "sinc_grad_d_kernel", sk.sinc_grad_d_reference),
+             (sk, "sinc_grad_x_kernel", sk.sinc_grad_x_reference),
+             (mk, "ffn_mega_fwd_kernel", mk.ffn_mega_fwd_reference),
              (mk, "ffn_mega_bwd_kernel", mk.ffn_mega_bwd_reference),
              (attention, "attention_qkv_fwd", attention.attention_qkv_reference),
              (attention, "attention_qkv_bwd", attention.attention_qkv_bwd_reference),
@@ -392,13 +433,17 @@ def attention_masks(seed: int, site: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM device memory
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense tensor core / f32 FMA
+# Exponentials: 16 results per clock per SM from the special-function units (CUDA's
+# arithmetic-throughput table, compute capability 9.0) x 132 SMs x the 1.98 GHz boost clock.
+EXP_PER_S = 16 * 132 * 1.98e9
 
 
-def bound(bytes_moved: float, flops: float, dtype: torch.dtype) -> dict:
-    """The least time the card could take: bytes over the memory rate or operations over
-    the peak rate for ``dtype``, whichever is larger (H100 SXM data-sheet rates)."""
+def bound(bytes_moved: float, flops: float, dtype: torch.dtype, exps: float = 0.0) -> dict:
+    """The least time the card could take: bytes over the memory rate, or operations over
+    the peak rate for ``dtype`` (and exponentials over the special-function rate),
+    whichever is larger (H100 SXM data-sheet rates)."""
     mem_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    op_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    op_ms = max(flops / PEAK_FLOPS[dtype], exps / EXP_PER_S) * 1e3
     return {"bound_ms": max(mem_ms, op_ms), "bound_by": "bytes" if mem_ms >= op_ms else "operations"}
 
 
@@ -632,15 +677,195 @@ def phase_megakernel() -> dict:
     return records
 
 
+def phase_vest_kernels() -> dict:
+    """The vest slice's kernels against their plain versions at the vest shapes: K6 (the
+    delay predictor's attention, ``[16, 8250, 4, 8]``, float32, and bfloat16 in and out
+    through the boundary cast) and K7 (the sinc delay, ``[96, 8250]`` rows, delays uniform
+    in [0, 41.25] with integers among them), with CUDA-event timings beside each bound and,
+    for K6, ``scaled_dot_product_attention`` in float32 (forward and its autograd
+    backward). Then K3b at the vest encoder's T = 25 and K4 at its B*T = 400 rows, both
+    dtypes, rate 0.1. Returns the K6 and K7 records by kernel name."""
+    import torch.nn.functional as F
+
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import attention, flash_kv as fk
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import megakernel as mk
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import sinc_delay as sk
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    records = {}
+
+    def randn(*shape, dtype=torch.float32, std=1.0):
+        return (std * torch.randn(*shape, device="cuda", generator=gen)).to(dtype)
+
+    def timed(name, kernel, plain, err, b, library=None, runs=20):
+        ms, plain_ms = cuda_ms(kernel, runs), cuda_ms(plain, runs)
+        lib_ms = cuda_ms(library, runs) if library is not None else None
+        lib = f", library call {lib_ms:.4f} ms" if lib_ms is not None else ""
+        print(f"[vest-kernel] {name} f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, "
+              f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} (CUDA events, median of "
+              f"{runs})")
+        records[name] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, **b,
+                         "library_ms": lib_ms}
+
+    # K6 at [16, 8250, 4, 8], float32.
+    B, Tv, Hk, dk = VEST_BATCH, VEST_T, KV_HEADS, KV_DIM
+    q, k, v, g = (randn(B, Tv, Hk, dk) for _ in range(4))
+    o_k, lse_k = fk.flash_kv_fwd_kernel(q, k, v)
+    o_p, lse_p = fk.attention_kv_fwd_reference(q, k, v)
+    err_f = max(agree("flash_kv_fwd o f32 [16, 8250, 4, 8]", o_k, o_p, 2e-5, 1e-4),
+                agree("flash_kv_fwd lse f32", lse_k, lse_p, 2e-5, 1e-4))
+    got = fk.flash_kv_bwd_kernel(q, k, v, o_p, lse_p, g)
+    ref = fk.attention_kv_bwd_reference(q, k, v, o_p, lse_p, g)
+    err_b = max(agree(f"flash_kv_bwd {name} f32", a, r, 1e-4, 1e-3)
+                for name, a, r in zip(("dq", "dk", "dv"), got, ref))
+    del o_k, lse_k, got, ref
+
+    # bfloat16 in and out: float32 inside, kernels against the plain route (one bf16 ulp
+    # at unit scale is 7.8e-3; the output is rounded once, each gradient once).
+    def bf16_route():
+        leaves = [t.to(torch.bfloat16).requires_grad_() for t in (q, k, v)]
+        out = fk.flash_attention_kv(*leaves)
+        out.backward(g.to(torch.bfloat16))
+        return [out.detach()] + [t.grad for t in leaves]
+
+    kernel_bf16 = bf16_route()
+    with plain_route():
+        plain_bf16 = bf16_route()
+    for name, a, r in zip(("out", "dq", "dk", "dv"), kernel_bf16, plain_bf16):
+        check(a.dtype == torch.bfloat16, f"flash_kv bf16 {name} is {a.dtype}")
+        agree(f"flash_attention_kv bf16 {name}", a, r, 2e-2, 2e-2)
+    del kernel_bf16, plain_bf16
+
+    pairs = B * Hk * Tv * Tv
+    qkv_bytes = 4 * B * Tv * Hk * dk
+    lse_bytes = 4 * B * Hk * Tv
+    # forward: q.k and p.v, 2 d FLOPs each per (query, key) pair, one exponential each;
+    # backward: the five products of the gradient (q.k, g.v, ds k, ds^T q, p^T g), one
+    # exponential (the split form's kernels recompute two products and the exponential).
+    fwd_b = bound(4 * qkv_bytes + lse_bytes, 4 * dk * pairs, torch.float32, pairs)
+    bwd_b = bound(8 * qkv_bytes + lse_bytes, 10 * dk * pairs, torch.float32, pairs)
+    print(f"[vest-kernel] K6 work per layer: {pairs / 1e9:.3f} G (query, key) pairs, "
+          f"{4 * dk * pairs / 1e9:.1f} GFLOP and {pairs / 1e9:.3f} G exponentials forward "
+          f"({pairs / EXP_PER_S * 1e3:.4f} ms of exponentials, "
+          f"{4 * dk * pairs / PEAK_FLOPS[torch.float32] * 1e3:.4f} ms of float32 products)")
+
+    def sdpa(a, b, c):
+        return F.scaled_dot_product_attention(a.transpose(1, 2), b.transpose(1, 2),
+                                              c.transpose(1, 2))
+
+    timed("flash_kv_fwd", lambda: fk.flash_kv_fwd_kernel(q, k, v),
+          lambda: fk.attention_kv_fwd_reference(q, k, v), err_f, fwd_b,
+          library=lambda: sdpa(q, k, v), runs=10)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    lib_out = sdpa(*leaves)
+    g_heads = g.transpose(1, 2)
+    timed("flash_kv_bwd", lambda: fk.flash_kv_bwd_kernel(q, k, v, o_p, lse_p, g),
+          lambda: fk.attention_kv_bwd_reference(q, k, v, o_p, lse_p, g), err_b, bwd_b,
+          library=lambda: torch.autograd.grad(lib_out, leaves, g_heads, retain_graph=True),
+          runs=10)
+    del q, k, v, g, o_p, lse_p, leaves, lib_out, g_heads
+    torch.cuda.empty_cache()
+
+    # K7 at [96, 8250]: every microphone of a B=16 batch in one launch.
+    R = VEST_BATCH * VEST_MICS
+    window = tuple(float(w) for w in np.hamming(41).astype(np.float32))
+    x, g = randn(R, Tv), randn(R, Tv)
+    d = torch.rand(R, Tv, device="cuda", generator=gen) * (0.01 * VEST_FS)
+    hit = torch.rand(R, Tv, device="cuda", generator=gen) < 0.05
+    d = torch.where(hit, torch.randint(0, 42, (R, Tv), device="cuda", generator=gen).float(), d)
+    far = torch.round(d).abs() > 20
+    y_k, s_k = sk.sinc_fwd_kernel(x, d, window)
+    y_p, s_p = sk.sinc_fwd_reference(x, d, window)
+    for name, a, r in (("y", y_k, y_p), ("s", s_k, s_p)):
+        for region, sel in (("inside the taps", ~far), ("beyond the taps", far)):
+            e = (a[sel] - r[sel]).abs().max().item()
+            print(f"[vest-kernel] sinc_delay_fwd {name} {region}: max_abs_err={e:.3e} "
+                  f"(max |plain| {r[sel].abs().max().item():.3e})")
+    err7f = max(agree("sinc_delay_fwd y f32 [96, 8250]", y_k, y_p, 1e-5, 1e-5),
+                agree("sinc_delay_fwd s f32", s_k, s_p, 1e-5, 1e-5))
+    dd_k = sk.sinc_grad_d_kernel(x, d, g, window)
+    dd_p = sk.sinc_grad_d_reference(x, d, g, window)
+    err7d = agree("sinc_delay_grad_d dd f32", dd_k, dd_p, 2e-4, 1e-3)
+    dx_k = sk.sinc_grad_x_kernel(d, g, s_p, window)
+    dx_p = sk.sinc_grad_x_reference(d, g, s_p, window)
+    err7x = agree("sinc_delay_grad_x dxpad f32", dx_k, dx_p, 2e-4, 1e-3)
+    rows_bytes = 4 * R * Tv
+    taps_flops = 6 * 41 * R * Tv          # per tap: z, the quotient, the weight, two sums
+    timed("sinc_delay_fwd", lambda: sk.sinc_fwd_kernel(x, d, window),
+          lambda: sk.sinc_fwd_reference(x, d, window), err7f,
+          bound(4 * rows_bytes, taps_flops, torch.float32))
+    timed("sinc_delay_grad_d", lambda: sk.sinc_grad_d_kernel(x, d, g, window),
+          lambda: sk.sinc_grad_d_reference(x, d, g, window), err7d,
+          bound(4 * rows_bytes, 2 * taps_flops, torch.float32))
+    timed("sinc_delay_grad_x", lambda: sk.sinc_grad_x_kernel(d, g, s_p, window),
+          lambda: sk.sinc_grad_x_reference(d, g, s_p, window), err7x,
+          bound(3 * rows_bytes + 4 * R * (Tv + 40), taps_flops, torch.float32))
+    del x, g, d, hit, far, y_k, s_k, y_p, s_p, dd_k, dd_p, dx_k, dx_p
+
+    # K3b at the vest encoder's T = 25 frames and K4 at its 400 rows, rate 0.1.
+    seed, site, eps = 1618033988, 9, 1e-5
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = "bf16" if dtype == torch.bfloat16 else "f32"
+        tol = (3e-2, 2e-2) if dtype == torch.bfloat16 else (1e-4, 1e-4)
+        qkv, dout = randn(B, 3 * H, VEST_FRAMES, D, dtype=dtype), randn(B, H, VEST_FRAMES, D,
+                                                                        dtype=dtype)
+        args = (VEST_FRAMES, RATE, seed, site)
+        out_k, lse_k = attention.attention_qkv_fwd(qkv, *args, with_lse=True)
+        out_p, lse_p = attention.attention_qkv_reference(qkv, *args, with_lse=True)
+        agree(f"attention_qkv_fwd out {dt} T={VEST_FRAMES}", out_k, out_p, *tol)
+        agree(f"attention_qkv_fwd lse {dt} T={VEST_FRAMES}", lse_k, lse_p, 1e-5, 1e-5)
+        agree(f"attention_qkv_bwd dqkv {dt} T={VEST_FRAMES}",
+              attention.attention_qkv_bwd(qkv, out_p, dout, lse_p, *args),
+              attention.attention_qkv_bwd_reference(qkv, out_p, dout, lse_p, *args), *tol)
+        rows = B * VEST_FRAMES
+        x, gr = randn(rows, HIDDEN, dtype=dtype), randn(rows, HIDDEN, dtype=dtype)
+        w1, b1 = randn(FFN, HIDDEN, dtype=dtype, std=HIDDEN ** -0.5), randn(FFN, dtype=dtype,
+                                                                           std=0.1)
+        w2, b2 = randn(HIDDEN, FFN, dtype=dtype, std=FFN ** -0.5), randn(HIDDEN, dtype=dtype,
+                                                                        std=0.1)
+        lw, lb = 1.0 + randn(HIDDEN, std=0.1), randn(HIDDEN, std=0.1)
+        mk_args = (seed, 4, 5, RATE, RATE, eps)
+        fwd_in = (x, w1, b1, w2, b2, lw, lb, *mk_args)
+        for name, a, r in zip(("y", "s", "pre"), mk.ffn_mega_fwd_kernel(*fwd_in),
+                              mk.ffn_mega_fwd_reference(*fwd_in)):
+            agree(f"ffn_mega_fwd {name} {dt} [{rows}, {HIDDEN}]", a, r, *tol)
+        _, s_p, pre_p = mk.ffn_mega_fwd_reference(*fwd_in)
+        bwd_in = (gr, s_p, pre_p, w2, lw, *mk_args)
+        colsum = (1e-1, 2e-2) if dtype == torch.bfloat16 else (1e-2, 1e-4)
+        for i, (name, a, r) in enumerate(zip(("ds", "dhid", "dpre", "h", "db1", "db2",
+                                              "dweight", "dbias"),
+                                             mk.ffn_mega_bwd_kernel(*bwd_in),
+                                             mk.ffn_mega_bwd_reference(*bwd_in))):
+            agree(f"ffn_mega_bwd {name} {dt} [{rows}, {HIDDEN}]", a, r,
+                  *(colsum if i >= 4 else tol))
+    torch.cuda.empty_cache()
+    return records
+
+
 # Kernel launches of one training step of wav2vec2-base (12 layers): (forward, backward), on
 # the default FFN route (K4) and on the decomposed control (``ffn_mega=False``: K5 + K2).
 PER_STEP = {"dropout": (2, 2), "resid_fwd": (12, 0), "resid_bwd": (0, 12),
             "attention_qkv_fwd": (12, 0), "attention_qkv_bwd": (0, 12),
             "ffn_mega_fwd": (12, 0), "ffn_mega_bwd": (0, 12),
-            "ffn_act_fwd": (0, 0), "ffn_act_bwd": (0, 0)}
+            "ffn_act_fwd": (0, 0), "ffn_act_bwd": (0, 0),
+            "flash_kv_fwd": (0, 0), "flash_kv_bwd": (0, 0), "sinc_delay_fwd": (0, 0),
+            "sinc_delay_grad_d": (0, 0), "sinc_delay_grad_x": (0, 0)}
 PER_STEP_SPLIT = {**PER_STEP, "resid_fwd": (24, 0), "resid_bwd": (0, 24),
                   "ffn_mega_fwd": (0, 0), "ffn_mega_bwd": (0, 0),
                   "ffn_act_fwd": (12, 0), "ffn_act_bwd": (0, 12)}
+# The vest step (6 microphones, LoRA on q/v): K1 runs at the feature projection, the
+# encoder input and the 24 LoRA bypasses (two per layer); K6 once per delay-predictor layer
+# (its backward wrapper launches the dq and the dk/dv kernel); K7 once for all microphones.
+# K7's input gradient runs only when the waveform itself needs a gradient, never in
+# training (the data needs none; the JAX package's XLA drops that pallas_call too):
+# phase 9 asks for it, and so its launches come from there.
+PER_STEP_VEST = {**PER_STEP, "dropout": (26, 26), "flash_kv_fwd": (2, 0),
+                 "flash_kv_bwd": (0, 2), "sinc_delay_fwd": (1, 0), "sinc_delay_grad_d": (0, 1)}
+PER_STEP_VEST_INPUT_GRAD = {**PER_STEP_VEST, "sinc_delay_grad_x": (0, 1)}
+# Kernels that an eval forward launches (per batch): wav2vec2-base's attention, and on the
+# vest the delay predictor's attention and the sinc delay.
+EVAL_PER_BATCH = {"attention_qkv_fwd": 12}
+EVAL_PER_BATCH_VEST = {**EVAL_PER_BATCH, "flash_kv_fwd": 2, "sinc_delay_fwd": 1}
 
 
 def per_step_text(per_step: dict) -> str:
@@ -657,11 +882,13 @@ def classifier_config(ffn_mega: bool = True):
 
 
 def train_step(model, x, y, per_step: dict | None):
-    """One training step from a fixed generator: (loss, gradient norm by parameter). With
-    ``per_step``, each kernel must launch exactly that often; without, none may launch."""
+    """One training step from a fixed generator: (loss, gradient norm by trained
+    parameter, and ``"input"`` when ``x`` needs a gradient). With ``per_step``, each kernel
+    must launch exactly that often; without, none may launch."""
     from wav2vec_heart_sounds_tpu_torch.train.losses import cross_entropy
 
     model.zero_grad(set_to_none=True)
+    x.grad = None
     reset_counts()
     loss = cross_entropy(model(x, train=True, generator=torch.Generator().manual_seed(5)), y)
     fwd = counts()
@@ -674,7 +901,10 @@ def train_step(model, x, y, per_step: dict | None):
         for name, (f, b) in per_step.items():
             check(fwd[name] == f and bwd[name] == b,
                   f"{name}: {fwd[name]} + {bwd[name]} launches, expected {f} + {b}")
-    return loss.detach().item(), {n: p.grad.norm().item() for n, p in model.named_parameters()}
+    norms = {n: p.grad.norm().item() for n, p in model.named_parameters() if p.requires_grad}
+    if x.requires_grad:
+        norms["input"] = x.grad.norm().item()
+    return loss.detach().item(), norms
 
 
 def worst_norm_gap(norms: dict, ref: dict, floor: float = 1e-6) -> float:
@@ -806,7 +1036,7 @@ def phase_training(card: str) -> dict:
               f"device memory {peak:.2f} GiB")
         check(len(values) == steps and all(np.isfinite(values)), f"training losses {values}")
         for name, (f, b) in per_step.items():
-            want = (f + b) * steps + (12 * valid_batches if name == "attention_qkv_fwd" else 0)
+            want = (f + b) * steps + EVAL_PER_BATCH.get(name, 0) * valid_batches
             check(got[name] == want, f"{route} {name}: {got[name]} launches in fit, "
                                      f"expected {want}")
         print(f"[train] {route} launches in fit: {json.dumps(got)} (per train step fwd+bwd: "
@@ -827,6 +1057,233 @@ def phase_training(card: str) -> dict:
               f"(median of 3 epochs: {', '.join(f'{s * 1e3:.1f}' for s in runs[mega])} ms; "
               f"host clock, batching, transfer and preprocessing included)")
     return launches
+
+
+def vest_config(lora: bool = True):
+    """bench.py's vest config: 6 microphones at 4125 Hz, LoRA on q/v, the 256 head,
+    full-width wav2vec2-base, random weights."""
+    from wav2vec_heart_sounds_tpu_torch.models.classifier import ClassifierConfig
+
+    return ClassifierConfig(num_classes=2, num_channels=VEST_MICS, random_init=True, lora=lora,
+                            fs=VEST_FS, head_hidden=(256,))
+
+
+def phase_vest_step() -> dict:
+    """One full-width float32 vest training step (B=2, 6 microphones, LoRA, the freeze mask,
+    dropout and SpecAugment on), the kernels against all-plain versions from one state and
+    one seed: the loss within 1e-4 relative, every trained parameter's gradient norm (and
+    the waveform's, which this step also asks for, so K7's input gradient runs) within
+    1e-3 relative, the exact launches of every kernel. Returns the kernel route's launches."""
+    from wav2vec_heart_sounds_tpu_torch.models.build import build_classifier
+    from wav2vec_heart_sounds_tpu_torch.models.classifier import apply_trainable_mask
+
+    B = 2
+    cfg = vest_config()
+    model = build_classifier(cfg, seed=0, device="cuda", dtype=torch.float32, train=True)
+    trained = apply_trainable_mask(model, cfg)
+    cpu = torch.Generator().manual_seed(7)
+    with torch.no_grad():                # lora_b starts at 0: give lora_a a gradient too
+        for name, p in model.named_parameters():
+            if name.endswith("lora_b"):
+                p.copy_(0.02 * torch.randn(p.shape, generator=cpu))
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x = 0.3 * torch.randn(B, VEST_T, VEST_MICS, device="cuda", generator=gen)
+    x.requires_grad_()
+    y = torch.arange(B, device="cuda") % 2
+    loss_k, norms_k = train_step(model, x, y, PER_STEP_VEST_INPUT_GRAD)
+    launches = counts()
+    with plain_route():
+        loss_p, norms_p = train_step(model, x, y, None)
+    # The delay predictor's key biases have a true gradient of 0 (softmax ignores a shift
+    # of every score of a query), so their norms are float32 rounding noise of the sum over
+    # 8250 keys (measured 3e-7 vs 2e-7, kernels vs plain, on the H100): they are held to
+    # being that small instead of to each other.
+    noise = [n for n in norms_p if n.endswith("key.bias")]
+    top = max(norms_p.values())
+    check(all(max(norms_k[n], norms_p[n]) < 1e-5 * top for n in noise),
+          f"key-bias gradients are not ~0: {[(norms_k[n], norms_p[n]) for n in noise]}")
+    worst = worst_norm_gap({n: v for n, v in norms_k.items() if n not in noise},
+                           {n: v for n, v in norms_p.items() if n not in noise})
+    frozen = sum(1 for p in model.parameters() if not p.requires_grad)
+    print(f"[vest-step] vest classifier f32 B={B} (6 mics x {VEST_T} samples, LoRA r=8), "
+          f"dropout and SpecAugment on: loss kernels {loss_k:.7f} vs plain {loss_p:.7f}; "
+          f"{len(norms_p) - 1} trained gradient norms ({frozen} frozen tensors) and the "
+          f"waveform's, worst relative difference {worst:.3e} (limit 1e-3) outside the "
+          f"{len(noise)} key biases (true gradient 0; at most "
+          f"{max(max(norms_k[n], norms_p[n]) for n in noise) / top:.1e} of the largest norm, "
+          f"limit 1e-5); launches fwd+bwd "
+          + per_step_text({k: v for k, v in PER_STEP_VEST_INPUT_GRAD.items() if any(v)}))
+    check(len(norms_k) == len(trained) + 1, "a trained parameter got no gradient")
+    check(abs(loss_k - loss_p) <= 1e-4 * max(1.0, abs(loss_p)), "vest step losses differ")
+    check(worst <= 1e-3, f"vest gradient norms differ between kernel and plain routes: {worst}")
+    check(all(np.isfinite(v) and v > 0 for v in norms_k.values()), "a gradient is 0 or not finite")
+    return launches
+
+
+def vest_fragments(n: int, seed: int):
+    """bench.py's vest windows: a two-tone beat plus independent noise on each microphone,
+    ``[8250, 6]``, abs-max normalised; labels alternate."""
+    from wav2vec_heart_sounds_tpu_torch.data.fragments import Fragment
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(VEST_T) / VEST_FS
+    base = np.sin(2 * np.pi * 85 * t) + 0.3 * np.sin(2 * np.pi * 190 * t)
+    frags = []
+    for i in range(n):
+        wave = (base[:, None] + 0.05 * rng.normal(size=(VEST_T, VEST_MICS))).astype(np.float32)
+        frags.append(Fragment(wave / np.max(np.abs(wave)), i % 2, f"p{i}"))
+    return frags
+
+
+def phase_vest_training(card: str) -> dict:
+    """``SupervisedTrainer.fit`` on bench.py's vest config (B=16, bfloat16, AdamW at 1e-4,
+    the LoRA freeze mask, lazy host augmentation with 15 augmented copies per window):
+    finite losses, exact launches per step, vest training windows/s (median of 3 timed
+    epochs). Returns the launches of the fit."""
+    from functools import partial
+
+    from wav2vec_heart_sounds_tpu_torch.augment.pipelines import AugmentConfig
+    from wav2vec_heart_sounds_tpu_torch.data.fragments import FragmentDataset
+    from wav2vec_heart_sounds_tpu_torch.data.loader import Batcher
+    from wav2vec_heart_sounds_tpu_torch.data.vest import multi_augment
+    from wav2vec_heart_sounds_tpu_torch.experiments.common import make_loader
+    from wav2vec_heart_sounds_tpu_torch.models.build import build_classifier
+    from wav2vec_heart_sounds_tpu_torch.train.classifier import SupervisedTrainer
+
+    steps = 4
+    train_ds = FragmentDataset(vest_fragments(-(-VEST_BATCH * steps // 16), 0), fs=VEST_FS,
+                               augment_num=15, augment_fn=partial(multi_augment,
+                                                                  cfg=AugmentConfig()))
+    train = make_loader(train_ds, VEST_BATCH, True, 0, VEST_T)
+    valid = Batcher(FragmentDataset(vest_fragments(VEST_BATCH, 1), fs=VEST_FS), VEST_BATCH,
+                    train=False)
+    steps, valid_batches = len(train), len(valid)
+    cfg = vest_config()
+    model = build_classifier(cfg, seed=0, device="cuda", dtype=torch.bfloat16, train=True)
+    trainer = SupervisedTrainer(model, optimizer_name="adamw", lr=1e-4, classifier_config=cfg,
+                                log=lambda line: print(f"[vest-train] {line}"))
+    losses, step = [], trainer._train_step
+
+    def recorded_step(*args):
+        loss, preds = step(*args)
+        losses.append(loss)
+        return loss, preds
+
+    trainer._train_step = recorded_step
+    trainer._run_epoch(train, True, 1)                                   # warm-up step
+    torch.cuda.synchronize()
+    losses.clear()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    best = trainer.fit(train, valid, 1)
+    torch.cuda.synchronize()
+    got = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    values = [float(v) for v in losses]
+    trained = sum(p.numel() for p in trainer.optimizer.params)
+    print(f"[vest-train] fit: {steps} steps of B={VEST_BATCH} ({steps * VEST_BATCH} windows of "
+          f"{VEST_MICS} x {VEST_T}) + {valid_batches} valid batch(es); {trained} trained "
+          f"parameters; losses {', '.join(f'{v:.5f}' for v in values)}; best valid MCC "
+          f"{best:.4f}; peak device memory {peak:.2f} GiB")
+    check(len(values) == steps and all(np.isfinite(values)), f"vest training losses {values}")
+    for name, (f, b) in PER_STEP_VEST.items():
+        want = (f + b) * steps + EVAL_PER_BATCH_VEST.get(name, 0) * valid_batches
+        check(got[name] == want, f"vest {name}: {got[name]} launches in fit, expected {want}")
+    print(f"[vest-train] launches in fit: {json.dumps(got)} (per train step fwd+bwd: "
+          + per_step_text({k: v for k, v in PER_STEP_VEST.items() if any(v)})
+          + "; per valid batch attention_qkv_fwd 12, flash_kv_fwd 2, sinc_delay_fwd 1)")
+    trainer._train_step = step
+    runs = [timed_epoch(trainer, train) for _ in range(3)]
+    print(f"[vest-train] {steps * VEST_BATCH} windows per epoch ({steps} steps of {VEST_BATCH}, "
+          f"bf16, 6-mic beamformer + LoRA wav2vec2-base + 256 head, AdamW): "
+          f"{steps * VEST_BATCH / np.median(runs):.1f} vest training windows/s on {card} "
+          f"(median of 3 epochs: {', '.join(f'{s * 1e3:.1f}' for s in runs)} ms; host clock, "
+          f"host augmentation, batching and transfer included)")
+    return got
+
+
+def synthetic_vest(directory: Path, seed: int = 0) -> str:
+    """A vest-layout directory: 8 recordings of 8 s at 4125 Hz, 9-column int16 WAVs (PCG
+    microphones 1-7, ECG leads E and E2), written with ``scipy.io.wavfile``, and a split
+    CSV (4 train, 2 valid, 2 test; half abnormal, with a murmur-like band on every
+    microphone, each microphone a little delayed). Returns the CSV's path."""
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(seed)
+    n = 8 * VEST_FS
+    t = np.arange(n) / VEST_FS
+    lines = ["patient,label,split"]
+    for i, split in enumerate(("train",) * 4 + ("valid",) * 2 + ("test",) * 2):
+        abnormal = i % 2
+        rate, f0 = rng.uniform(0.9, 1.6), rng.uniform(40, 90)
+        cols = []
+        for mic in range(7):
+            phase = (t * rate + 0.01 * mic) % 1.0
+            beat = np.exp(-((phase - 0.10) / 0.02) ** 2) + 0.7 * np.exp(-((phase - 0.40) / 0.02) ** 2)
+            x = beat * np.sin(2 * np.pi * f0 * t) + 0.02 * rng.normal(size=n)
+            if abnormal:
+                x += 0.3 * (0.20 < phase) * (phase < 0.35) * rng.normal(size=n)
+            cols.append(x)
+        ecg = np.sin(2 * np.pi * rate * t) ** 15
+        cols += [ecg, -ecg]
+        sig = np.stack(cols, axis=1)
+        wavfile.write(str(directory / f"vest{i:02d}_rec.wav"), VEST_FS,
+                      np.round(sig / np.abs(sig).max() * 30000).astype(np.int16))
+        lines.append(f"vest{i:02d},{1 if abnormal else -1},{split}")
+    path = directory / "split.csv"
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+def phase_vest_runner() -> None:
+    """The vest runner ``experiments.multichannel.run`` on a synthetic vest directory, full
+    width, bfloat16, one epoch of 2 steps of 16, LoRA (``random_init=False``: offline the
+    builder keeps its random weights), ``fit_svm=False``: (a) the host chain
+    (``multi_augment``) with cross-entropy, (b) ``device_augment=True`` with the
+    contrastive-focal loss. Finite losses and statistics, a results record, and the K6 and
+    K7 backward launches of the 2 steps (K7's input gradient: none, the data needs none)."""
+    import tempfile
+
+    from wav2vec_heart_sounds_tpu_torch.experiments import multichannel as runner
+
+    losses = []
+
+    class RecordingTrainer(runner.SupervisedTrainer):
+        def _train_step(self, *args):
+            loss, preds = super()._train_step(*args)
+            losses.append(loss)
+            return loss, preds
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.object(runner, "SupervisedTrainer", RecordingTrainer):
+        csv = synthetic_vest(Path(tmp))
+        results = Path(tmp) / "results.json"
+        for label, kw in (("host chain, cross-entropy", dict(loss="ce")),
+                          ("device augmentation, contrastive-focal",
+                           dict(loss="contrastive-focal", device_augment=True))):
+            losses.clear()
+            reset_counts()
+            t0 = time.perf_counter()
+            record = runner.run(tmp, csv, fs=VEST_FS, window_s=2.0, epochs=1, augment=True,
+                                random_init=False, fit_svm=False, batch_size=VEST_BATCH,
+                                max_batches=2, results_json=str(results), **kw)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            got = counts()
+            values = [float(v) for v in losses]
+            stats = [v for level in ("fragment", "patient") for v in record["mlp"][level].values()]
+            print(f"[vest-runner] experiments.multichannel.run, {label}: {seconds:.1f} s; train "
+                  f"losses {', '.join(f'{v:.5f}' for v in values)}; mlp fragment "
+                  f"{json.dumps(record['mlp']['fragment'])}; launches K6 "
+                  f"{got['flash_kv_fwd']}+{got['flash_kv_bwd']}, K7 {got['sinc_delay_fwd']}+"
+                  f"{got['sinc_delay_grad_d']}+{got['sinc_delay_grad_x']}, K1 {got['dropout']}")
+            check(len(values) == 2 and all(np.isfinite(values)), f"vest runner losses {values}")
+            check(all(np.isfinite(v) for v in stats), "vest runner statistics not finite")
+            check(json.loads(results.read_text())[-1]["loss"] == record["loss"],
+                  "the vest results record is missing")
+            check(got["flash_kv_bwd"] == 2 * len(values) and got["sinc_delay_grad_d"] ==
+                  len(values) and got["sinc_delay_grad_x"] == 0 and got["flash_kv_fwd"] >
+                  2 * len(values), f"K6/K7 launches in the vest runner: {got}")
 
 
 def synthetic_cinc(directory: Path, seed: int = 0) -> str:
@@ -924,10 +1381,16 @@ def main() -> None:
     phase_train_step()
     launches = phase_training(card)
     phase_runner()
+    measured.update(phase_vest_kernels())
+    input_grad_launches = phase_vest_step()
+    vest_launches = {**phase_vest_training(card),
+                     "sinc_delay_grad_x": input_grad_launches["sinc_delay_grad_x"]}
+    phase_vest_runner()
     print(card)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": CSRC + source, "replaces": PALLAS + replaces,
-         "launches": launches[name], **measured[name]}
+         "launches": (vest_launches if name in VEST_KERNELS else launches)[name],
+         **measured[name]}
         for name, (source, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

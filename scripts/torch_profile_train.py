@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """Where the port's training time goes on one CUDA card.
 
-    python3 scripts/torch_profile_train.py
+    python3 scripts/torch_profile_train.py          # the CinC training step
+    python3 scripts/torch_profile_train.py --vest   # the vest training step
 
 Builds ``chip_smoke.py``'s training configuration (full-width bf16 wav2vec2-base, 512x3
-head, SGD at lr 1e-3, B=96 raw 2 kHz int16 windows preprocessed on the card) and prints:
+head, SGD at lr 1e-3, B=96 raw 2 kHz int16 windows preprocessed on the card), or with
+``--vest`` its vest configuration (bench.py's: 6 microphones of 2 s at 4125 Hz, the sinc
+beamformer, LoRA on q/v under the freeze mask, the 256 head, AdamW at 1e-4, B=16 int16
+windows with lazy host augmentation), and prints:
 
 * host-clock ms per step for each stage of a train step, each ending in a device sync
-  (median of 5): preprocessing, the training forward with the loss, forward + backward,
-  and the whole step with the optimizer update;
+  (median of 5): preprocessing (CinC) or the beamformer alone (vest), the training
+  forward with the loss, forward + backward, and the whole step with the optimizer update;
 * one ``torch.profiler`` trace of a train step as ``SupervisedTrainer`` runs it (one
   batch through ``_run_epoch``, after a warm-up step): device time by kernel, and total
   device time against wall time (the card's busy share).
@@ -19,6 +23,7 @@ from __future__ import annotations
 import statistics
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 import torch
@@ -27,7 +32,9 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
+from wav2vec_heart_sounds_tpu_torch.augment.pipelines import AugmentConfig  # noqa: E402
 from wav2vec_heart_sounds_tpu_torch.data.fragments import FragmentDataset  # noqa: E402
+from wav2vec_heart_sounds_tpu_torch.data.vest import multi_augment  # noqa: E402
 from wav2vec_heart_sounds_tpu_torch.experiments.cinc import _device_prep  # noqa: E402
 from wav2vec_heart_sounds_tpu_torch.experiments.common import make_loader  # noqa: E402
 from wav2vec_heart_sounds_tpu_torch.models.build import build_classifier  # noqa: E402
@@ -49,9 +56,8 @@ def host_ms(fn, runs: int = 5) -> float:
     return statistics.median(times[1:])
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("needs a CUDA card")
+def cinc_setup():
+    """(loader, model, trainer, the stage before the model, its label) of the CinC step."""
     fs_wire, fs, bs = chip_smoke.FS_WIRE, chip_smoke.FS, chip_smoke.TRAIN_BATCH
     win_len = int(chip_smoke.WINDOW_S * fs)
     recordings = chip_smoke.synthetic_recordings(1, chip_smoke.TRAIN_PATIENTS,
@@ -62,13 +68,37 @@ def main() -> None:
     prep = _device_prep(fs_wire, fs, win_len, "cuda")
     trainer = SupervisedTrainer(model, optimizer_name="sgd", lr=1e-3, device_preprocess=prep,
                                 log=lambda line: None)
+    return loader, model, trainer, prep, f"preprocess [{bs}, int16] -> [{bs}, {win_len}]"
 
+
+def vest_setup():
+    """The same for the vest step; the stage before the encoder is the beamformer."""
+    bs = chip_smoke.VEST_BATCH
+    dataset = FragmentDataset(chip_smoke.vest_fragments(4, 0), fs=chip_smoke.VEST_FS,
+                              augment_num=15, augment_fn=partial(multi_augment,
+                                                                 cfg=AugmentConfig()))
+    loader = make_loader(dataset, bs, True, 0, chip_smoke.VEST_T)
+    cfg = chip_smoke.vest_config()
+    model = build_classifier(cfg, seed=0, device="cuda", dtype=torch.bfloat16, train=True)
+    trainer = SupervisedTrainer(model, optimizer_name="adamw", lr=1e-4, classifier_config=cfg,
+                                log=lambda line: None)
+    return (loader, model, trainer, lambda x: model.channel_mixer(x.float().transpose(1, 2)),
+            f"beamformer [{bs}, {chip_smoke.VEST_T}, {chip_smoke.VEST_MICS}] -> "
+            f"[{bs}, {chip_smoke.VEST_T}] (delay predictor with K6, then K7)")
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    vest = "--vest" in sys.argv[1:]
+    loader, model, trainer, stage, stage_label = vest_setup() if vest else cinc_setup()
     batch = next(iter(loader))
+    bs = len(batch["label"])
     raw = torch.as_tensor(batch["waveform"], device="cuda")
     y = torch.as_tensor(batch["label"], device="cuda")
     valid = torch.as_tensor(batch["valid"], device="cuda").float()
     with torch.no_grad():
-        x = prep(raw)
+        x = raw.float() / 32767.0 if vest else stage(raw)
     gen = torch.Generator().manual_seed(0)
 
     def forward():
@@ -79,8 +109,7 @@ def main() -> None:
         forward().backward()
 
     with torch.no_grad():
-        print(f"preprocess [{bs}, {raw.shape[1]}] int16 -> [{bs}, {win_len}]: "
-              f"{host_ms(lambda: prep(raw)):.3f} ms/step")
+        print(f"{stage_label}: {host_ms(lambda: stage(x if vest else raw)):.3f} ms/step")
     print(f"training forward + loss, bf16 B={bs}: {host_ms(forward):.3f} ms/step")
     print(f"forward + backward: {host_ms(forward_backward):.3f} ms/step")
     print(f"whole train step (+ optimizer): "
@@ -97,7 +126,8 @@ def main() -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    print(f"one train step through _run_epoch (batching, transfer, preprocessing included): "
+    print(f"one train step through _run_epoch (batching, host augmentation, transfer and "
+          f"preprocessing included): "
           f"wall {wall_ms:.1f} ms, device busy {device_ms:.1f} ms "
           f"({100 * device_ms / wall_ms:.1f}%)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:TOP]:

@@ -20,6 +20,7 @@ from wav2vec_heart_sounds_tpu.data.fragments import Fragment as JaxFragment
 from wav2vec_heart_sounds_tpu.data.fragments import FragmentDataset as JaxDataset
 from wav2vec_heart_sounds_tpu.data import cinc as jax_data_cinc
 from wav2vec_heart_sounds_tpu.data import common as jax_data_common
+from wav2vec_heart_sounds_tpu.data import vest as jax_vest
 from wav2vec_heart_sounds_tpu.experiments import common as jax_common
 from wav2vec_heart_sounds_tpu.utils import observe as jax_observe
 from wav2vec_heart_sounds_tpu.signal import filters as jax_filters
@@ -27,6 +28,7 @@ from wav2vec_heart_sounds_tpu.train.metrics import ConfusionMatrix as JaxConfusi
 from wav2vec_heart_sounds_tpu_torch import config
 from wav2vec_heart_sounds_tpu_torch.data import cinc as data_cinc
 from wav2vec_heart_sounds_tpu_torch.data import common as data_common
+from wav2vec_heart_sounds_tpu_torch.data import vest
 from wav2vec_heart_sounds_tpu_torch.data import loader
 from wav2vec_heart_sounds_tpu_torch.data.fragments import Fragment, FragmentDataset
 from wav2vec_heart_sounds_tpu_torch.experiments import common
@@ -67,6 +69,13 @@ trained = build_classifier(ClassifierConfig(head_hidden=(8,), encoder=Wav2Vec2Co
 batch = {{"waveform": np.random.default_rng(0).normal(size=(2, 1000)).astype(np.float32),
          "label": np.array([0, 1]), "valid": np.ones(2, bool)}}
 SupervisedTrainer(trained, log=lambda s: None).fit([batch], [batch], 1)
+vest_cfg = ClassifierConfig(num_channels=3, lora=True, head_hidden=(8,), fs=1000,
+                            encoder=Wav2Vec2Config.tiny())
+vest_model = build_classifier(vest_cfg, device="cpu", train=True)
+vest_batch = {{"waveform": np.random.default_rng(1).normal(size=(2, 600, 3)).astype(np.float32),
+              "label": np.array([0, 1]), "valid": np.ones(2, bool)}}
+SupervisedTrainer(vest_model, optimizer_name="adamw", classifier_config=vest_cfg,
+                  log=lambda s: None).fit([vest_batch], [vest_batch], 1)
 print("PORT_OK", sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}
                         and sys.modules[m] is not None))
 """
@@ -189,7 +198,15 @@ def _code(fn) -> str:
     (data_common.binary_label, jax_data_common.binary_label),
     (data_common.progress, jax_data_common.progress),
     (data_cinc.read_record, jax_data_cinc.read_record),
-    (data_cinc._variants, jax_data_cinc._variants)])
+    (data_cinc._variants, jax_data_cinc._variants),
+    (data_common.stack_min_length, jax_data_common.stack_min_length),
+    (vest.ChannelPlan, jax_vest.ChannelPlan),
+    (vest.read_vest_wav, jax_vest.read_vest_wav),
+    (vest.patient_files, jax_vest.patient_files),
+    (vest.build_fragments, jax_vest.build_fragments),
+    (vest.multi_augment, jax_vest.multi_augment),
+    (vest.multi_augment_host_residual, jax_vest.multi_augment_host_residual),
+    (vest.vest_dataset, jax_vest.vest_dataset)])
 def test_copied_functions_have_the_originals_code(ours, theirs):
     assert _code(ours) == _code(theirs)
 
@@ -204,7 +221,7 @@ def _module_code(module) -> str:
 
 COPIED_MODULES = ("data.wfdb_io", "signal.despike", "signal.normalize", "signal.resample",
                   "signal.filters", "signal.preprocess", "augment.pipelines",
-                  "augment.primitives", "augment.dsp", "augment.noise_sources")
+                  "augment.primitives", "augment.dsp", "augment.noise_sources", "train.svm")
 
 
 @pytest.mark.parametrize("name", COPIED_MODULES)
@@ -251,3 +268,15 @@ def test_make_loader_matches_original(train):
         assert a["waveform"].dtype == b["waveform"].dtype
         np.testing.assert_array_equal(a["waveform"], b["waveform"])
         np.testing.assert_array_equal(a["label"], b["label"])
+
+
+def test_vest_constants_and_ecg_chain_match_originals(monkeypatch):
+    """The vest layout constants, and ``ecg_chain`` (the port runs the NumPy oracle; the JAX
+    package's with its C++ library off) on the same signal."""
+    assert vest.VEST_CHANNEL_MAP == jax_vest.VEST_CHANNEL_MAP
+    assert vest.ECG_LEADS == jax_vest.ECG_LEADS
+    monkeypatch.setenv("W2VHS_NO_NATIVE", "1")
+    x = np.sin(2 * np.pi * 1.3 * np.arange(6000) / 2000) ** 9
+    x = x + 0.05 * np.random.default_rng(3).normal(size=x.size)
+    np.testing.assert_array_equal(data_common.ecg_chain(x, 2000, 500),
+                                  jax_data_common.ecg_chain(x, 2000, 500))

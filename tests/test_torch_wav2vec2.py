@@ -99,15 +99,34 @@ def test_from_jax_round_trips_every_leaf(kind):
 
 
 def test_from_jax_refuses_lora_leaves():
+    """LoRA leaves now have a place (``lora_a``/``lora_b`` on q/v, flax layout); a leaf
+    with none is still refused, so no weight is silently dropped."""
     params = JaxModel(JaxConfig.tiny(lora_rank=4)).init(jax.random.key(0),
                                                           jnp.zeros((1, 800)))["params"]
-    with pytest.raises(NotImplementedError, match="lora"):
-        from_jax.from_jax(params)
+    sd = from_jax.from_jax(params)
+    port = Wav2Vec2Model(Wav2Vec2Config.tiny(lora_rank=4))
+    assert set(sd) == set(port.state_dict())
+    assert tuple(sd["encoder.layers.0.attention.v_proj.lora_a"].shape) == (32, 4)
+    attention = params["layers_0"]["attention"]
+    stray = {**params, "layers_0": {**params["layers_0"], "attention": {
+        **attention, "q_proj": {**attention["q_proj"], "lora_c": np.zeros(4)}}}}
+    with pytest.raises(NotImplementedError, match="lora_c"):
+        from_jax.from_jax(stray)
 
 
 def test_multichannel_classifier_not_ported():
-    with pytest.raises(NotImplementedError, match="vest"):
-        Wav2VecClassifier(ClassifierConfig(num_channels=3, encoder=Wav2Vec2Config.tiny()))
+    """Ported with the vest slice: a multichannel config gets the beamformer
+    (``channel_mixer``) and collapses ``[B, T, C]`` to the encoder's mono input."""
+    model = Wav2VecClassifier(ClassifierConfig(num_channels=3, head_hidden=(8,),
+                                               encoder=Wav2Vec2Config.tiny()))
+    assert hasattr(model, "channel_mixer")
+    assert model.channel_mixer.delay_predictor.output_proj.out_features == 3
+    with torch.inference_mode():
+        logits = build_classifier(ClassifierConfig(num_channels=3, head_hidden=(8,),
+                                                   encoder=Wav2Vec2Config.tiny()),
+                                  device="cpu")(torch.from_numpy(_wave(2, 900))[:, :, None]
+                                                .expand(2, 900, 3).contiguous())
+    assert logits.shape == (2, 2) and bool(torch.isfinite(logits).all())
 
 
 def test_gelu_follows_dtype():

@@ -1,11 +1,19 @@
-"""Batched waveform augmentation on the card (port of ``augment/jaxaug.py``, mono PCG).
+"""Batched waveform augmentation on the card (port of ``augment/jaxaug.py``).
 
-The on-device twin of the host PCG pipeline's tensor-friendly subset: additive white
-noise, the sinusoidal volume envelope and a random parametric EQ (five first-order
-Butterworth band sections, edges shared across the batch), each applied through a
-per-row Bernoulli gate and followed by abs-max renormalisation, in the JAX package's
-stage order (noise, envelope, EQ, noise). Rows that do not participate at all
-(``row_mask`` / ``pristine_prob``, :func:`participation`) pass through bit-identically.
+Mono PCG (:func:`augment_pcg_batch`): the on-device twin of the host PCG pipeline's
+tensor-friendly subset: additive white noise, the sinusoidal volume envelope and a random
+parametric EQ (five first-order Butterworth band sections, edges shared across the batch),
+each applied through a per-row Bernoulli gate and followed by abs-max renormalisation, in
+the JAX package's stage order (noise, envelope, EQ, noise).
+
+Vest (:func:`augment_multi_pcg_batch`, ``[B, T, C]``): the tail of the multichannel host
+pipeline after its host residue (``data/vest.py::multi_augment_host_residual``): the
+wander envelope, white noise and recorded noise from an on-device bank, in that order,
+each gated once per sample and shared across its microphones so inter-channel phase is
+kept; wander and recorded noise renormalise, white noise does not.
+
+Rows that do not participate at all (``row_mask`` / ``pristine_prob``) pass through
+bit-identically.
 
 Randomness is split from the arithmetic so both can be tested: :func:`draw_pcg_batch`
 takes every draw from a CPU ``torch.Generator`` in a fixed order (small per-row
@@ -23,7 +31,8 @@ import torch
 
 from ..ops.iir import biquad_dynamic, butter1_bandpass_coeffs
 from ..ops.normalize import abs_max_normalise as _normalise
-from .pipelines import AugmentConfig
+from .pipelines import (MULTI_PROB_NOISE, MULTI_PROB_REAL_NOISE, MULTI_PROB_WANDER,
+                        AugmentConfig)
 
 NOISE_STDS = (0.0001, 0.001, 0.01)
 SINE_BANDS = ((0.05, 0.5), (0.001, 0.05))       # fast and slow envelope sinusoids, Hz
@@ -35,10 +44,13 @@ def _uniform(generator: torch.Generator, *shape) -> torch.Tensor:
     return torch.rand(shape, generator=generator, dtype=torch.float32)
 
 
-def _noise_draws(generator: torch.Generator, b: int, t: int, device) -> dict:
+def _noise_draws(generator: torch.Generator, b: int, t: int, device,
+                 gates: int | None = None) -> dict:
+    """White-noise draws for ``b`` rows of ``t`` samples, with ``gates`` gate uniforms
+    (default one per row)."""
     seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
     field = torch.Generator(device=device).manual_seed(seed)
-    return {"gate": _uniform(generator, b),
+    return {"gate": _uniform(generator, b if gates is None else gates),
             "std": int(torch.randint(0, len(NOISE_STDS), (1,), generator=generator)),
             "scale": _uniform(generator, b),
             "normal": torch.randn((b, t), generator=field, device=device)}
@@ -63,11 +75,16 @@ def draw_pcg_batch(generator: torch.Generator, b: int, t: int, device,
                        "high": _uniform(generator, EQ_BANDS)}
     if cfg.prob_noise > 0:
         draws["noise2"] = _noise_draws(generator, b, t, device)
-    if pristine_prob is not None:
-        draws["participate"] = _uniform(generator, b) >= pristine_prob
-    elif row_mask is not None:
-        draws["participate"] = torch.as_tensor(row_mask).cpu() > 0.5
+    draws.update(_participation(generator, b, row_mask, pristine_prob))
     return draws
+
+
+def _participation(generator, b: int, row_mask, pristine_prob) -> dict:
+    if pristine_prob is not None:
+        return {"participate": _uniform(generator, b) >= pristine_prob}
+    if row_mask is not None:
+        return {"participate": torch.as_tensor(row_mask).cpu() > 0.5}
+    return {}
 
 
 def _blend(x: torch.Tensor, transformed: torch.Tensor, gate: torch.Tensor,
@@ -154,3 +171,70 @@ def augment_pcg_batch(generator: torch.Generator, x: torch.Tensor, fs: int,
     draws = draw_pcg_batch(generator, x.shape[0], x.shape[1], x.device, cfg,
                            row_mask=row_mask, pristine_prob=pristine_prob)
     return apply_pcg_batch(x, fs, cfg, draws)
+
+
+def draw_multi_pcg_batch(generator: torch.Generator, b: int, c: int, t: int, device, *,
+                         bank_size: int = 0, row_mask: torch.Tensor | None = None,
+                         pristine_prob: float | None = None) -> dict:
+    """Every random draw of one :func:`augment_multi_pcg_batch` call, in a fixed order:
+    wander (the envelope of each sample, then its gate), white noise (the gate of each
+    sample, then the noise of each of its ``c`` rows), recorded noise (with a bank of
+    ``bank_size`` snippets: a snippet and a gate per sample), then participation."""
+    draws: dict = {}
+    if MULTI_PROB_WANDER > 0:
+        draws["wander"] = {"amp": _uniform(generator, 2, b), "freq": _uniform(generator, 2, b),
+                           "phase": _uniform(generator, 2, b), "gate": _uniform(generator, b)}
+    if MULTI_PROB_NOISE > 0:
+        draws["noise"] = _noise_draws(generator, b * c, t, device, gates=b)
+    if bank_size and MULTI_PROB_REAL_NOISE > 0:
+        draws["recorded"] = {
+            "index": torch.randint(0, bank_size, (b,), generator=generator),
+            "gate": _uniform(generator, b)}
+    draws.update(_participation(generator, b, row_mask, pristine_prob))
+    return draws
+
+
+def _shared(gate: torch.Tensor, prob: float, c: int, device) -> torch.Tensor:
+    """``[B*C, 1]`` gate: one draw per sample, shared by its ``c`` microphone rows."""
+    return (gate < prob).to(device)[:, None].expand(-1, c).reshape(-1, 1)
+
+
+def apply_multi_pcg_batch(x: torch.Tensor, fs: int, draws: dict,
+                          noise_bank: torch.Tensor | None = None) -> torch.Tensor:
+    """The deterministic core of :func:`augment_multi_pcg_batch` for given ``draws``."""
+    b, t, c = x.shape
+    y = _normalise(x.transpose(1, 2).reshape(b * c, t))
+    if "wander" in draws:
+        d = draws["wander"]
+        tt = torch.arange(t, dtype=y.dtype, device=y.device) / fs
+        mod = 1.0 + two_band_sines(tt, d, 0.01, 0.24)                  # one per sample
+        wandered = _normalise((y.view(b, c, t) * mod[:, None, :]).reshape(b * c, t))
+        y = torch.where(_shared(d["gate"], MULTI_PROB_WANDER, c, y.device), wandered, y)
+    if "noise" in draws:
+        d = draws["noise"]
+        y = torch.where(_shared(d["gate"], MULTI_PROB_NOISE / 4, c, y.device),
+                        add_white_noise(y, d), y)
+    if "recorded" in draws and noise_bank is not None:
+        d = draws["recorded"]
+        snip = noise_bank[d["index"].to(noise_bank.device)].to(y.dtype)  # [B, T], all mics
+        mixed = _normalise((y.view(b, c, t) + snip[:, None, :]).reshape(b * c, t))
+        y = torch.where(_shared(d["gate"], MULTI_PROB_REAL_NOISE, c, y.device), mixed, y)
+    y = y.view(b, c, t).transpose(1, 2)
+    part = draws.get("participate")
+    if part is None:
+        return y
+    return torch.where(part.to(x.device)[:, None, None], y, x)
+
+
+def augment_multi_pcg_batch(generator: torch.Generator, x: torch.Tensor, fs: int, *,
+                            row_mask: torch.Tensor | None = None,
+                            pristine_prob: float | None = None,
+                            noise_bank: torch.Tensor | None = None) -> torch.Tensor:
+    """Augment a float vest batch ``[B, T, C]`` on its device, every draw from the CPU
+    ``generator``; ``noise_bank`` ``[K, T]`` (on the device) enables recorded noise. The
+    stage probabilities are the host pipeline's ``MULTI_PROB_*``, as in the JAX package."""
+    b, t, c = x.shape
+    draws = draw_multi_pcg_batch(generator, b, c, t, x.device,
+                                 bank_size=0 if noise_bank is None else noise_bank.shape[0],
+                                 row_mask=row_mask, pristine_prob=pristine_prob)
+    return apply_multi_pcg_batch(x, fs, draws, noise_bank)

@@ -10,8 +10,9 @@ holds ints (a float column floats, anything else strings), so ``str(patient)`` a
 label ints come out as pandas gives them. ``balanced_copy_counts`` and ``progress`` are
 copies, held to the originals by ``tests/test_torch_imports.py``.
 
-Preprocessing runs the NumPy oracle (:mod:`..signal.preprocess`); the JAX package's C++
-host library (``native/fastproc.cpp``) is not ported yet.
+Preprocessing (:func:`pcg_chain`, :func:`ecg_chain`) runs the NumPy oracle
+(:mod:`..signal.preprocess`); the JAX package's C++ host library (``native/fastproc.cpp``)
+is not ported yet. ``stack_min_length`` is a copy too.
 """
 
 from __future__ import annotations
@@ -121,3 +122,16 @@ def pcg_chain(x: np.ndarray, fs_in: float, fs_out: float) -> np.ndarray:
     from ..signal.preprocess import preprocess_pcg
 
     return preprocess_pcg(x, fs_in, fs_out)
+
+
+def ecg_chain(x: np.ndarray, fs_in: float, fs_out: float) -> np.ndarray:
+    """Full ECG preprocessing chain on the host (the NumPy oracle)."""
+    from ..signal.preprocess import preprocess_ecg
+
+    return preprocess_ecg(x, fs_in, fs_out)
+
+
+def stack_min_length(channels: list[np.ndarray]) -> np.ndarray:
+    """Stack per-channel signals to ``[T, C]`` at the shortest common length."""
+    n = min(len(c) for c in channels)
+    return np.stack([c[:n] for c in channels], axis=1)

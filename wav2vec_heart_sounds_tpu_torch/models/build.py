@@ -22,8 +22,11 @@ def build_classifier(cfg: ClassifierConfig, seed: int = 0, device="cuda",
     on every device. With ``cfg.random_init`` False the encoder takes the pretrained
     ``cfg.pretrained_name`` from the local HF cache when it is there, and otherwise keeps
     its random init and says so in one printed line, as the JAX package's builder does
-    offline. Load trained or converted weights afterwards with ``model.load_state_dict``
-    (see :mod:`.from_jax` and :mod:`.hf_port`).
+    offline; LoRA adapters keep their init either way. A multichannel config gets the sinc
+    beamformer and a LoRA config the adapters (:mod:`.classifier`); every parameter keeps
+    ``requires_grad`` until a trainer applies the config's freeze mask. Load trained or
+    converted weights afterwards with ``model.load_state_dict`` (see :mod:`.from_jax` and
+    :mod:`.hf_port`).
     """
     with torch.device("meta"):
         model = Wav2VecClassifier(cfg, dtype)
@@ -34,6 +37,9 @@ def build_classifier(cfg: ClassifierConfig, seed: int = 0, device="cuda",
         if pretrained is None:
             print(f"build_classifier: no local checkpoint of {cfg.pretrained_name}; the "
                   f"encoder keeps its random init (seed {seed})")
-        else:
-            model.encoder.load_state_dict(pretrained, strict=True)
+        else:       # the checkpoint has no LoRA adapters: they keep their init
+            missing, unexpected = model.encoder.load_state_dict(pretrained, strict=False)
+            if unexpected or any(not k.endswith((".lora_a", ".lora_b")) for k in missing):
+                raise KeyError(f"checkpoint of {cfg.pretrained_name} does not fit the encoder: "
+                               f"missing {missing}, unexpected {unexpected}")
     return model.train(train)

@@ -1,10 +1,14 @@
 """The JAX package's flax parameter tree (as numpy) <-> this port's state dict.
 
 A flax tree of ``Wav2Vec2Model`` (top key ``feature_encoder``) or of ``Wav2VecClassifier``
-(top keys ``encoder`` and ``head``) maps leaf by leaf to the port's keys: dense kernels
-``[in, out]`` transpose to ``weight [out, in]``, conv kernels ``[k, in, out]`` to
-``weight [out, in, k]``, norm ``scale`` becomes ``weight``. :func:`to_jax` is the exact
-inverse. The tree is plain nested dicts of arrays; nothing here imports JAX.
+(top keys ``encoder``, ``head`` and, for a multichannel classifier, ``channel_mixer``) maps
+leaf by leaf to the port's keys: dense kernels ``[in, out]`` transpose to
+``weight [out, in]``, conv kernels ``[k, in, out]`` to ``weight [out, in, k]``, norm
+``scale`` becomes ``weight``, LoRA ``lora_a``/``lora_b`` keep their flax layout, and the
+delay predictor's attention kernels (``[32, 4, 8]`` for query/key/value, ``[4, 8, 32]``
+for out, biases ``[4, 8]``) flatten to ``[32, 32]`` linears. :func:`to_jax` is the exact
+inverse (it takes each leaf's shape from ``params_like``). The tree is plain nested dicts
+of arrays; nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -15,19 +19,24 @@ import numpy as np
 import torch
 
 _DENSE, _CONV, _SAME = "dense", "conv", "same"
+_HEADS_IN, _HEADS_OUT, _FLAT = "heads_in", "heads_out", "flat"
 
 
-def _enc_layout(n_conv: int, n_layers: int) -> list[tuple[tuple[str, ...], str, str]]:
-    """(flax path, port key, transform) for every leaf of a LoRA-free encoder tree."""
+def _norm(path, key):
+    return [(path + ("scale",), key + ".weight", _SAME), (path + ("bias",), key + ".bias", _SAME)]
+
+
+def _dense(path, key, kernel=_DENSE, bias=_SAME):
+    return [(path + ("kernel",), key + ".weight", kernel), (path + ("bias",), key + ".bias", bias)]
+
+
+def _enc_layout(n_conv: int, n_layers: int,
+                lora: bool = False) -> list[tuple[tuple[str, ...], str, str]]:
+    """(flax path, port key, transform) for every leaf of an encoder tree."""
     out = [(("feature_encoder", f"conv_{i}", "kernel"),
             f"feature_extractor.conv_layers.{i}.conv.weight", _CONV) for i in range(n_conv)]
 
-    def norm(path, key):
-        return [(path + ("scale",), key + ".weight", _SAME), (path + ("bias",), key + ".bias", _SAME)]
-
-    def dense(path, key):
-        return [(path + ("kernel",), key + ".weight", _DENSE), (path + ("bias",), key + ".bias", _SAME)]
-
+    norm, dense = _norm, _dense
     out += norm(("feature_encoder", "group_norm"), "feature_extractor.conv_layers.0.layer_norm")
     out += norm(("feature_projection", "layer_norm"), "feature_projection.layer_norm")
     out += dense(("feature_projection", "projection"), "feature_projection.projection")
@@ -40,6 +49,9 @@ def _enc_layout(n_conv: int, n_layers: int) -> list[tuple[tuple[str, ...], str, 
         for proj, sub in (("q_proj", ("base",)), ("k_proj", ()), ("v_proj", ("base",)),
                           ("out_proj", ())):
             out += dense(jp + ("attention", proj) + sub, f"{tp}.attention.{proj}")
+        if lora:
+            out += [(jp + ("attention", proj, leaf), f"{tp}.attention.{proj}.{leaf}", _SAME)
+                    for proj in ("q_proj", "v_proj") for leaf in ("lora_a", "lora_b")]
         out += norm(jp + ("layer_norm",), f"{tp}.layer_norm")
         out += dense(jp + ("intermediate_dense",), f"{tp}.feed_forward.intermediate_dense")
         out += dense(jp + ("output_dense",), f"{tp}.feed_forward.output_dense")
@@ -51,17 +63,39 @@ def _count(tree: dict, prefix: str) -> int:
     return sum(1 for k in tree if k.startswith(prefix))
 
 
+def _has_lora(enc: dict) -> bool:
+    return "layers_0" in enc and "lora_a" in enc["layers_0"]["attention"]["q_proj"]
+
+
+def _mixer_layout(mixer: dict) -> list[tuple[tuple[str, ...], str, str]]:
+    """The beamformer's delay predictor (``channel_mixer/delay_predictor``)."""
+    jp, tp = ("channel_mixer", "delay_predictor"), "channel_mixer.delay_predictor"
+    tree = mixer["delay_predictor"]
+    out = _dense(jp + ("input_proj",), f"{tp}.input_proj")
+    for i in range(_count(tree, "attn_")):
+        for proj in ("query", "key", "value"):
+            out += _dense(jp + (f"attn_{i}", proj), f"{tp}.attn_{i}.{proj}", _HEADS_IN, _FLAT)
+        out += _dense(jp + (f"attn_{i}", "out"), f"{tp}.attn_{i}.out", _HEADS_OUT)
+        for name in (f"norm1_{i}", f"norm2_{i}"):
+            out += _norm(jp + (name,), f"{tp}.{name}")
+        for name in (f"ff1_{i}", f"ff2_{i}"):
+            out += _dense(jp + (name,), f"{tp}.{name}")
+    return out + _dense(jp + ("output_proj",), f"{tp}.output_proj")
+
+
 def layout(params: dict) -> list[tuple[tuple[str, ...], str, str]]:
     """Leaf mapping for a flax encoder or classifier tree."""
     if "encoder" not in params:
-        return _enc_layout(_count(params["feature_encoder"], "conv_"), _count(params, "layers_"))
+        return _enc_layout(_count(params["feature_encoder"], "conv_"), _count(params, "layers_"),
+                           _has_lora(params))
     enc, head = params["encoder"], params["head"]
     out = [(("encoder",) + p, "encoder." + k, t)
            for p, k, t in _enc_layout(_count(enc["feature_encoder"], "conv_"),
-                                      _count(enc, "layers_"))]
+                                      _count(enc, "layers_"), _has_lora(enc))]
     for name in [f"dense_{i}" for i in range(_count(head, "dense_"))] + ["logits"]:
-        out += [(("head", name, "kernel"), f"head.{name}.weight", _DENSE),
-                (("head", name, "bias"), f"head.{name}.bias", _SAME)]
+        out += _dense(("head", name), f"head.{name}")
+    if "channel_mixer" in params:
+        out += _mixer_layout(params["channel_mixer"])
     return out
 
 
@@ -77,12 +111,21 @@ def _leaves(tree: dict, prefix=()) -> dict[tuple[str, ...], np.ndarray]:
 
 def _to_port(a: np.ndarray, kind: str) -> np.ndarray:
     return {_DENSE: lambda x: x.T, _CONV: lambda x: x.transpose(2, 1, 0),
-            _SAME: lambda x: x}[kind](a)
+            _SAME: lambda x: x, _HEADS_IN: lambda x: x.reshape(x.shape[0], -1).T,
+            _HEADS_OUT: lambda x: x.reshape(-1, x.shape[-1]).T,
+            _FLAT: lambda x: x.reshape(-1)}[kind](a)
+
+
+def _to_flax(a: np.ndarray, kind: str, shape: tuple[int, ...]) -> np.ndarray:
+    """Inverse of :func:`_to_port` onto a flax leaf of ``shape``."""
+    if kind in (_HEADS_IN, _HEADS_OUT, _FLAT):
+        return (a if kind == _FLAT else a.T).reshape(shape)
+    return _to_port(a, kind)                   # the other transforms are involutions
 
 
 def from_jax(params: dict) -> dict[str, torch.Tensor]:
-    """Flax param tree -> float32 port state dict. Raises on leaves it cannot place
-    (LoRA adapters, beamformer), so no weight is silently dropped."""
+    """Flax param tree -> float32 port state dict. Raises on leaves it cannot place, so no
+    weight is silently dropped."""
     leaves = {p: np.asarray(v) for p, v in _leaves(params).items()}
     mapping = layout(params)
     unplaced = set(leaves) - {p for p, _, _ in mapping}
@@ -96,11 +139,12 @@ def to_jax(state_dict: dict, params_like: dict) -> dict:
     """Port state dict -> flax param tree shaped like ``params_like`` (inverse of
     :func:`from_jax`)."""
     out: dict = {}
+    like = _leaves(params_like)
     for path, key, kind in layout(params_like):
         a = state_dict[key]
         a = a.detach().cpu().float().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
-        node[path[-1]] = np.ascontiguousarray(_to_port(a, kind))   # each transform is an involution
+        node[path[-1]] = np.ascontiguousarray(_to_flax(a, kind, np.shape(like[path])))
     return out

@@ -24,8 +24,14 @@ SpecAugment time masking fills masked frames with ``masked_spec_embed``. One bas
 ``g`` (a CPU ``torch.Generator``), then the SpecAugment span starts; each dropout site
 keys its Philox mask with that seed and its own site index (:func:`layer_sites`).
 
-Not ported yet: LoRA, and ``conv_time_plan``'s tile padding, which gives the same numbers
-as the exact lengths used here.
+LoRA (``Wav2Vec2Config.lora_rank > 0``, the JAX package's ``LoraDense`` params): ``q_proj``
+and ``v_proj`` carry ``lora_a [in, r]`` and ``lora_b [r, out]`` (the flax layout), and the
+packed projection adds ``(alpha / r) * (dropout(x) @ lora_a) @ lora_b`` to its q and v
+thirds; in training each bypass draws its own mask at its own site (:func:`lora_sites`),
+through K1 like every dropout of the port.
+
+Not ported: ``conv_time_plan``'s tile padding, which gives the same numbers as the exact
+lengths used here.
 """
 
 from __future__ import annotations
@@ -55,6 +61,12 @@ def layer_sites(index: int) -> tuple[int, int, int, int]:
     return base, base + 1, base + 2, base + 3
 
 
+def lora_sites(index: int, num_layers: int) -> tuple[int, int]:
+    """LoRA dropout sites of layer ``index`` (q and v bypass), after every layer's sites."""
+    base = 2 + 4 * num_layers + 2 * index
+    return base, base + 1
+
+
 @dataclass(frozen=True)
 class Wav2Vec2Config:
     """Architecture fields of the JAX package's ``Wav2Vec2Config`` (defaults: wav2vec2-base)."""
@@ -74,6 +86,9 @@ class Wav2Vec2Config:
     feat_proj_dropout: float = 0.1
     mask_time_prob: float = 0.05
     mask_time_length: int = 10
+    lora_rank: int = 0          # 0 disables LoRA; the vest runs use r=8
+    lora_alpha: float = 16.0
+    lora_dropout: float = 0.05
     # Training FFN sublayer: K4 (True, the JAX package's default W2VHS_FFN_MEGA=1) or the
     # decomposed K5 + output_dense + K2 route (False, the A/B control).
     ffn_mega: bool = True
@@ -202,17 +217,29 @@ class PositionalConvEmbedding(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    """Packed-QKV self-attention: one ``[D, 3D]`` projection, the attention kernel on the
-    ``[B, 3H, T, d]`` heads, then ``out_proj``."""
+    """Packed-QKV self-attention: one ``[D, 3D]`` projection (plus the LoRA bypasses of q
+    and v), the attention kernel on the ``[B, 3H, T, d]`` heads, then ``out_proj``."""
 
-    def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype):
+    def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype,
+                 lora_sites: tuple[int, int] = (0, 0)):
         super().__init__()
         d = cfg.hidden_size
+        self.cfg, self.lora_sites = cfg, lora_sites
         self.num_heads = cfg.num_heads
         self.q_proj = nn.Linear(d, d, dtype=dtype)
         self.k_proj = nn.Linear(d, d, dtype=dtype)
         self.v_proj = nn.Linear(d, d, dtype=dtype)
         self.out_proj = nn.Linear(d, d, dtype=dtype)
+        if cfg.lora_rank > 0:
+            for proj in (self.q_proj, self.v_proj):
+                proj.lora_a = nn.Parameter(torch.zeros(d, cfg.lora_rank, dtype=dtype))
+                proj.lora_b = nn.Parameter(torch.zeros(cfg.lora_rank, d, dtype=dtype))
+
+    def _bypass(self, x: torch.Tensor, proj: nn.Linear, seed: int | None,
+                site: int) -> torch.Tensor:
+        cfg = self.cfg
+        h = x if seed is None else dropout(x, seed, site, cfg.lora_dropout)
+        return (cfg.lora_alpha / cfg.lora_rank) * ((h @ proj.lora_a) @ proj.lora_b)
 
     def forward(self, x: torch.Tensor, seed: int | None = None, site: int = 0,
                 rate: float = 0.0) -> torch.Tensor:
@@ -222,7 +249,12 @@ class SelfAttention(nn.Module):
         projs = (self.q_proj, self.k_proj, self.v_proj)
         w = torch.cat([p.weight for p in projs])
         b = torch.cat([p.bias for p in projs])
-        qkv = F.linear(x, w, b).view(B, T, 3 * H, D // H).transpose(1, 2).contiguous()
+        qkv = F.linear(x, w, b)
+        if self.cfg.lora_rank > 0:
+            zq = self._bypass(x, self.q_proj, seed, self.lora_sites[0])
+            zv = self._bypass(x, self.v_proj, seed, self.lora_sites[1])
+            qkv = qkv + torch.cat([zq, torch.zeros_like(zq), zv], dim=-1)
+        qkv = qkv.view(B, T, 3 * H, D // H).transpose(1, 2).contiguous()
         if seed is None:
             out = _attention.flash_attention_qkv(qkv, T)                # [B, H, T, d]
         else:
@@ -251,7 +283,7 @@ class EncoderLayer(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.sites = layer_sites(index)
-        self.attention = SelfAttention(cfg, dtype)
+        self.attention = SelfAttention(cfg, dtype, lora_sites(index, cfg.num_layers))
         self.layer_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype)
         self.feed_forward = FeedForward(cfg, dtype)
         self.final_layer_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype)
@@ -342,12 +374,17 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
 
     Follows the JAX package's initialisers: matmul and conv weights ~ N(0, 1/fan_in) (flax
     lecun_normal, without its truncation), biases 0, norm scales 1, ``masked_spec_embed``
-    ~ U(0, 1).
+    ~ U(0, 1), LoRA ``lora_a [in, r]`` ~ U(+-sqrt(6 / in)) (he_uniform) and ``lora_b`` 0.
     """
     for name, p in module.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if name.endswith("masked_spec_embed"):
             v = torch.rand(p.shape, generator=generator)
+        elif leaf == "lora_a":
+            limit = math.sqrt(6.0 / p.shape[0])
+            v = (2.0 * torch.rand(p.shape, generator=generator) - 1.0) * limit
+        elif leaf == "lora_b":
+            v = torch.zeros(p.shape)
         elif "norm" in name:
             v = torch.ones(p.shape) if leaf == "weight" else torch.zeros(p.shape)
         elif leaf == "bias":

@@ -105,9 +105,10 @@ class _DenseGeluDropout(torch.autograd.Function):
         else:
             dpre, dbias = ffn_act_bwd_kernel(g.contiguous(), pre, *ctx.args)
         dpre2 = dpre.reshape(-1, dpre.shape[-1])
-        dx = (dpre2 @ weight).reshape(x.shape)
-        dweight = dpre2.t() @ x.reshape(-1, x.shape[-1])
-        return dx, dweight, dbias.to(weight.dtype), None, None, None
+        need = ctx.needs_input_grad            # frozen weights (LoRA) take no products
+        dx = (dpre2 @ weight).reshape(x.shape) if need[0] else None
+        dweight = dpre2.t() @ x.reshape(-1, x.shape[-1]) if need[1] else None
+        return dx, dweight, dbias.to(weight.dtype) if need[2] else None, None, None, None
 
 
 def dense_gelu_dropout(x, weight, bias, seed: int, site: int, rate: float) -> torch.Tensor:

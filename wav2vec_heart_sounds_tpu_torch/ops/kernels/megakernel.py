@@ -157,13 +157,16 @@ class _FfnBlock(torch.autograd.Function):
         else:
             ds, dhid, dpre, h, db1, db2, dweight, dbias = ffn_mega_bwd_kernel(
                 g2.contiguous(), s, pre, w2.contiguous(), weight, *ctx.args)
-        # The three large products, in the decomposed route's forms.
-        dx = (dpre @ w1 + ds).reshape(g.shape)
-        dw1 = dpre.t() @ x2
-        dw2 = dhid.t() @ h
+        # The three large products, in the decomposed route's forms; a frozen weight (LoRA)
+        # or an input that needs no gradient takes none.
+        need = ctx.needs_input_grad
+        dx = (dpre @ w1 + ds).reshape(g.shape) if need[0] else None
+        dw1 = dpre.t() @ x2 if need[1] else None
+        dw2 = dhid.t() @ h if need[3] else None
         b1_dtype, b2_dtype = ctx.dtypes
-        return (dx, dw1, db1.to(b1_dtype), dw2, db2.to(b2_dtype), dweight, dbias,
-                None, None, None, None, None, None)
+        return (dx, dw1, db1.to(b1_dtype) if need[2] else None, dw2,
+                db2.to(b2_dtype) if need[4] else None, dweight if need[5] else None,
+                dbias if need[6] else None, None, None, None, None, None, None)
 
 
 def ffn_block(x, w1, b1, w2, b2, weight, bias, seed: int, s_act: int, s_hid: int,

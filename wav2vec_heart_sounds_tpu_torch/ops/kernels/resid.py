@@ -125,7 +125,9 @@ class _ResidTail(torch.autograd.Function):
             dh, dx, dw, db = resid_bwd_reference(g, s, weight, *ctx.args)
         else:
             dh, dx, dw, db = resid_bwd_kernel(g.contiguous(), s, weight, *ctx.args)
-        return dh, dx, dw, db, None, None, None, None
+        need = ctx.needs_input_grad            # frozen LayerNorm parameters (LoRA)
+        return (dh, dx if need[1] else None, dw if need[2] else None, db if need[3] else None,
+                None, None, None, None)
 
 
 def dropout_add_layernorm(h, x, weight, bias, seed: int, site: int, rate: float,

@@ -18,16 +18,26 @@ unless the transform draws its own participation (``pristine_prob``). Per-epoch
 confusion-matrix statistics and the training loss go to ``log_dir`` through
 :class:`..utils.observe.ScalarLogger`.
 
-Randomness: one CPU ``torch.Generator`` seeded from ``seed``. Each train step draws in a
-fixed order from it: the augmentation (whose large noise fields come from a card
-generator seeded from it), then the forward's dropout seed, then its SpecAugment spans.
+Freezing and the feature loss: with ``classifier_config`` the model's frozen parameters
+(:func:`..models.classifier.trainable_mask`: the frozen encoder, or the encoder's base
+under LoRA) get ``requires_grad=False`` and the optimizer sees only the trainable ones, so
+frozen weights are neither clipped, decayed nor updated, as under the JAX package's
+optimizer mask. ``criterion`` (a :class:`..losses.ContrastiveFocalConfig`) trains on
+``forward_with_features`` with the contrastive-focal loss; its class centres are trainable
+float32 parameters of the loss (``loss_params``), updated by the same optimizer; the
+best-MCC restore covers the model's parameters only, as the JAX trainer's.
 
-Not ported yet: the contrastive-focal criterion, freeze and LoRA masks, multi-card data
-parallelism and on-disk checkpoints.
+Randomness: one CPU ``torch.Generator`` seeded from ``seed``. It first draws the class
+centres (with a ``criterion``); then each train step draws in a fixed order from it: the
+augmentation (whose large noise fields come from a card generator seeded from it), then
+the forward's dropout seed, then its SpecAugment spans.
+
+Not ported yet: multi-card data parallelism and on-disk checkpoints.
 """
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Callable
 
@@ -35,9 +45,11 @@ import numpy as np
 import torch
 
 from ..data.loader import prefetch_threaded
+from ..models.classifier import apply_trainable_mask
 from ..utils.observe import ScalarLogger
 from .evaluate import dequant
-from .losses import cross_entropy
+from .losses import (ContrastiveFocalConfig, contrastive_focal_loss, cross_entropy,
+                     init_contrastive_focal)
 from .metrics import ConfusionMatrix
 from .optim import MasterOptimizer, lr_schedule
 
@@ -46,17 +58,25 @@ class SupervisedTrainer:
     def __init__(self, model: torch.nn.Module, *, optimizer_name: str = "sgd",
                  lr: float = 1e-3, weight_decay: float = 1e-5,
                  batch_transform: Callable | None = None,
-                 device_preprocess: Callable | None = None, seed: int = 0,
+                 device_preprocess: Callable | None = None,
+                 criterion: ContrastiveFocalConfig | None = None,
+                 classifier_config=None, seed: int = 0,
                  log: Callable[[str], None] = print, log_dir: str | None = None):
         self.model = model
         self.device = next(model.parameters()).device
         self.batch_transform = batch_transform
         self.device_preprocess = device_preprocess
+        self.criterion = criterion
         self.log = log
         self.scalars = ScalarLogger(log_dir)
-        self.optimizer = MasterOptimizer(model.parameters(), optimizer_name, weight_decay)
-        self.schedule = lr_schedule(optimizer_name, lr)
         self.generator = torch.Generator().manual_seed(seed)
+        self.loss_params = ({} if criterion is None
+                            else init_contrastive_focal(self.generator, criterion, self.device))
+        params = (list(model.parameters()) if classifier_config is None
+                  else apply_trainable_mask(model, classifier_config))
+        self.optimizer = MasterOptimizer(params + list(self.loss_params.values()),
+                                         optimizer_name, weight_decay)
+        self.schedule = lr_schedule(optimizer_name, lr)
         self.epoch = 0
 
     def _to_device(self, batch: dict, want_aug: bool = False):
@@ -80,29 +100,40 @@ class SupervisedTrainer:
             with torch.no_grad():
                 x = self.batch_transform(self.generator, x, row_mask=aug)
         self.optimizer.zero_grad()
-        logits = self.model(x, train=True, generator=self.generator)
-        loss = cross_entropy(logits, y, valid)
+        loss, logits = self._loss(x, y, valid, train=True)
         loss.backward()
         self.optimizer.step(lr)
         return loss.detach(), logits.detach().argmax(dim=1)
 
+    def _loss(self, x, y, valid, train: bool):
+        """(loss, logits): cross-entropy, or the contrastive-focal loss on the features."""
+        kw = {"train": True, "generator": self.generator} if train else {}
+        if self.criterion is None:
+            logits = self.model(x, **kw)
+            return cross_entropy(logits, y, valid), logits
+        feats, logits = self.model.forward_with_features(x, **kw)
+        return contrastive_focal_loss(self.loss_params, self.criterion, feats, logits, y,
+                                      valid), logits
+
     def _eval_step(self, x, y, valid):
         with torch.inference_mode():
-            logits = self.model(x)
-            return cross_entropy(logits, y, valid), logits.argmax(dim=1)
+            loss, logits = self._loss(x, y, valid, train=False)
+            return loss, logits.argmax(dim=1)
 
     def _run_epoch(self, batcher, train: bool, max_batches: int | None
                    ) -> tuple[ConfusionMatrix, float]:
-        """One epoch; the device syncs wait until its end."""
+        """One epoch; the device syncs wait until its end. ``max_batches`` cuts the batcher
+        before the prefetch thread, so that thread has finished its last host->device copy
+        when the epoch returns (a thread still copying when the interpreter exits aborts
+        it)."""
         cm = ConfusionMatrix()
         pending = []
         lr = self.schedule(self.epoch)
         self.model.train(train)
         want_aug = train and self.batch_transform is not None
         to_device = lambda batch: self._to_device(batch, want_aug)   # noqa: E731
-        for i, (batch, x, y, valid, aug) in enumerate(prefetch_threaded(batcher, to_device)):
-            if max_batches is not None and i >= max_batches:
-                break
+        batches = batcher if max_batches is None else itertools.islice(batcher, max_batches)
+        for batch, x, y, valid, aug in prefetch_threaded(batches, to_device):
             with torch.no_grad():
                 if self.device_preprocess is not None:
                     x = self.device_preprocess(x)

@@ -70,3 +70,16 @@ def make_apply_fn(model: torch.nn.Module):
             return model(dequant(torch.as_tensor(x).to(device)))
 
     return apply_fn
+
+
+def make_encode_fn(model: torch.nn.Module):
+    """Pooled-feature function for the SVM probe: host or device batch -> numpy ``[B, D]``
+    (``model.encode``)."""
+    device = next(model.parameters()).device
+
+    def encode_fn(x) -> np.ndarray:
+        with torch.inference_mode():
+            feats = model.encode(dequant(torch.as_tensor(x).to(device)))
+        return feats.float().cpu().numpy()
+
+    return encode_fn

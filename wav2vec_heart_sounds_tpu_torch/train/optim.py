@@ -19,8 +19,11 @@ parameters on an accelerator (``build_master_optimizer``, ``train/classifier.py:
   trainer overwrites them (the best-MCC restore); moments and momentum are kept, as the
   JAX package's ``refresh``.
 
-Every parameter trains: the freeze and LoRA masks come with the vest slice. The updates run
-as ``torch._foreach_*`` ops over the parameter list, with no host sync.
+The optimizer sees only the parameters it trains: under a freeze mask (the frozen encoder,
+or LoRA's frozen base) the trainer passes the trainable ones, so frozen weights enter
+neither the clip's norm nor the decay, as the JAX package's masked optimizer
+(``train/optim.py:202-243``). The updates run as ``torch._foreach_*`` ops over the
+parameter list, with no host sync.
 """
 
 from __future__ import annotations
