@@ -47,13 +47,30 @@ Phases, each of which exits non-zero on failure:
    augmentation): exact launches per step and vest training windows/s (median of 3);
 12. the vest runner ``experiments.multichannel.run`` on a synthetic vest directory (9-column
    int16 WAVs), full width, bfloat16: the host chain with cross-entropy, and device
-   augmentation with the contrastive-focal loss.
+   augmentation with the contrastive-focal loss;
+13. K3a, the unpacked attention (one CUDA body with K3b, ``csrc/attention_qkv_{fwd,bwd}.cu``),
+   at ``[96, 12, 199, 64]`` on head views of ``[B, T, H, d]`` projections, bfloat16 and
+   float32, rate 0.1 and 0, t = 199 and 150: masks decoded bit for bit, values and
+   gradients against the plain version at K3b's bars, and output, lse and gradients equal
+   to K3b's on the packed tensor of the same q, k, v bit for bit; timed beside its bound
+   and ``scaled_dot_product_attention`` on the same views;
+14. K8, the fused conv + erf GELU (``csrc/conv_gelu.cu``), at conv_1's shapes
+   (``[96, 512, 12799]`` -> 6399 frames, bfloat16; float32 at B = 8): out, pre, dx and dW
+   against the plain version, timed beside its bound and cuDNN ``conv1d`` + ``gelu``;
+15. one full-width float32 training step on the opt-in route (``qkv_fuse=False``,
+   ``conv_fuse=True``; B = 2, 64000-sample windows) kernels against all-plain versions
+   (phase 7's ``fit`` runs that route too: K3a 12+12 and K8 1+1 launches a step, K3b none);
+16. the fusion path: ``SupervisedTrainer.fit`` on bench.py's fusion config (two full-width
+   wav2vec2-base branches, B = 64, 4 s windows at 4125 Hz on two channels, AdamW at 1e-4):
+   exact launches per step and fusion training windows/s; then the CinC runner
+   ``experiments.cinc.run(mode="pcg_ecg")`` on phase 8's synthetic PCG+ECG directory (host
+   chain): finite losses of its three trainings and a ``big_rnn:2:wav2vec`` record.
 
 Prints the card's name and power limit, one JSON line describing the kernels (launches
 from the ``fit`` of the path that runs each kernel: phase 7's K4 route for the CinC
-kernels but K5, which runs only on its control; phase 11 for K6 and K7, but K7's input
-gradient, which only phase 10 asks for), and as its last line ``{"ok": true, "device":
-{...}}``. Imports nothing of JAX.
+kernels but K5, which runs only on its control, and K3a and K8, which run on the opt-in
+route; phase 11 for K6 and K7, but K7's input gradient, which only phase 10 asks for), and
+as its last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -76,7 +93,7 @@ ROOT = Path(__file__).resolve().parent
 CSRC = "wav2vec_heart_sounds_tpu_torch/csrc/"
 PALLAS = "wav2vec_heart_sounds_tpu/ops/pallas/"
 SOURCES = ("attention_qkv_fwd", "attention_qkv_bwd", "dropout", "resid", "ffn_act", "ffn_mega",
-           "flash_kv", "sinc_delay")
+           "flash_kv", "sinc_delay", "conv_gelu")
 
 # Serving configuration: 4 s windows at 16 kHz (the CinC window) from a 2 kHz raw wire.
 FS_WIRE, FS, WINDOW_S, BATCH = 2000, 16000, 4.0, 32
@@ -89,6 +106,10 @@ ROWS = TRAIN_BATCH * T
 # B=16; the delay predictor's attention is [B, T, 4, 8] over every sample.
 VEST_BATCH, VEST_MICS, VEST_FS, VEST_T, VEST_FRAMES = 16, 6, 4125, 8250, 25
 KV_HEADS, KV_DIM = 4, 8
+# conv_1 of wav2vec2-base on 64000 samples: 512 -> 512 channels, 12799 -> 6399 frames (K8).
+CONV_C, CONV_T = 512, 12799
+# Fusion configuration (bench.py's run_fusion_bench): two branches, 4 s at 4125 Hz, B=64.
+FUSION_BATCH, FUSION_FS = 64, 4125
 
 
 def check(ok: bool, msg: str) -> None:
@@ -310,13 +331,16 @@ def phase_serving(card: str) -> int:
 def kernel_wrappers() -> dict:
     """The counted wrapper of every kernel (each adds one to ``.launches`` per launch),
     taken once, before any phase patches a wrapper out."""
-    from wav2vec_heart_sounds_tpu_torch.ops.kernels import attention, dropout, ffn, resid
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import attention, conv, dropout, ffn, resid
     from wav2vec_heart_sounds_tpu_torch.ops.kernels import megakernel as mk
 
     from wav2vec_heart_sounds_tpu_torch.ops.kernels import flash_kv, sinc_delay
 
     return {"attention_qkv_fwd": attention.attention_qkv_fwd,
             "attention_qkv_bwd": attention.attention_qkv_bwd,
+            "attention_fwd": attention.attention_fwd, "attention_bwd": attention.attention_bwd,
+            "conv_gelu_fwd": conv.conv_gelu_fwd_kernel,
+            "conv_gelu_bwd": conv.conv_gelu_bwd_kernel,
             "dropout": dropout.dropout_kernel,
             "resid_fwd": resid.resid_fwd_kernel, "resid_bwd": resid.resid_bwd_kernel,
             "ffn_act_fwd": ffn.ffn_act_fwd_kernel, "ffn_act_bwd": ffn.ffn_act_bwd_kernel,
@@ -336,6 +360,10 @@ VEST_KERNELS = ("flash_kv_fwd", "flash_kv_bwd", "sinc_delay_fwd", "sinc_delay_gr
 KERNELS = {
     "attention_qkv_fwd": ("attention_qkv_fwd.cu", "attention.py:343"),
     "attention_qkv_bwd": ("attention_qkv_bwd.cu", "attention.py:376"),
+    "attention_fwd": ("attention_qkv_fwd.cu", "attention.py:240"),
+    "attention_bwd": ("attention_qkv_bwd.cu", "attention.py:276"),
+    "conv_gelu_fwd": ("conv_gelu.cu", "conv.py:180"),
+    "conv_gelu_bwd": ("conv_gelu.cu", "conv.py:257"),
     "dropout": ("dropout.cu", "dropout.py:43"),
     "resid_fwd": ("resid.cu", "resid.py:114"),
     "resid_bwd": ("resid.cu", "resid.py:142"),
@@ -363,12 +391,19 @@ def counts() -> dict:
 @contextlib.contextmanager
 def plain_route():
     """Every kernel wrapper replaced by its plain version (same signature and contract)."""
-    from wav2vec_heart_sounds_tpu_torch.ops.kernels import attention, dropout, ffn, resid
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import attention, conv, dropout, ffn, resid
     from wav2vec_heart_sounds_tpu_torch.ops.kernels import flash_kv as fk
     from wav2vec_heart_sounds_tpu_torch.ops.kernels import megakernel as mk
     from wav2vec_heart_sounds_tpu_torch.ops.kernels import sinc_delay as sk
 
-    pairs = [(fk, "flash_kv_fwd_kernel", fk.attention_kv_fwd_reference),
+    def conv_bwd_plain(x, w, pre, g, need_dx=True, need_dw=True):
+        return conv.conv_gelu_bwd_reference(x, w, pre, g)
+
+    pairs = [(attention, "attention_fwd", attention.attention_reference),
+             (attention, "attention_bwd", attention.attention_bwd_reference),
+             (conv, "conv_gelu_fwd_kernel", conv.conv_gelu_fwd_reference),
+             (conv, "conv_gelu_bwd_kernel", conv_bwd_plain),
+             (fk, "flash_kv_fwd_kernel", fk.attention_kv_fwd_reference),
              (fk, "flash_kv_bwd_kernel", fk.attention_kv_bwd_reference),
              (sk, "sinc_fwd_kernel", sk.sinc_fwd_reference),
              (sk, "sinc_grad_d_kernel", sk.sinc_grad_d_reference),
@@ -402,8 +437,10 @@ def identical(name: str, got: torch.Tensor, ref: torch.Tensor) -> None:
     print(f"[train-kernel] {name}: bit-identical ({got.numel()} elements)")
 
 
-def attention_masks(seed: int, site: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The keep masks [B, H, T, T] the attention kernels applied, decoded exactly (float32).
+def attention_masks(seed: int, site: int,
+                    unpacked: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """The keep masks [B, H, T, T] the attention kernels applied, decoded exactly (float32):
+    K3b's on the packed tensor, or with ``unpacked`` K3a's on its three head ranges.
 
     With q = k = 0 every probability is 1/T. Forward: v_k = 2^(k div 64) e_(k mod 64), so
     out[q, j] * T / scale = sum_b keep[q, j + 64 b] 2^b, an integer below 16. Backward:
@@ -417,10 +454,16 @@ def attention_masks(seed: int, site: int) -> tuple[torch.Tensor, torch.Tensor]:
     code_of_pos = (2.0 ** (pos // D)).float()
     qkv = torch.zeros(B, 3 * H, T, D, device="cuda")
     qkv[:, 2 * H:, pos, pos % D] = code_of_pos
-    out, lse = attention.attention_qkv_fwd(qkv, T, RATE, seed, site, with_lse=True)
     dout = torch.zeros(B, H, T, D, device="cuda")
     dout[:, :, pos, pos % D] = code_of_pos
-    dv = attention.attention_qkv_bwd(qkv, out, dout, lse, T, RATE, seed, site)[:, 2 * H:]
+    args = (T, RATE, seed, site)
+    if unpacked:
+        q, k, v = qkv[:, :H], qkv[:, H:2 * H], qkv[:, 2 * H:]
+        out, lse = attention.attention_fwd(q, k, v, *args, with_lse=True)
+        dv = attention.attention_bwd(q, k, v, out, dout, lse, *args)[2]
+    else:
+        out, lse = attention.attention_qkv_fwd(qkv, *args, with_lse=True)
+        dv = attention.attention_qkv_bwd(qkv, out, dout, lse, *args)[:, 2 * H:]
     scale = philox.keep_scale(RATE)
 
     def decode(a):                     # [B, H, rows, D] codes -> [B, H, rows, T] bits
@@ -488,8 +531,7 @@ def phase_training_kernels() -> dict:
 
         size = torch.finfo(dtype).bits // 8
         rows_d, rows_f = ROWS * HIDDEN * size, ROWS * FFN * size
-        qkv_bytes, out_bytes = TRAIN_BATCH * 3 * H * T * D * size, TRAIN_BATCH * H * T * D * size
-        lse_bytes, attn_flops = TRAIN_BATCH * H * T * 4, 4 * TRAIN_BATCH * H * T * T * D
+        attn_fwd, attn_bwd = attention_work(TRAIN_BATCH, dtype)
 
         def timed(name, kernel, plain, err, nbytes, flops=0, library=None):
             ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
@@ -577,13 +619,13 @@ def phase_training_kernels() -> dict:
         timed("attention_qkv_fwd",
               lambda: attention.attention_qkv_fwd(qkv, *args, with_lse=True),
               lambda: attention.attention_qkv_reference(qkv, *args, with_lse=True), errs[0],
-              qkv_bytes + out_bytes + lse_bytes, attn_flops, library=lambda: sdpa(qkv))
+              *attn_fwd, library=lambda: sdpa(qkv))
         leaf = qkv.detach().requires_grad_()
         lib_out = sdpa(leaf)
         timed("attention_qkv_bwd",
               lambda: attention.attention_qkv_bwd(qkv, out_p, dout, lse_p, *args),
               lambda: attention.attention_qkv_bwd_reference(qkv, out_p, dout, lse_p, *args),
-              errs[1], 2 * qkv_bytes + 2 * out_bytes + lse_bytes, 2.5 * attn_flops,
+              errs[1], *attn_bwd,
               library=lambda: torch.autograd.grad(lib_out, leaf, dout, retain_graph=True))
         del qkv, dout, out_k, out_p, lse_k, lse_p, leaf, lib_out
         torch.cuda.empty_cache()
@@ -842,10 +884,167 @@ def phase_vest_kernels() -> dict:
     return records
 
 
+def attention_work(batch: int, dtype: torch.dtype) -> tuple[tuple, tuple]:
+    """(bytes, operations) of the attention forward (q, k, v in; out and lse out) and of its
+    backward (q, k, v, out, dout and lse in; dq, dk, dv out; the five score-shaped
+    products) at the training shapes ``[batch, 12, 199, 64]``: the same for the packed (K3b)
+    and the unpacked (K3a) routes."""
+    size = torch.finfo(dtype).bits // 8
+    qkv_bytes, out_bytes = batch * 3 * H * T * D * size, batch * H * T * D * size
+    lse_bytes, flops = batch * H * T * 4, 4 * batch * H * T * T * D
+    return ((qkv_bytes + out_bytes + lse_bytes, flops),
+            (2 * qkv_bytes + 2 * out_bytes + lse_bytes, 2.5 * flops))
+
+
+def phase_unpacked_attention() -> dict:
+    """Phase 13: K3a at the training shapes ``[96, 12, 199, 64]``, q, k and v the head views
+    of ``[B, T, H, d]`` projections (the model's layout), bfloat16 and float32, rate 0.1 and
+    0, t = 199 and 150: its masks decoded bit for bit; its output, lse and gradients equal to
+    K3b's on the packed tensor of the same q, k, v bit for bit (one kernel body); values and
+    gradients against the plain version at K3b's bars; timed beside its bound and
+    ``scaled_dot_product_attention`` (key mask, dropout) on the same views and its autograd
+    backward. Returns the bfloat16 records."""
+    import torch.nn.functional as F
+
+    from wav2vec_heart_sounds_tpu_torch.ops import philox
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    seed, site = 1414213562, 11
+    fwd_mask, bwd_mask = attention_masks(seed, site, unpacked=True)
+    want = philox.keep_mask(seed, site, fwd_mask.shape, RATE, "cuda")
+    identical("attention_fwd (K3a) mask (decoded) vs plain", fwd_mask, want)
+    identical("attention_bwd (K3a) mask (decoded from dv) vs plain", bwd_mask, want)
+    del fwd_mask, bwd_mask, want
+
+    records = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        bf16 = dtype == torch.bfloat16
+        dt = "bf16" if bf16 else "f32"
+        elem = (1e-2, 1e-2) if bf16 else (1e-5, 1e-5)
+        grad = (2e-2, 2e-2) if bf16 else (1e-4, 1e-4)
+        proj = [torch.randn(TRAIN_BATCH, T, H, D, device="cuda", generator=gen).to(dtype)
+                for _ in range(3)]
+        q, k, v = (x.transpose(1, 2) for x in proj)                       # [B, H, T, d] views
+        packed = torch.cat([q, k, v], dim=1).contiguous()
+        dout = torch.randn(TRAIN_BATCH, H, T, D, device="cuda", generator=gen).to(dtype)
+        for t in (T, 150):
+            for rate in (RATE, 0.0):
+                args = (t, rate, seed, site)
+                tag = f"{dt} t={t} rate={rate}"
+                out_a, lse_a = attention.attention_fwd(q, k, v, *args, with_lse=True)
+                out_b, lse_b = attention.attention_qkv_fwd(packed, *args, with_lse=True)
+                identical(f"attention_fwd (K3a) vs K3b out {tag}", out_a, out_b)
+                identical(f"attention_fwd (K3a) vs K3b lse {tag}", lse_a, lse_b)
+                grads = attention.attention_bwd(q, k, v, out_a, dout, lse_a, *args)
+                identical(f"attention_bwd (K3a) vs K3b dq, dk, dv {tag}", torch.cat(grads, 1),
+                          attention.attention_qkv_bwd(packed, out_b, dout, lse_b, *args))
+                out_p, lse_p = attention.attention_reference(q, k, v, *args, with_lse=True)
+                err_f = agree(f"attention_fwd out {tag}", out_a, out_p, *elem)
+                agree(f"attention_fwd lse {tag}", lse_a, lse_p, 1e-5, 1e-5)
+                ref = attention.attention_bwd_reference(q, k, v, out_p, dout, lse_p, *args)
+                got = attention.attention_bwd(q, k, v, out_p, dout, lse_p, *args)
+                err_b = max(agree(f"attention_bwd d{n} {tag}", a, r, *grad)
+                            for n, a, r in zip("qkv", got, ref))
+                if t == T and rate == RATE:
+                    errs = (err_f, err_b)
+        del out_a, out_b, lse_a, lse_b, grads, got, ref, packed
+        args = (T, RATE, seed, site)
+        keys = torch.ones(TRAIN_BATCH, 1, 1, T, dtype=torch.bool, device="cuda")
+        fwd_b, bwd_b = (bound(*work, dtype) for work in attention_work(TRAIN_BATCH, dtype))
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=keys, dropout_p=RATE)
+        for name, kernel, plain, library, b, err in (
+                ("attention_fwd", lambda: attention.attention_fwd(q, k, v, *args, with_lse=True),
+                 lambda: attention.attention_reference(q, k, v, *args, with_lse=True),
+                 lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keys,
+                                                        dropout_p=RATE), fwd_b, errs[0]),
+                ("attention_bwd",
+                 lambda: attention.attention_bwd(q, k, v, out_p, dout, lse_p, *args),
+                 lambda: attention.attention_bwd_reference(q, k, v, out_p, dout, lse_p, *args),
+                 lambda: torch.autograd.grad(lib_out, leaves, dout, retain_graph=True), bwd_b,
+                 errs[1])):
+            ms, plain_ms, lib_ms = cuda_ms(kernel), cuda_ms(plain), cuda_ms(library)
+            print(f"[unpacked] {name} (K3a) {dt} [96, 12, 199, 64] views: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, library call (SDPA) {lib_ms:.4f} ms, bound "
+                  f"{b['bound_ms']:.4f} ms by {b['bound_by']} (CUDA events, median of 20)")
+            if bf16:
+                records[name] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, **b,
+                                 "library_ms": lib_ms}
+        del proj, q, k, v, dout, out_p, lse_p, leaves, lib_out
+        torch.cuda.empty_cache()
+    return records
+
+
+def phase_conv_kernel() -> dict:
+    """Phase 14: K8 against its plain version at conv_1's shapes (``[96, 512, 12799]`` ->
+    6399 frames in bfloat16; float32 at B = 8, where the plain float32 conv is the
+    comparison's cost): out and pre, then dx and dW from the plain ``pre`` and a random
+    cotangent; bfloat16 within one ulp (1e-2), dW, a sum over 614304 rows, relative to its
+    largest value. Timed beside its bound and cuDNN's ``conv1d`` followed by ``gelu`` (two
+    calls; their autograd backward for the backward). Returns the bfloat16 records."""
+    import torch.nn.functional as F
+
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import conv
+
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    records = {}
+    for dtype, B in ((torch.bfloat16, TRAIN_BATCH), (torch.float32, 8)):
+        bf16 = dtype == torch.bfloat16
+        dt = "bf16" if bf16 else "f32"
+        tol = (1e-2, 1e-2) if bf16 else (2e-5, 1e-5)
+        grad = (1e-2, 1e-2) if bf16 else (1e-4, 1e-4)
+        x = torch.randn(B, CONV_C, CONV_T, device="cuda", generator=gen).to(dtype)
+        w = (torch.randn(CONV_C, CONV_C, 3, device="cuda", generator=gen)
+             / (3 * CONV_C) ** 0.5).to(dtype)
+        shape = f"[{B}, {CONV_C}, {CONV_T}]"
+        out_k, pre_k = conv.conv_gelu_fwd_kernel(x, w)
+        out_p, pre_p = conv.conv_gelu_fwd_reference(x, w)
+        err_f = max(agree(f"conv_gelu_fwd out {dt} {shape}", out_k, out_p, *tol),
+                    agree(f"conv_gelu_fwd pre {dt}", pre_k, pre_p, *tol))
+        del out_k, pre_k
+        g = torch.randn(out_p.shape, device="cuda", generator=gen).to(dtype)
+        dx_k, dw_k = conv.conv_gelu_bwd_kernel(x, w, pre_p, g)
+        dx_p, dw_p = conv.conv_gelu_bwd_reference(x, w, pre_p, g)
+        top = dw_p.float().abs().max().item()
+        err_b = max(agree(f"conv_gelu_bwd dx {dt}", dx_k, dx_p, *grad),
+                    agree(f"conv_gelu_bwd dw {dt} (atol {grad[0]:g} of max |dw| {top:.3e})",
+                          dw_k, dw_p, grad[0] * top, grad[1]))
+        del dx_k, dw_k, dx_p, dw_p
+        size = torch.finfo(dtype).bits // 8
+        frames = B * conv.out_length(CONV_T)
+        x_bytes, w_bytes, out_bytes = x.numel() * size, w.numel() * size, frames * CONV_C * size
+        flops = 2 * frames * CONV_C * 3 * CONV_C
+        fwd_b = bound(x_bytes + w_bytes + 2 * out_bytes, flops, dtype)
+        bwd_b = bound(2 * x_bytes + 2 * w_bytes + 2 * out_bytes, 2 * flops, dtype)
+        leaves = [x.detach().requires_grad_(), w.detach().requires_grad_()]
+        lib_out = F.gelu(F.conv1d(*leaves, stride=2))
+        for name, kernel, plain, library, b, err in (
+                ("conv_gelu_fwd", lambda: conv.conv_gelu_fwd_kernel(x, w),
+                 lambda: conv.conv_gelu_fwd_reference(x, w),
+                 lambda: F.gelu(F.conv1d(x, w, stride=2)), fwd_b, err_f),
+                ("conv_gelu_bwd", lambda: conv.conv_gelu_bwd_kernel(x, w, pre_p, g),
+                 lambda: conv.conv_gelu_bwd_reference(x, w, pre_p, g),
+                 lambda: torch.autograd.grad(lib_out, leaves, g, retain_graph=True), bwd_b,
+                 err_b)):
+            ms, plain_ms, lib_ms = cuda_ms(kernel), cuda_ms(plain), cuda_ms(library)
+            print(f"[conv] {name} (K8) {dt} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                  f"ms, library (cuDNN conv1d + gelu, two calls) {lib_ms:.4f} ms, bound "
+                  f"{b['bound_ms']:.4f} ms by {b['bound_by']} (CUDA events, median of 20)")
+            if bf16:
+                records[name] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, **b,
+                                 "library_ms": lib_ms}
+        del x, w, out_p, pre_p, g, leaves, lib_out
+        torch.cuda.empty_cache()
+    return records
+
+
 # Kernel launches of one training step of wav2vec2-base (12 layers): (forward, backward), on
 # the default FFN route (K4) and on the decomposed control (``ffn_mega=False``: K5 + K2).
 PER_STEP = {"dropout": (2, 2), "resid_fwd": (12, 0), "resid_bwd": (0, 12),
             "attention_qkv_fwd": (12, 0), "attention_qkv_bwd": (0, 12),
+            "attention_fwd": (0, 0), "attention_bwd": (0, 0),
+            "conv_gelu_fwd": (0, 0), "conv_gelu_bwd": (0, 0),
             "ffn_mega_fwd": (12, 0), "ffn_mega_bwd": (0, 12),
             "ffn_act_fwd": (0, 0), "ffn_act_bwd": (0, 0),
             "flash_kv_fwd": (0, 0), "flash_kv_bwd": (0, 0), "sinc_delay_fwd": (0, 0),
@@ -853,6 +1052,14 @@ PER_STEP = {"dropout": (2, 2), "resid_fwd": (12, 0), "resid_bwd": (0, 12),
 PER_STEP_SPLIT = {**PER_STEP, "resid_fwd": (24, 0), "resid_bwd": (0, 24),
                   "ffn_mega_fwd": (0, 0), "ffn_mega_bwd": (0, 0),
                   "ffn_act_fwd": (12, 0), "ffn_act_bwd": (0, 12)}
+# The opt-in route (qkv_fuse=False, conv_fuse=True; K4 on): the unpacked attention K3a in
+# every layer instead of K3b, and K8 on conv_1 (the only layer JAX's gate picks at 64000
+# samples).
+PER_STEP_GATED = {**PER_STEP, "attention_qkv_fwd": (0, 0), "attention_qkv_bwd": (0, 0),
+                  "attention_fwd": (12, 0), "attention_bwd": (0, 12),
+                  "conv_gelu_fwd": (1, 0), "conv_gelu_bwd": (0, 1)}
+# The fusion step: two branches of the default route (4 s at 4125 Hz: T' = 51, so no K8).
+PER_STEP_FUSION = {k: (2 * f, 2 * b) for k, (f, b) in PER_STEP.items()}
 # The vest step (6 microphones, LoRA on q/v): K1 runs at the feature projection, the
 # encoder input and the 24 LoRA bypasses (two per layer); K6 once per delay-predictor layer
 # (its backward wrapper launches the dq and the dk/dv kernel); K7 once for all microphones.
@@ -866,19 +1073,22 @@ PER_STEP_VEST_INPUT_GRAD = {**PER_STEP_VEST, "sinc_delay_grad_x": (0, 1)}
 # vest the delay predictor's attention and the sinc delay.
 EVAL_PER_BATCH = {"attention_qkv_fwd": 12}
 EVAL_PER_BATCH_VEST = {**EVAL_PER_BATCH, "flash_kv_fwd": 2, "sinc_delay_fwd": 1}
+EVAL_PER_BATCH_GATED = {"attention_fwd": 12, "conv_gelu_fwd": 1}
+EVAL_PER_BATCH_FUSION = {"attention_qkv_fwd": 24}
 
 
 def per_step_text(per_step: dict) -> str:
     return ", ".join(f"{k} {f}+{b}" for k, (f, b) in per_step.items())
 
 
-def classifier_config(ffn_mega: bool = True):
-    """wav2vec2-base at full width and depth, the 512x3 head, random weights."""
+def classifier_config(ffn_mega: bool = True, **routes):
+    """wav2vec2-base at full width and depth, the 512x3 head, random weights; ``routes``
+    sets ``qkv_fuse`` / ``conv_fuse``."""
     from wav2vec_heart_sounds_tpu_torch.models.classifier import ClassifierConfig
     from wav2vec_heart_sounds_tpu_torch.models.wav2vec2 import Wav2Vec2Config
 
     return ClassifierConfig(num_classes=2, head_hidden=(512, 512, 512), fs=FS, random_init=True,
-                            encoder=Wav2Vec2Config(ffn_mega=ffn_mega))
+                            encoder=Wav2Vec2Config(ffn_mega=ffn_mega, **routes))
 
 
 def train_step(model, x, y, per_step: dict | None):
@@ -978,6 +1188,162 @@ def phase_train_step() -> None:
     check(all(np.isfinite(v) for v in norms_4.values()), "a bf16 K4 gradient is not finite")
 
 
+def phase_gated_step() -> None:
+    """Phase 15: one full-width float32 training step on the opt-in route (``qkv_fuse=False``,
+    ``conv_fuse=True``: K3a in every layer, K8 on conv_1; B=2, 64000-sample windows, dropout
+    and SpecAugment on), the kernels against all-plain versions from one state and one seed:
+    the loss within 1e-4 relative, every gradient norm within 1e-3 relative, and the exact
+    launches (K3a 12+12, K8 1+1, K3b none)."""
+    from wav2vec_heart_sounds_tpu_torch.models.build import build_classifier
+
+    B = 2
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x = 0.3 * torch.randn(B, int(WINDOW_S * FS), device="cuda", generator=gen)
+    y = torch.arange(B, device="cuda") % 2
+    model = build_classifier(classifier_config(qkv_fuse=False, conv_fuse=True), seed=0,
+                             device="cuda", dtype=torch.float32, train=True)
+    loss_k, norms_k = train_step(model, x, y, PER_STEP_GATED)
+    with plain_route():
+        loss_p, norms_p = train_step(model, x, y, None)
+    worst = worst_norm_gap(norms_k, norms_p)
+    print(f"[gated-step] wav2vec2-base f32 B={B}, qkv_fuse=False, conv_fuse=True, dropout "
+          f"{RATE} and SpecAugment on: loss kernels {loss_k:.7f} vs plain {loss_p:.7f}; "
+          f"{len(norms_p)} gradient norms, worst relative difference {worst:.3e} (limit 1e-3); "
+          f"launches fwd+bwd " + per_step_text({k: v for k, v in PER_STEP_GATED.items()
+                                                if any(v)}))
+    check(abs(loss_k - loss_p) <= 1e-4 * max(1.0, abs(loss_p)), "gated-route losses differ")
+    check(worst <= 1e-3, f"gated-route gradient norms differ between kernel and plain: {worst}")
+    check(all(np.isfinite(v) and v > 0 for v in norms_k.values()), "a gradient is 0 or not finite")
+
+
+def fusion_fragments(n: int, seed: int):
+    """bench.py's fusion windows: a 90 + 250 Hz PCG and a 1.2 Hz ECG, each with its own
+    noise, ``[16500, 2]`` (4 s at 4125 Hz), abs-max normalised; labels alternate."""
+    from wav2vec_heart_sounds_tpu_torch.data.fragments import Fragment
+
+    win = int(round(WINDOW_S * FUSION_FS))
+    rng = np.random.default_rng(seed)
+    t = np.arange(win) / FUSION_FS
+    pcg = np.sin(2 * np.pi * 90 * t) + 0.4 * np.sin(2 * np.pi * 250 * t)
+    ecg = np.sin(2 * np.pi * 1.2 * t)
+    frags = []
+    for i in range(n):
+        wave = np.stack([pcg + 0.05 * rng.normal(size=win), ecg + 0.02 * rng.normal(size=win)],
+                        axis=1)
+        frags.append(Fragment((wave / np.max(np.abs(wave))).astype(np.float32), i % 2, f"p{i}"))
+    return frags
+
+
+def phase_fusion_training(card: str) -> dict:
+    """Phase 16a: ``SupervisedTrainer.fit`` on bench.py's fusion config (``run_fusion_bench``:
+    two full-width wav2vec2-base branches built by ``build_two_branch``, B=64, 4 s windows
+    at 4125 Hz on two channels over the int16 wire, AdamW at 1e-4, bf16): one epoch of 4
+    steps and a validation batch, finite losses, exact launches per step (K1 4+4, K2, K3b
+    and K4 24+24), then fusion training windows/s (median of 3 timed epochs). Returns the
+    launches of the fit."""
+    from wav2vec_heart_sounds_tpu_torch.data.fragments import FragmentDataset
+    from wav2vec_heart_sounds_tpu_torch.data.loader import Batcher
+    from wav2vec_heart_sounds_tpu_torch.experiments.common import make_loader
+    from wav2vec_heart_sounds_tpu_torch.models.build import build_two_branch
+    from wav2vec_heart_sounds_tpu_torch.models.classifier import ClassifierConfig
+    from wav2vec_heart_sounds_tpu_torch.train.classifier import SupervisedTrainer
+
+    steps, win = 4, int(round(WINDOW_S * FUSION_FS))
+    train = make_loader(FragmentDataset(fusion_fragments(FUSION_BATCH * steps, 0), fs=FUSION_FS),
+                        FUSION_BATCH, True, 0, win)
+    valid = Batcher(FragmentDataset(fusion_fragments(FUSION_BATCH, 1), fs=FUSION_FS),
+                    FUSION_BATCH, train=False)
+    steps, valid_batches = len(train), len(valid)
+    branch = ClassifierConfig(num_classes=2, num_channels=1, random_init=True, fs=FUSION_FS)
+    model = build_two_branch(branch, branch, seed=0, device="cuda", dtype=torch.bfloat16,
+                             train=True)
+    trainer = SupervisedTrainer(model, optimizer_name="adamw", lr=1e-4,
+                                log=lambda line: print(f"[fusion] {line}"))
+    losses, step = [], trainer._train_step
+
+    def recorded_step(*args):
+        loss, preds = step(*args)
+        losses.append(loss)
+        return loss, preds
+
+    trainer._train_step = recorded_step
+    trainer._run_epoch(train, True, 1)                                   # warm-up step
+    torch.cuda.synchronize()
+    losses.clear()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    best = trainer.fit(train, valid, 1)
+    torch.cuda.synchronize()
+    got = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    values = [float(v) for v in losses]
+    trained = sum(p.numel() for p in trainer.optimizer.params)
+    print(f"[fusion] fit: {steps} steps of B={FUSION_BATCH} ({steps * FUSION_BATCH} windows of "
+          f"2 x {win}) + {valid_batches} valid batch(es); {trained} trained parameters; losses "
+          f"{', '.join(f'{v:.5f}' for v in values)}; best valid MCC {best:.4f}; peak device "
+          f"memory {peak:.2f} GiB")
+    check(len(values) == steps and all(np.isfinite(values)), f"fusion training losses {values}")
+    for name, (f, b) in PER_STEP_FUSION.items():
+        want = (f + b) * steps + EVAL_PER_BATCH_FUSION.get(name, 0) * valid_batches
+        check(got[name] == want, f"fusion {name}: {got[name]} launches in fit, expected {want}")
+    print(f"[fusion] launches in fit: {json.dumps(got)} (per train step fwd+bwd: "
+          + per_step_text({k: v for k, v in PER_STEP_FUSION.items() if any(v)})
+          + "; attention_qkv_fwd 24 per valid batch)")
+    trainer._train_step = step
+    runs = [timed_epoch(trainer, train) for _ in range(3)]
+    print(f"[fusion] {steps * FUSION_BATCH} windows per epoch ({steps} steps of {FUSION_BATCH}, "
+          f"bf16, two wav2vec2-base branches + 256x128 head, AdamW): "
+          f"{steps * FUSION_BATCH / np.median(runs):.1f} fusion training windows/s on {card} "
+          f"(median of 3 epochs: {', '.join(f'{s * 1e3:.1f}' for s in runs)} ms; host clock, "
+          f"batching and transfer included)")
+    return got
+
+
+def phase_fusion_runner() -> None:
+    """Phase 16b: the CinC runner ``experiments.cinc.run(mode="pcg_ecg")`` on phase 8's
+    synthetic PCG+ECG directory, host chain (PCG and ECG chains), full width, bfloat16,
+    4 s windows at 4125 Hz, one epoch of 2 steps for each of its three trainings (PCG branch,
+    ECG branch, fusion): finite losses, finite statistics, a ``big_rnn:2:wav2vec`` record."""
+    import tempfile
+
+    from wav2vec_heart_sounds_tpu_torch.experiments import cinc as runner
+
+    losses = []
+
+    class RecordingTrainer(runner.SupervisedTrainer):
+        def _train_step(self, *args):
+            loss, preds = super()._train_step(*args)
+            losses.append(loss)
+            return loss, preds
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.object(runner, "SupervisedTrainer", RecordingTrainer):
+        csv = synthetic_cinc(Path(tmp))
+        results = Path(tmp) / "results.json"
+        reset_counts()
+        t0 = time.perf_counter()
+        record = runner.run(tmp, csv, mode="pcg_ecg", fs=FUSION_FS, window_s=WINDOW_S, epochs=1,
+                            augment=False, random_init=True, batch_size=4, max_batches=2,
+                            results_json=str(results))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = counts()
+        values = [float(v) for v in losses]
+        stats = [v for level in ("fragment", "patient") for v in record[level].values()]
+        print(f"[fusion-runner] experiments.cinc.run(mode='pcg_ecg'), host chain: {seconds:.1f} "
+              f"s; train losses (PCG branch, ECG branch, fusion) "
+              f"{', '.join(f'{v:.5f}' for v in values)}; topology {record['topology']}; "
+              f"fragment {json.dumps(record['fragment'])}; patient "
+              f"{json.dumps(record['patient'])}; launches K3b {got['attention_qkv_fwd']}+"
+              f"{got['attention_qkv_bwd']}, K4 {got['ffn_mega_fwd']}+{got['ffn_mega_bwd']}")
+        check(len(values) == 6 and all(np.isfinite(values)), f"fusion runner losses {values}")
+        check(record["topology"] == "big_rnn:2:wav2vec", f"topology {record['topology']}")
+        check(all(np.isfinite(v) for v in stats), "fusion runner statistics not finite")
+        check(json.loads(results.read_text())[-1]["topology"] == "big_rnn:2:wav2vec",
+              "the fusion results record is missing")
+        check(got["ffn_mega_bwd"] == 12 * 2 + 12 * 2 + 24 * 2, f"K4 launches: {got}")
+
+
 def timed_epoch(trainer, batcher) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -986,11 +1352,19 @@ def timed_epoch(trainer, batcher) -> float:
     return time.perf_counter() - t0
 
 
+# The routes phase 7 trains: (name, encoder fields, launches per step, per valid batch).
+ROUTES = (("K4", {}, PER_STEP, EVAL_PER_BATCH),
+          ("K5 (control)", {"ffn_mega": False}, PER_STEP_SPLIT, EVAL_PER_BATCH),
+          ("opt-in K3a + K8", {"qkv_fuse": False, "conv_fuse": True}, PER_STEP_GATED,
+           EVAL_PER_BATCH_GATED))
+
+
 def phase_training(card: str) -> dict:
-    """Phase 7: ``SupervisedTrainer.fit`` at B=96 bf16 on the K4 route (the main path),
-    then the decomposed route's ``fit`` as the A/B control, and training windows/s of both
-    in turns. Returns the launches: each kernel's count from the ``fit`` of the route that
-    runs it (K5 runs only on the control)."""
+    """Phase 7: ``SupervisedTrainer.fit`` at B=96 bf16 on the K4 route (the main path), the
+    decomposed route's ``fit`` as the A/B control, and the opt-in route (``qkv_fuse=False``,
+    ``conv_fuse=True``: K3a and K8), then training windows/s of the three in turns. Returns
+    the launches: each kernel's count from the ``fit`` of the route that runs it (K5 runs
+    only on the control, K3a and K8 only on the opt-in route)."""
     from wav2vec_heart_sounds_tpu_torch.data.fragments import FragmentDataset
     from wav2vec_heart_sounds_tpu_torch.data.loader import Batcher
     from wav2vec_heart_sounds_tpu_torch.experiments.cinc import _device_prep
@@ -1005,9 +1379,8 @@ def phase_training(card: str) -> dict:
                     train=False)
     steps, valid_batches = len(train), len(valid)
     trainers, launches = {}, {}
-    for mega, per_step in ((True, PER_STEP), (False, PER_STEP_SPLIT)):
-        route = "K4" if mega else "K5 (control)"
-        model = build_classifier(classifier_config(mega), seed=0, device="cuda",
+    for route, fields, per_step, per_valid in ROUTES:
+        model = build_classifier(classifier_config(**fields), seed=0, device="cuda",
                                  dtype=torch.bfloat16, train=True)
         trainer = SupervisedTrainer(model, optimizer_name="sgd", lr=1e-3,
                                     device_preprocess=_device_prep(FS_WIRE, FS, win_len, "cuda"),
@@ -1036,25 +1409,27 @@ def phase_training(card: str) -> dict:
               f"device memory {peak:.2f} GiB")
         check(len(values) == steps and all(np.isfinite(values)), f"training losses {values}")
         for name, (f, b) in per_step.items():
-            want = (f + b) * steps + EVAL_PER_BATCH.get(name, 0) * valid_batches
+            want = (f + b) * steps + per_valid.get(name, 0) * valid_batches
             check(got[name] == want, f"{route} {name}: {got[name]} launches in fit, "
                                      f"expected {want}")
         print(f"[train] {route} launches in fit: {json.dumps(got)} (per train step fwd+bwd: "
-              + per_step_text(per_step) + "; attention_qkv_fwd also 12 per valid batch)")
-        for name, count in got.items():
-            if mega or name.startswith("ffn_act"):
-                launches[name] = count
+              + per_step_text(per_step) + "; per valid batch "
+              + ", ".join(f"{k} {n}" for k, n in per_valid.items()) + ")")
+        for name, (f, b) in per_step.items():          # the first route that runs it
+            if f + b and name not in launches:
+                launches[name] = got[name]
         trainer._train_step = step
-        trainers[mega] = trainer
+        trainers[route] = trainer
 
-    runs = {True: [], False: []}
-    for mega in (True, False, False, True, True, False):                # in turns
-        runs[mega].append(timed_epoch(trainers[mega], train))
-    for mega, route in ((True, "K4 route"), (False, "K5 route (control)")):
-        print(f"[train] {route}: {steps * TRAIN_BATCH} windows per epoch ({steps} steps of "
+    names = [route for route, *_ in ROUTES]
+    runs = {route: [] for route in names}
+    for route in names + names[::-1] + names:                            # in turns
+        runs[route].append(timed_epoch(trainers[route], train))
+    for route in names:
+        print(f"[train] {route} route: {steps * TRAIN_BATCH} windows per epoch ({steps} steps of "
               f"{TRAIN_BATCH}, bf16 wav2vec2-base + 512x3 head, SGD): "
-              f"{steps * TRAIN_BATCH / np.median(runs[mega]):.1f} training windows/s on {card} "
-              f"(median of 3 epochs: {', '.join(f'{s * 1e3:.1f}' for s in runs[mega])} ms; "
+              f"{steps * TRAIN_BATCH / np.median(runs[route]):.1f} training windows/s on {card} "
+              f"(median of 3 epochs: {', '.join(f'{s * 1e3:.1f}' for s in runs[route])} ms; "
               f"host clock, batching, transfer and preprocessing included)")
     return launches
 
@@ -1386,6 +1761,11 @@ def main() -> None:
     vest_launches = {**phase_vest_training(card),
                      "sinc_delay_grad_x": input_grad_launches["sinc_delay_grad_x"]}
     phase_vest_runner()
+    measured.update(phase_unpacked_attention())
+    measured.update(phase_conv_kernel())
+    phase_gated_step()
+    phase_fusion_training(card)
+    phase_fusion_runner()
     print(card)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": CSRC + source, "replaces": PALLAS + replaces,

@@ -1,0 +1,151 @@
+#!/usr/bin/env python3
+"""A short first check of the attention (K3a/K3b), conv + GELU (K8) and FFN (K4) kernels
+on one CUDA card: build them, run each once against its plain version, and time K8.
+
+    python3 scripts/torch_kernel_check.py
+
+A minute of card time where ``chip_smoke.py`` takes several: for the first call after a
+kernel changes. Prints the ptxas register and spill lines of the four sources; K3a against
+K3b bit for bit and against the plain version at ``[96, 12, 199, 64]`` (bf16 and f32, rate
+0.1 and 0, t = 199 and 150); K8 against the plain version at small odd shapes and at
+conv_1's (``[8, 512, 12799]`` f32, ``[96, 512, 12799]`` bf16) with host-clock times (mean
+of 5, after a sync) beside cuDNN ``conv1d`` + ``gelu``; K4 at 400 rows. The last line is
+``ALL_OK`` or ``SOME_FAILED``.
+"""
+
+from __future__ import annotations
+
+import sys
+import time
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from wav2vec_heart_sounds_tpu_torch.ops.kernels import attention as A  # noqa: E402
+from wav2vec_heart_sounds_tpu_torch.ops.kernels import build  # noqa: E402
+from wav2vec_heart_sounds_tpu_torch.ops.kernels import conv as C  # noqa: E402
+from wav2vec_heart_sounds_tpu_torch.ops.kernels import megakernel as mk  # noqa: E402
+
+SOURCES = ("attention_qkv_fwd", "attention_qkv_bwd", "conv_gelu", "ffn_mega")
+failures = []
+
+
+def report(name, got, ref, atol, rtol):
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs().max().item()
+    good = got.shape == ref.shape and torch.allclose(got, ref, atol=atol, rtol=rtol)
+    if not good:
+        failures.append(name)
+    print(f"{name}: max_abs_err={err:.3e} (max |plain| {ref.abs().max().item():.3e}) "
+          f"{'ok' if good else 'FAILED'}")
+
+
+def host_ms(fn, runs: int = 5) -> float:
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / runs * 1e3
+
+
+def check_attention(gen):
+    B, H, T, D = 96, 12, 199, 64
+    for dtype in (torch.bfloat16, torch.float32):
+        bf16 = dtype == torch.bfloat16
+        proj = [torch.randn(B, T, H, D, device="cuda", generator=gen).to(dtype) for _ in range(3)]
+        views = [p.transpose(1, 2) for p in proj]
+        packed = torch.cat(views, dim=1).contiguous()
+        dout = torch.randn(B, H, T, D, device="cuda", generator=gen).to(dtype)
+        for t in (T, 150):
+            for rate in (0.1, 0.0):
+                args = (t, rate, 7, 3)
+                tag = f"{dtype} t={t} rate={rate}"
+                out_a, lse_a = A.attention_fwd(*views, *args, with_lse=True)
+                out_b, lse_b = A.attention_qkv_fwd(packed, *args, with_lse=True)
+                grads = A.attention_bwd(*views, out_b, dout, lse_b, *args)
+                same = (torch.equal(out_a, out_b) and torch.equal(lse_a, lse_b) and torch.equal(
+                    torch.cat(grads, 1), A.attention_qkv_bwd(packed, out_b, dout, lse_b, *args)))
+                if not same:
+                    failures.append(f"K3a vs K3b {tag}")
+                print(f"K3a == K3b bit for bit, {tag}: {same}")
+                report(f"  K3a out vs plain {tag}", out_a, A.attention_reference(*views, *args),
+                       *((1e-2, 1e-2) if bf16 else (1e-5, 1e-5)))
+                ref = A.attention_bwd_reference(*views, out_b, dout, lse_b, *args)
+                for n, got, want in zip("qkv", grads, ref):
+                    report(f"  K3a d{n} vs plain {tag}", got, want,
+                           *((2e-2, 2e-2) if bf16 else (1e-4, 1e-4)))
+
+
+def check_conv(gen):
+    cases = ((torch.float32, (2, 128, 256, 301)), (torch.bfloat16, (2, 128, 256, 301)),
+             (torch.float32, (3, 256, 128, 520)), (torch.float32, (8, 512, 512, 12799)),
+             (torch.bfloat16, (96, 512, 512, 12799)))
+    for dtype, (B, cin, cout, T) in cases:
+        bf16 = dtype == torch.bfloat16
+        tag = f"{dtype} [{B}, {cin}, {T}] -> {cout}"
+        x = torch.randn(B, cin, T, device="cuda", generator=gen).to(dtype)
+        w = (torch.randn(cout, cin, 3, device="cuda", generator=gen) / (3 * cin) ** 0.5).to(dtype)
+        out, pre = C.conv_gelu_fwd_kernel(x, w)
+        ref_out, ref_pre = C.conv_gelu_fwd_reference(x, w)
+        tol = (1e-2, 1e-2) if bf16 else (2e-5, 1e-5)
+        report(f"K8 out {tag}", out, ref_out, *tol)
+        report(f"K8 pre {tag}", pre, ref_pre, *tol)
+        g = torch.randn(ref_out.shape, device="cuda", generator=gen).to(dtype)
+        dx, dw = C.conv_gelu_bwd_kernel(x, w, ref_pre, g)
+        ref_dx, ref_dw = C.conv_gelu_bwd_reference(x, w, ref_pre, g)
+        top = ref_dw.float().abs().max().item()
+        report(f"K8 dx {tag}", dx, ref_dx, *((1e-2, 1e-2) if bf16 else (1e-4, 1e-4)))
+        report(f"K8 dw {tag}", dw, ref_dw, *((1e-2 * top, 1e-2) if bf16 else (1e-4 * top, 1e-4)))
+        if B >= 8:
+            for name, fn in (("forward", lambda: C.conv_gelu_fwd_kernel(x, w)),
+                             ("backward", lambda: C.conv_gelu_bwd_kernel(x, w, ref_pre, g)),
+                             ("cuDNN conv1d + gelu", lambda: F.gelu(F.conv1d(x, w, stride=2)))):
+                print(f"  {name} {tag}: {host_ms(fn):.3f} ms (host clock, mean of 5)")
+        del x, w, out, pre, ref_out, ref_pre, g, dx, dw, ref_dx, ref_dw
+        torch.cuda.empty_cache()
+
+
+def check_ffn(gen):
+    for dtype in (torch.bfloat16, torch.float32):
+        def randn(*shape, std=1.0):
+            return (std * torch.randn(*shape, device="cuda", generator=gen)).to(dtype)
+
+        args = (randn(400, 768), randn(3072, 768, std=768 ** -0.5), randn(3072, std=0.1),
+                randn(768, 3072, std=3072 ** -0.5), randn(768, std=0.1),
+                torch.ones(768, device="cuda"), torch.zeros(768, device="cuda"),
+                5, 4, 5, 0.1, 0.1, 1e-5)
+        for name, got, ref in zip(("y", "s", "pre"), mk.ffn_mega_fwd_kernel(*args),
+                                  mk.ffn_mega_fwd_reference(*args)):
+            report(f"K4 {name} {dtype} [400, 768]", got, ref,
+                   *((3e-2, 2e-2) if dtype == torch.bfloat16 else (1e-5, 1e-5)))
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    build.load_libraries(*SOURCES)
+    print(f"build of {len(SOURCES)} sources: {time.perf_counter() - t0:.1f} s")
+    for name in SOURCES:
+        for line in build.build_logs.get(name, "").splitlines():
+            if "Function properties" in line or "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    check_attention(gen)
+    check_conv(gen)
+    check_ffn(gen)
+    print("SOME_FAILED: " + ", ".join(failures) if failures else "ALL_OK")
+    if failures:
+        raise SystemExit(1)
+
+
+if __name__ == "__main__":
+    main()

@@ -3,12 +3,14 @@
 On a seeded synthetic wfdb fixture (6 records of clean, separable tones with an ECG
 channel, as ``tests/test_experiments.py``): the data builders give identical patient tags,
 labels and waveforms (the JAX side on its NumPy oracle, ``W2VHS_NO_NATIVE=1``), host
-augmentation copies included; ``run(mode="pcg")`` on both wires, augmentation off and
-every dropout and SpecAugment at 0, from one initial state (the JAX init carried across
-by ``from_jax`` into the port's builder) gives a record with the same keys, the same
-fragment and patient statistics, and trained parameters within 2e-4 / 2e-3 (the bar of
-``tests/test_torch_train.py``). Also: ``read_split`` against pandas, the trainer's
-``batch_transform`` and ``log_dir`` hooks, and the modes that wait for the fusion slice.
+augmentation copies included, for the synchronised PCG+ECG pair too; ``run(mode="pcg")``
+on both wires, and ``run`` in the ``ecg`` and fusion ``pcg_ecg`` modes, augmentation off
+and every dropout and SpecAugment at 0, from one initial state (the JAX inits, the fusion
+head's too, carried across by ``from_jax`` into the port's models) give a record with the
+same keys, the same fragment and patient statistics, and trained parameters within
+2e-4 / 2e-3 (the bar of ``tests/test_torch_train.py``). Also: ``read_split`` against
+pandas, the trainer's ``batch_transform`` and ``log_dir`` hooks, and the raw wire's refusal
+of the ECG modes.
 """
 
 import json
@@ -61,18 +63,19 @@ def _same_fragments(ours, theirs):
         np.testing.assert_array_equal(a.waveform, b.waveform)
 
 
-@pytest.mark.parametrize("augment_num", [0, 2])
-def test_build_fragments_match_jax(fixture_dir, monkeypatch, augment_num):
+@pytest.mark.parametrize("augment_num,ecg", [(0, False), (2, False), (0, True), (2, True)])
+def test_build_fragments_match_jax(fixture_dir, monkeypatch, augment_num, ecg):
     monkeypatch.setenv("W2VHS_NO_NATIVE", "1")
     csv = str(fixture_dir / "split.csv")
     for subset in ("train", "test"):
-        kw = dict(fs_out=500, augment_num=augment_num)
+        kw = dict(fs_out=500, augment_num=augment_num, ecg=ecg)
         ours = cinc.build_fragments(str(fixture_dir), csv, subset, window=WindowSpec(2.0),
                                     rng=np.random.default_rng(4), **kw)
         theirs = jax_cinc_data.build_fragments(str(fixture_dir), csv, subset,
                                                window=JaxWindowSpec(2.0),
                                                rng=np.random.default_rng(4), **kw)
         assert ours and (augment_num == 0 or any("#aug" in f.patient for f in ours))
+        assert all(f.waveform.shape == ((1000, 2) if ecg else (1000,)) for f in ours)
         _same_fragments(ours, theirs)
 
 
@@ -157,16 +160,85 @@ def test_run_matches_jax_runner(fixture_dir, tmp_path, monkeypatch, wire):
         np.testing.assert_allclose(a, np.asarray(b), atol=2e-4, rtol=2e-3, err_msg=str(path))
 
 
+@pytest.mark.parametrize("mode", ["ecg", "pcg_ecg"])
+def test_run_ecg_modes_match_jax_runner(fixture_dir, tmp_path, monkeypatch, mode):
+    """One branch on the ECG channel, and the three trainings of the fusion mode (PCG
+    branch, ECG branch, then the two-branch model with every parameter training)."""
+    monkeypatch.setenv("W2VHS_NO_NATIVE", "1")
+    inits, captured = [], {}
+    jax_build, jax_fuse = jax_cinc.build_classifier, jax_cinc.two_branch_pcg_ecg
+    jax_trainer_cls = jax_cinc.SupervisedTrainer
+
+    def capture_init(*args, **kwargs):
+        model, variables = jax_build(*args, **kwargs)
+        inits.append(jax.device_get(variables))
+        return model, variables
+
+    def capture_fusion(*args, **kwargs):
+        fusion, variables = jax_fuse(*args, **kwargs)
+        captured["fusion_init"] = jax.device_get(variables)
+        return fusion, variables
+
+    class CapturingTrainer(jax_trainer_cls):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            captured["jax_trainer"] = self                  # the last one: fusion's, if any
+
+    monkeypatch.setattr(jax_cinc, "build_classifier", capture_init)
+    monkeypatch.setattr(jax_cinc, "two_branch_pcg_ecg", capture_fusion)
+    monkeypatch.setattr(jax_cinc, "SupervisedTrainer", CapturingTrainer)
+    port_build, port_fuse, built = runner.build_classifier, runner.two_branch_pcg_ecg, []
+
+    def port_init(cfg, **kwargs):
+        model = port_build(cfg, **kwargs)
+        model.load_state_dict(from_jax(inits[len(built)]["params"]), strict=True)
+        built.append(model)
+        captured["port_model"] = model
+        return model
+
+    def port_fusion(*args, **kwargs):
+        fusion = port_fuse(*args, **kwargs)
+        head = from_jax(captured["fusion_init"]["params"])
+        fusion.head.load_state_dict({k[len("head."):]: v for k, v in head.items()
+                                     if k.startswith("head.")}, strict=True)
+        captured["port_model"] = fusion
+        return fusion
+
+    monkeypatch.setattr(runner, "build_classifier", port_init)
+    monkeypatch.setattr(runner, "two_branch_pcg_ecg", port_fusion)
+    kw = dict(mode=mode, fs=500, window_s=2.0, epochs=1, augment=False, random_init=True,
+              batch_size=4, max_batches=2, lr=2e-2)
+    csv = str(fixture_dir / "split.csv")
+    theirs = jax_cinc.run(str(fixture_dir), csv, encoder_config=JaxConfig.tiny(**NO_NOISE),
+                          results_json=str(tmp_path / "jax.json"), **kw)
+    ours = runner.run(str(fixture_dir), csv, encoder_config=Wav2Vec2Config.tiny(**NO_NOISE),
+                      results_json=str(tmp_path / "port.json"), device="cpu",
+                      dtype=torch.float32, **kw)
+    assert len(built) == len(inits) == (2 if mode == "pcg_ecg" else 1)
+    assert ours["topology"] == ("big_rnn:2:wav2vec" if mode == "pcg_ecg" else "wav2vec")
+    assert ours == theirs                                   # settings and both statistics
+    trained = jax.device_get(captured["jax_trainer"].state.params)
+    port_params = to_jax(captured["port_model"].state_dict(), trained)
+    paths = [("head", "dense_0", "kernel")]
+    prefixes = [("branch_0",), ("branch_1",)] if mode == "pcg_ecg" else [()]
+    paths += [p + ("encoder", "feature_projection", "projection", "kernel") for p in prefixes]
+    for path in paths:
+        a, b = port_params, trained
+        for key in path:
+            a, b = a[key], b[key]
+        np.testing.assert_allclose(a, np.asarray(b), atol=2e-4, rtol=2e-3, err_msg=str(path))
+
+
 def test_run_modes_waiting_for_the_fusion_slice(fixture_dir):
+    """The fusion slice is in: the ECG modes build the synchronised pair; only the raw
+    wire, which carries mono PCG, still refuses them."""
     csv = str(fixture_dir / "split.csv")
     for mode in ("ecg", "pcg_ecg"):
-        with pytest.raises(NotImplementedError, match="fusion"):
-            runner.run(str(fixture_dir), csv, mode=mode, device="cpu")
         with pytest.raises(ValueError, match="mono"):
             runner.run(str(fixture_dir), csv, mode=mode, wire="raw", device="cpu")
-    with pytest.raises(NotImplementedError, match="fusion"):
-        cinc.build_fragments(str(fixture_dir), csv, "train", fs_out=500,
-                             window=WindowSpec(2.0), ecg=True)
+    pairs = cinc.build_fragments(str(fixture_dir), csv, "train", fs_out=500,
+                                 window=WindowSpec(2.0), ecg=True)
+    assert pairs and all(f.waveform.shape == (1000, 2) for f in pairs)
 
 
 def test_trainer_batch_transform_and_scalar_log(tmp_path):

@@ -76,6 +76,13 @@ vest_batch = {{"waveform": np.random.default_rng(1).normal(size=(2, 600, 3)).ast
               "label": np.array([0, 1]), "valid": np.ones(2, bool)}}
 SupervisedTrainer(vest_model, optimizer_name="adamw", classifier_config=vest_cfg,
                   log=lambda s: None).fit([vest_batch], [vest_batch], 1)
+from wav2vec_heart_sounds_tpu_torch.models.build import build_two_branch
+gated = Wav2Vec2Config.tiny(conv_dim=(128, 128), qkv_fuse=False, conv_fuse=True)
+branch = ClassifierConfig(head_hidden=(8,), encoder=gated)
+fusion = build_two_branch(branch, branch, device="cpu", train=True)
+pair = {{"waveform": np.random.default_rng(2).normal(size=(2, 1000, 2)).astype(np.float32),
+        "label": np.array([0, 1]), "valid": np.ones(2, bool)}}
+SupervisedTrainer(fusion, optimizer_name="adamw", log=lambda s: None).fit([pair], [pair], 1)
 print("PORT_OK", sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}
                         and sys.modules[m] is not None))
 """
@@ -199,6 +206,10 @@ def _code(fn) -> str:
     (data_common.progress, jax_data_common.progress),
     (data_cinc.read_record, jax_data_cinc.read_record),
     (data_cinc._variants, jax_data_cinc._variants),
+    (data_cinc.pcg_augment, jax_data_cinc.pcg_augment),
+    (data_cinc._preprocessed, jax_data_cinc._preprocessed),
+    (data_cinc.build_fragments, jax_data_cinc.build_fragments),
+    (data_cinc.cinc_dataset, jax_data_cinc.cinc_dataset),
     (data_common.stack_min_length, jax_data_common.stack_min_length),
     (vest.ChannelPlan, jax_vest.ChannelPlan),
     (vest.read_vest_wav, jax_vest.read_vest_wav),

@@ -1,12 +1,16 @@
-// Packed-QKV attention backward for NVIDIA Hopper (sm_90a), with attention dropout.
+// Attention backward for NVIDIA Hopper (sm_90a), with attention dropout: one kernel body for
+// the packed-QKV (K3b) and the unpacked (K3a) routes.
 //
-// Replaces the TPU kernel wav2vec_heart_sounds_tpu/ops/pallas/attention.py::_packed_bwd
-// (K3b backward). From the packed [B, 3H, T, d] qkv, the forward's output o and its row
-// log-sum-exp lse ([B, H, T] float32), and the output cotangent do, it writes one packed
-// dqkv [B, 3H, T, d] (heads 0..H-1 = dq, H..2H-1 = dk, 2H..3H-1 = dv). With p the
-// probabilities recomputed as exp(q.k * scale - lse) (keys >= t_keys masked), keep the
-// Philox mask the forward drew at index ((b*H + h)*T + q)*T + k (philox.cuh) and c the
-// dropout scale 1 / (1 - rate):
+// Replaces the TPU kernels wav2vec_heart_sounds_tpu/ops/pallas/attention.py::_packed_bwd
+// (K3b backward) and ::_flash_bwd (K3a backward; K3a computes exactly K3b's function). From
+// q, k, v, the forward's output o, the output cotangent do and the forward's row
+// log-sum-exp lse ([B, H, T] float32, contiguous), it writes dq, dk and dv. Every one of
+// these eight tensors is a [B, H, T, d] view given by its base pointer and element strides
+// over (b, h, t), d contiguous: the three thirds of one packed [B, 3H, T, d] tensor and of
+// one packed gradient (K3b), or separate tensors and head views of [B, T, H, d] ones (K3a).
+// With p the probabilities recomputed as exp(q.k * scale - lse) (keys >= t_keys masked),
+// keep the Philox mask the forward drew at index ((b*H + h)*T + q)*T + k (philox.cuh,
+// whatever the strides) and c the dropout scale 1 / (1 - rate):
 //
 //     dv_k = sum_q keep c p_qk do_q            dp_qk = keep ? c (do_q . v_k) : 0
 //     D_q  = do_q . o_q  (= sum_k dp_qk p_qk, since o is the dropped output)
@@ -55,6 +59,16 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Element strides of a [B, H, T, d] view over (b, h, t); d is contiguous.
+struct View {
+  long long b, h, t;
+};
+
+// The views of one call, in the order of the C entry's strides.
+struct Views {
+  View q, k, v, o, dout, dq, dk, dv;
+};
+
 __device__ __forceinline__ bool kept(uint32_t seed, uint32_t site, uint32_t thr, int bh,
                                      int seq, int q, int k) {
   if (!thr) return true;
@@ -73,11 +87,12 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-attention_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ o,
+attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ o,
                         const T* __restrict__ dout, const float* __restrict__ lse,
-                        float* __restrict__ dsum, T* __restrict__ dqkv, int heads, int seq,
-                        int t_keys, float scale, uint32_t seed, uint32_t site, uint32_t thr,
-                        float drop_scale) {
+                        float* __restrict__ dsum, T* __restrict__ dq, Views vw, int heads,
+                        int seq, int t_keys, float scale, uint32_t seed, uint32_t site,
+                        uint32_t thr, float drop_scale) {
   constexpr int DPL = D / 32;
   constexpr int KS = D + 4;
   __shared__ __align__(16) float q_s[kTile][D];
@@ -90,20 +105,19 @@ attention_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ o,
   const int q0 = blockIdx.y * kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row0 = warp * kRowsPerWarp;
-  const size_t head = static_cast<size_t>(seq) * D;
-  const T* q_g = qkv + (static_cast<size_t>(b) * 3 * heads + h) * head;
-  const T* k_g = qkv + (static_cast<size_t>(b) * 3 * heads + heads + h) * head;
-  const T* v_g = qkv + (static_cast<size_t>(b) * 3 * heads + 2 * heads + h) * head;
-  const T* o_g = o + static_cast<size_t>(bh) * head;
-  const T* do_g = dout + static_cast<size_t>(bh) * head;
-  T* dq_g = dqkv + (static_cast<size_t>(b) * 3 * heads + h) * head;
+  const T* q_g = q + b * vw.q.b + h * vw.q.h;
+  const T* k_g = k + b * vw.k.b + h * vw.k.h;
+  const T* v_g = v + b * vw.v.b + h * vw.v.h;
+  const T* o_g = o + b * vw.o.b + h * vw.o.h;
+  const T* do_g = dout + b * vw.dout.b + h * vw.dout.h;
+  T* dq_g = dq + b * vw.dq.b + h * vw.dq.h;
 
   for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
     const int r = e / D, c = e - (e / D) * D;
     const int row = q0 + r;
     const bool ok = row < seq;
-    q_s[r][c] = ok ? to_float(q_g[static_cast<size_t>(row) * D + c]) : 0.f;
-    do_s[r][c] = ok ? to_float(do_g[static_cast<size_t>(row) * D + c]) : 0.f;
+    q_s[r][c] = ok ? to_float(q_g[row * vw.q.t + c]) : 0.f;
+    do_s[r][c] = ok ? to_float(do_g[row * vw.dout.t + c]) : 0.f;
   }
   __syncthreads();
 
@@ -115,7 +129,7 @@ attention_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ o,
     if (row < seq) {
 #pragma unroll
       for (int i = 0; i < DPL; ++i)
-        part = fmaf(to_float(o_g[static_cast<size_t>(row) * D + lane + 32 * i]),
+        part = fmaf(to_float(o_g[row * vw.o.t + lane + 32 * i]),
                     do_s[row0 + rr][lane + 32 * i], part);
     }
     d_r[rr] = warp_sum(part);
@@ -131,8 +145,8 @@ attention_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ o,
       const int r = e / D, c = e - (e / D) * D;
       const int key = k0 + r;
       const bool ok = key < t_keys;
-      k_s[r][c] = ok ? to_float(k_g[static_cast<size_t>(key) * D + c]) : 0.f;
-      v_s[r][c] = ok ? to_float(v_g[static_cast<size_t>(key) * D + c]) : 0.f;
+      k_s[r][c] = ok ? to_float(k_g[key * vw.k.t + c]) : 0.f;
+      v_s[r][c] = ok ? to_float(v_g[key * vw.v.t + c]) : 0.f;
     }
     __syncthreads();
 
@@ -203,16 +217,18 @@ attention_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ o,
     if (row >= seq) continue;
 #pragma unroll
     for (int i = 0; i < DPL; ++i)
-      store(dq_g + static_cast<size_t>(row) * D + lane + 32 * i, acc[rr][i] * scale);
+      store(dq_g + row * vw.dq.t + lane + 32 * i, acc[rr][i] * scale);
   }
 }
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-attention_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
+attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ dsum,
-                          T* __restrict__ dqkv, int heads, int seq, int t_keys, float scale,
-                          uint32_t seed, uint32_t site, uint32_t thr, float drop_scale) {
+                          T* __restrict__ dk_out, T* __restrict__ dv_out, Views vw, int heads,
+                          int seq, int t_keys, float scale, uint32_t seed, uint32_t site,
+                          uint32_t thr, float drop_scale) {
   constexpr int DPL = D / 32;
   constexpr int QS = D + 4;
   __shared__ __align__(16) float k_s[kTile][D];
@@ -227,20 +243,19 @@ attention_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
   const int key0 = blockIdx.y * kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row0 = warp * kRowsPerWarp;          // this warp's first key within the tile
-  const size_t head = static_cast<size_t>(seq) * D;
-  const T* q_g = qkv + (static_cast<size_t>(b) * 3 * heads + h) * head;
-  const T* k_g = qkv + (static_cast<size_t>(b) * 3 * heads + heads + h) * head;
-  const T* v_g = qkv + (static_cast<size_t>(b) * 3 * heads + 2 * heads + h) * head;
-  const T* do_g = dout + static_cast<size_t>(bh) * head;
-  T* dk_g = dqkv + (static_cast<size_t>(b) * 3 * heads + heads + h) * head;
-  T* dv_g = dqkv + (static_cast<size_t>(b) * 3 * heads + 2 * heads + h) * head;
+  const T* q_g = q + b * vw.q.b + h * vw.q.h;
+  const T* k_g = k + b * vw.k.b + h * vw.k.h;
+  const T* v_g = v + b * vw.v.b + h * vw.v.h;
+  const T* do_g = dout + b * vw.dout.b + h * vw.dout.h;
+  T* dk_g = dk_out + b * vw.dk.b + h * vw.dk.h;
+  T* dv_g = dv_out + b * vw.dv.b + h * vw.dv.h;
 
   for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
     const int r = e / D, c = e - (e / D) * D;
     const int key = key0 + r;
     const bool ok = key < t_keys;
-    k_s[r][c] = ok ? to_float(k_g[static_cast<size_t>(key) * D + c]) : 0.f;
-    v_s[r][c] = ok ? to_float(v_g[static_cast<size_t>(key) * D + c]) : 0.f;
+    k_s[r][c] = ok ? to_float(k_g[key * vw.k.t + c]) : 0.f;
+    v_s[r][c] = ok ? to_float(v_g[key * vw.v.t + c]) : 0.f;
   }
 
   float dk[kRowsPerWarp][DPL], dv[kRowsPerWarp][DPL];
@@ -255,8 +270,8 @@ attention_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
       const int r = e / D, c = e - (e / D) * D;
       const int row = q0 + r;
       const bool ok = row < seq;
-      q_s[r][c] = ok ? to_float(q_g[static_cast<size_t>(row) * D + c]) : 0.f;
-      do_s[r][c] = ok ? to_float(do_g[static_cast<size_t>(row) * D + c]) : 0.f;
+      q_s[r][c] = ok ? to_float(q_g[row * vw.q.t + c]) : 0.f;
+      do_s[r][c] = ok ? to_float(do_g[row * vw.dout.t + c]) : 0.f;
     }
     for (int r = threadIdx.x; r < kStage; r += kThreads) {
       const int row = q0 + r;
@@ -340,8 +355,8 @@ attention_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
     if (key >= seq) continue;                  // keys in [t_keys, seq) get exact zeros
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
-      store(dk_g + static_cast<size_t>(key) * D + lane + 32 * i, dk[kk][i] * scale);
-      store(dv_g + static_cast<size_t>(key) * D + lane + 32 * i, dv[kk][i]);
+      store(dk_g + key * vw.dk.t + lane + 32 * i, dk[kk][i] * scale);
+      store(dv_g + key * vw.dv.t + lane + 32 * i, dv[kk][i]);
     }
   }
 }
@@ -350,45 +365,55 @@ attention_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
 constexpr int kHeadDim = 64;
 
 template <typename T>
-int launch(const void* qkv, const void* o, const void* dout, const void* lse, void* dsum,
-           void* dqkv, int batch, int heads, int seq, int t_keys, float scale, uint32_t seed,
-           uint32_t site, uint32_t thr, float drop_scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
+           const void* lse, void* dsum, void* dq, void* dk, void* dv, const Views& vw,
+           int batch, int heads, int seq, int t_keys, float scale, uint32_t seed, uint32_t site,
+           uint32_t thr, float drop_scale, cudaStream_t stream) {
   const dim3 grid(batch * heads, (seq + kTile - 1) / kTile);
+  const T *qp = static_cast<const T*>(q), *kp = static_cast<const T*>(k),
+          *vp = static_cast<const T*>(v), *dop = static_cast<const T*>(dout);
   attention_bwd_dq_kernel<T, kHeadDim><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(o), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<float*>(dsum), static_cast<T*>(dqkv), heads,
-      seq, t_keys, scale, seed, site, thr, drop_scale);
+      qp, kp, vp, static_cast<const T*>(o), dop, static_cast<const float*>(lse),
+      static_cast<float*>(dsum), static_cast<T*>(dq), vw, heads, seq, t_keys, scale, seed, site,
+      thr, drop_scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   attention_bwd_dkdv_kernel<T, kHeadDim><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(dsum), static_cast<T*>(dqkv), heads, seq, t_keys, scale, seed,
-      site, thr, drop_scale);
+      qp, kp, vp, dop, static_cast<const float*>(lse), static_cast<const float*>(dsum),
+      static_cast<T*>(dk), static_cast<T*>(dv), vw, heads, seq, t_keys, scale, seed, site, thr,
+      drop_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16 (qkv, o, dout, dqkv);
-// lse and the scratch dsum ([B, H, T]) are float32. thr = uint32(rate * (2^32 - 1)) (0 = no
-// dropout), drop_scale = 1 / (1 - rate), as the forward was given. Returns the cudaError_t
-// of the launches (0 = launched); the caller raises on anything else.
-extern "C" int attention_qkv_bwd(const void* qkv, const void* o, const void* dout,
-                                 const void* lse, void* dsum, void* dqkv, int batch, int heads,
-                                 int seq, int head_dim, int t_keys, float scale, uint32_t seed,
-                                 uint32_t site, uint32_t thr, float drop_scale, int dtype,
-                                 void* stream) {
+// C entry point, bound with ctypes. strides: 24 element strides, (b, h, t) of q, k, v, o,
+// dout, dq, dk and dv in that order (d contiguous in each). dtype: 0 = float32,
+// 1 = bfloat16 (the eight views); lse and the scratch dsum ([B, H, T], contiguous) are
+// float32. thr = uint32(rate * (2^32 - 1)) (0 = no dropout), drop_scale = 1 / (1 - rate), as
+// the forward was given. Returns the cudaError_t of the launches (0 = launched); the caller
+// raises on anything else.
+extern "C" int attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                             const void* dout, const void* lse, void* dsum, void* dq, void* dk,
+                             void* dv, const long long* strides, int batch, int heads, int seq,
+                             int head_dim, int t_keys, float scale, uint32_t seed,
+                             uint32_t site, uint32_t thr, float drop_scale, int dtype,
+                             void* stream) {
   if (batch <= 0 || heads <= 0 || seq <= 0 || t_keys <= 0 || t_keys > seq ||
       head_dim != kHeadDim)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  View v8[8];
+  for (int i = 0; i < 8; ++i)
+    v8[i] = View{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  const Views vw{v8[0], v8[1], v8[2], v8[3], v8[4], v8[5], v8[6], v8[7]};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch<float>(qkv, o, dout, lse, dsum, dqkv, batch, heads, seq, t_keys, scale,
-                           seed, site, thr, drop_scale, s);
+      return launch<float>(q, k, v, o, dout, lse, dsum, dq, dk, dv, vw, batch, heads, seq,
+                           t_keys, scale, seed, site, thr, drop_scale, st);
     case 1:
-      return launch<__nv_bfloat16>(qkv, o, dout, lse, dsum, dqkv, batch, heads, seq, t_keys,
-                                   scale, seed, site, thr, drop_scale, s);
+      return launch<__nv_bfloat16>(q, k, v, o, dout, lse, dsum, dq, dk, dv, vw, batch, heads,
+                                   seq, t_keys, scale, seed, site, thr, drop_scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

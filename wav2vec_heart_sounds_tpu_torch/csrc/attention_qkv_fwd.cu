@@ -1,20 +1,27 @@
-// Packed-QKV attention forward for NVIDIA Hopper (sm_90a), with attention dropout.
+// Attention forward for NVIDIA Hopper (sm_90a), with attention dropout: one kernel body for
+// the packed-QKV (K3b) and the unpacked (K3a) routes.
 //
-// Replaces the TPU kernel wav2vec_heart_sounds_tpu/ops/pallas/attention.py::_packed_fwd
-// (flash_attention_qkv). Computes, for every (batch b, head h):
+// Replaces the TPU kernels wav2vec_heart_sounds_tpu/ops/pallas/attention.py::_packed_fwd
+// (flash_attention_qkv, K3b) and ::_flash_fwd (flash_attention, K3a: the unpacked q/k/v of
+// the encoder's W2VHS_NO_QKVFUSE=1 route). K3a computes exactly K3b's function, so both run
+// this body. Computes, for every (batch b, head h):
 //
 //     p = softmax(q k^T / sqrt(d), keys >= t_keys masked)
 //     out[b, h] = (keep ? p * scale : 0) v,   lse[b, h] = log-sum-exp of the scaled scores
 //
-// where q, k and v are heads h, H + h and 2H + h of ONE packed [B, 3H, T, d] tensor, read
-// in place (no slice copies). Scores, softmax and the PV sum are float32; the output is
-// [B, H, T, d] in the input dtype (float32 or bfloat16); lse (float32 [B, H, T], written
-// when its pointer is not null) is what the backward (attention_qkv_bwd.cu) recomputes the
-// probabilities from. Dropout drops the normalised probabilities, as the JAX kernel
-// (attention.py:125-131): the online softmax accumulates the kept e * v while l sums every
-// e, the algebraically identical deferred form (:116-123). keep is Philox4x32-10 of
-// (seed, site) at element index ((b*H + h)*T + q)*T + k (philox.cuh), the index the
-// backward and the plain version use; threshold 0 (rate 0, eval) skips it.
+// q, k, v and out are [B, H, T, d] views, each given by its base pointer and its element
+// strides over (b, h, t) (d contiguous), read and written in place: heads h, H + h and
+// 2H + h of one packed [B, 3H, T, d] tensor (K3b), three [B, H, T, d] tensors or the head
+// views of [B, T, H, d] projections (K3a), with no slice or transpose copies. Scores,
+// softmax and the PV sum are float32; out has the input dtype (float32 or bfloat16); lse
+// (float32 [B, H, T], contiguous, written when its pointer is not null) is what the
+// backward (attention_qkv_bwd.cu) recomputes the probabilities from. Dropout drops the
+// normalised probabilities, as the JAX kernel (attention.py:125-131): the online softmax
+// accumulates the kept e * v while l sums every e, the algebraically identical deferred
+// form (:116-123). keep is Philox4x32-10 of (seed, site) at element index
+// ((b*H + h)*T + q)*T + k (philox.cuh), whatever the strides: the index the backward and
+// the plain versions use, so both routes draw the same masks; threshold 0 (rate 0, eval)
+// skips it.
 //
 // What bounds it on this card: at wav2vec2-base's T ~ 199 and d = 64 one (b, h) pair is
 // ~5 MFLOP against 76 KB of q/k/v (bf16), far too little work per byte and per launch for
@@ -57,6 +64,11 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162f
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
+// Element strides of a [B, H, T, d] view over (b, h, t); d is contiguous.
+struct View {
+  long long b, h, t;
+};
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
@@ -73,9 +85,10 @@ __device__ __forceinline__ float warp_sum(float v) {
 // that came before training, so adding training costs eval nothing.
 template <typename T, int D, bool kTrain>
 __global__ void __launch_bounds__(kThreads)
-attention_qkv_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
-                         float* __restrict__ lse, int heads, int seq, int t_keys, float scale,
-                         uint32_t seed, uint32_t site, uint32_t thr, float drop_scale) {
+attention_fwd_kernel(const T* __restrict__ q, View qs, const T* __restrict__ k, View ks,
+                     const T* __restrict__ v, View vs, T* __restrict__ out, View os,
+                     float* __restrict__ lse, int heads, int seq, int t_keys, float scale,
+                     uint32_t seed, uint32_t site, uint32_t thr, float drop_scale) {
   constexpr int KT = 64;                  // keys per shared-memory tile
   constexpr int KPL = KT / 32;            // keys per lane in the score step
   constexpr int DPL = D / 32;             // output columns per lane in the PV step
@@ -94,16 +107,15 @@ attention_qkv_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
   const int lane = threadIdx.x & 31;
   const int row0 = warp * kRowsPerWarp;   // this warp's first row within the tile
 
-  const size_t head_elems = static_cast<size_t>(seq) * D;
-  const T* q_g = qkv + (static_cast<size_t>(b) * 3 * heads + h) * head_elems;
-  const T* k_g = qkv + (static_cast<size_t>(b) * 3 * heads + heads + h) * head_elems;
-  const T* v_g = qkv + (static_cast<size_t>(b) * 3 * heads + 2 * heads + h) * head_elems;
-  T* o_g = out + (static_cast<size_t>(b) * heads + h) * head_elems;
+  const T* q_g = q + b * qs.b + h * qs.h;
+  const T* k_g = k + b * ks.b + h * ks.h;
+  const T* v_g = v + b * vs.b + h * vs.h;
+  T* o_g = out + b * os.b + h * os.h;
 
   for (int e = threadIdx.x; e < kQueryTile * D; e += kThreads) {
     const int r = e / D, c = e - (e / D) * D;
     const int row = q0 + r;
-    q_s[r][c] = row < seq ? to_float(q_g[static_cast<size_t>(row) * D + c]) : 0.f;
+    q_s[r][c] = row < seq ? to_float(q_g[row * qs.t + c]) : 0.f;
   }
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][DPL];
@@ -121,8 +133,8 @@ attention_qkv_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
       const int r = e / D, c = e - (e / D) * D;
       const int key = k0 + r;
       const bool ok = key < t_keys;
-      k_s[r][c] = ok ? to_float(k_g[static_cast<size_t>(key) * D + c]) : 0.f;
-      v_s[r][c] = ok ? to_float(v_g[static_cast<size_t>(key) * D + c]) : 0.f;
+      k_s[r][c] = ok ? to_float(k_g[key * ks.t + c]) : 0.f;
+      v_s[r][c] = ok ? to_float(v_g[key * vs.t + c]) : 0.f;
     }
     __syncthreads();
 
@@ -209,7 +221,7 @@ attention_qkv_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
       lse[static_cast<size_t>(bh) * seq + row] = m[rr] + logf(l[rr]);
 #pragma unroll
     for (int i = 0; i < DPL; ++i)
-      store(o_g + static_cast<size_t>(row) * D + lane + 32 * i, acc[rr][i] * inv);
+      store(o_g + row * os.t + lane + 32 * i, acc[rr][i] * inv);
   }
 }
 
@@ -217,41 +229,49 @@ attention_qkv_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
 constexpr int kHeadDim = 64;
 
 template <typename T>
-int launch(const void* qkv, void* out, void* lse, int batch, int heads, int seq, int t_keys,
-           float scale, uint32_t seed, uint32_t site, uint32_t thr, float drop_scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, void* lse, const View* s,
+           int batch, int heads, int seq, int t_keys, float scale, uint32_t seed, uint32_t site,
+           uint32_t thr, float drop_scale, cudaStream_t stream) {
   const dim3 grid(batch * heads, (seq + kQueryTile - 1) / kQueryTile);
+  const T *qp = static_cast<const T*>(q), *kp = static_cast<const T*>(k),
+          *vp = static_cast<const T*>(v);
+  T* op = static_cast<T*>(out);
   if (lse == nullptr && thr == 0)
-    attention_qkv_fwd_kernel<T, kHeadDim, false><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(qkv), static_cast<T*>(out), nullptr, heads, seq, t_keys, scale,
-        seed, site, thr, drop_scale);
+    attention_fwd_kernel<T, kHeadDim, false><<<grid, kThreads, 0, stream>>>(
+        qp, s[0], kp, s[1], vp, s[2], op, s[3], nullptr, heads, seq, t_keys, scale, seed, site,
+        thr, drop_scale);
   else
-    attention_qkv_fwd_kernel<T, kHeadDim, true><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(qkv), static_cast<T*>(out), static_cast<float*>(lse), heads,
-        seq, t_keys, scale, seed, site, thr, drop_scale);
+    attention_fwd_kernel<T, kHeadDim, true><<<grid, kThreads, 0, stream>>>(
+        qp, s[0], kp, s[1], vp, s[2], op, s[3], static_cast<float*>(lse), heads, seq, t_keys,
+        scale, seed, site, thr, drop_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16. lse may be null
-// (eval; with thr 0 too, the eval instantiation runs). thr = uint32(rate * (2^32 - 1)) (0 = no dropout), drop_scale = 1 / (1 - rate).
-// Returns the cudaError_t of the launch (0 = launched); the caller raises on anything else.
-extern "C" int attention_qkv_fwd(const void* qkv, void* out, void* lse, int batch, int heads,
-                                 int seq, int head_dim, int t_keys, float scale, uint32_t seed,
-                                 uint32_t site, uint32_t thr, float drop_scale, int dtype,
-                                 void* stream) {
+// C entry point, bound with ctypes. strides: 12 element strides, (b, h, t) of q, k, v and
+// out in that order (d contiguous in each). dtype: 0 = float32, 1 = bfloat16. lse may be
+// null (eval; with thr 0 too, the eval instantiation runs). thr = uint32(rate * (2^32 - 1))
+// (0 = no dropout), drop_scale = 1 / (1 - rate). Returns the cudaError_t of the launch
+// (0 = launched); the caller raises on anything else.
+extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
+                             const long long* strides, int batch, int heads, int seq,
+                             int head_dim, int t_keys, float scale, uint32_t seed,
+                             uint32_t site, uint32_t thr, float drop_scale, int dtype,
+                             void* stream) {
   if (batch <= 0 || heads <= 0 || seq <= 0 || t_keys <= 0 || t_keys > seq ||
       head_dim != kHeadDim)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  View s[4];
+  for (int i = 0; i < 4; ++i) s[i] = View{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch<float>(qkv, out, lse, batch, heads, seq, t_keys, scale, seed, site, thr,
-                           drop_scale, s);
+      return launch<float>(q, k, v, out, lse, s, batch, heads, seq, t_keys, scale, seed, site,
+                           thr, drop_scale, st);
     case 1:
-      return launch<__nv_bfloat16>(qkv, out, lse, batch, heads, seq, t_keys, scale, seed, site,
-                                   thr, drop_scale, s);
+      return launch<__nv_bfloat16>(q, k, v, out, lse, s, batch, heads, seq, t_keys, scale, seed,
+                                   site, thr, drop_scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,14 +1,16 @@
-"""CinC 2016 loaders, single-channel PCG (port of ``wav2vec_heart_sounds_tpu/data/cinc.py``).
+"""CinC 2016 loaders: single-channel PCG and synchronised Training-A PCG+ECG (port of
+``wav2vec_heart_sounds_tpu/data/cinc.py``).
 
 On-disk layout is the PhysioNet CinC 2016 format (``<patient>.hea`` + signal file, read by
 :mod:`.wfdb_io`) plus the split CSV protocol of :mod:`.common`. Full records are
-preprocessed on the host (the PCG chain on channel 0), balance-augmented before windowing
-so augmented copies are whole-record transforms, then segmented into fixed windows; the
-raw wire instead cuts un-preprocessed windows at the low native rate for preprocessing on
-the card. Missing or unreadable records are skipped.
-
-The synchronised PCG+ECG pair (``ecg=True``, ``[T, 2]`` waveforms) comes with the fusion
-slice and raises here.
+preprocessed on the host (the PCG chain on channel 0; the ECG chain on channel 1 when the
+synchronised pair is asked for, ``ecg=True``, giving ``[T, 2]`` waveforms),
+balance-augmented before windowing so augmented copies are whole-record transforms (one
+shared transform of the pair, ``augment_pcg_ecg``), then segmented into fixed windows; the
+raw wire instead cuts un-preprocessed mono windows at the low native rate for
+preprocessing on the card. Missing or unreadable records are skipped. ``pcg_augment``,
+``_preprocessed``, ``_variants``, ``build_fragments`` and ``read_record`` are copies of the
+originals (``tests/test_torch_imports.py``).
 """
 
 from __future__ import annotations
@@ -18,15 +20,20 @@ from typing import Iterator
 
 import numpy as np
 
-from ..augment.pipelines import AugmentConfig, augment_pcg
+from ..augment.pipelines import AugmentConfig, augment_pcg, augment_pcg_ecg
 from ..config import WindowSpec
 from ..signal.segment import segment
 from . import wfdb_io
-from .common import balanced_copy_counts, binary_label, label_column, pcg_chain, progress, read_split
+from .common import (
+    balanced_copy_counts,
+    binary_label,
+    ecg_chain,
+    label_column,
+    pcg_chain,
+    progress,
+    read_split,
+)
 from .fragments import Fragment, FragmentDataset
-
-FUSION = ("the synchronised PCG+ECG pair is not ported yet; it comes with the fusion slice "
-          "(mode='ecg' / 'pcg_ecg', augment_pcg_ecg)")
 
 
 def read_record(data_dir: str, patient: str) -> tuple[np.ndarray, float]:
@@ -36,19 +43,26 @@ def read_record(data_dir: str, patient: str) -> tuple[np.ndarray, float]:
 
 def pcg_augment(wave: np.ndarray, fs: int, cfg: AugmentConfig,
                 rng: np.random.Generator | None = None) -> np.ndarray:
-    """Augment a mono PCG window (a ``[T, 2]`` PCG+ECG pair raises)."""
-    if wave.ndim != 1:
-        raise NotImplementedError(FUSION)
-    return augment_pcg(wave, fs, cfg, rng=rng)
+    """Augment a mono PCG window or a [T, 2] PCG+ECG pair (one shared transform)."""
+    if wave.ndim == 1:
+        return augment_pcg(wave, fs, cfg, rng=rng)
+    ecg_aug, pcg_aug = augment_pcg_ecg(wave[:, 1], wave[:, 0], fs, cfg, rng=rng)
+    n = min(len(pcg_aug), len(ecg_aug))
+    return np.stack([pcg_aug[:n], ecg_aug[:n]], axis=1)
 
 
-def _preprocessed(data_dir: str, patient: str, fs_out: int):
-    """Preprocessed mono record waveform ``[T]``; None when the record is unreadable."""
+def _preprocessed(data_dir: str, patient: str, fs_out: int, want_ecg: bool):
+    """Preprocessed record waveform ([T] or [T, 2]); None when the record is unreadable."""
     try:
         signal, fs = read_record(data_dir, patient)
     except (FileNotFoundError, ValueError, OSError):
         return None
-    return pcg_chain(signal[:, 0], fs, fs_out)
+    pcg = pcg_chain(signal[:, 0], fs, fs_out)
+    if not (want_ecg and signal.shape[1] > 1):
+        return pcg
+    ecg = ecg_chain(signal[:, 1], fs, fs_out)
+    n = min(len(pcg), len(ecg))
+    return np.stack([pcg[:n], ecg[:n]], axis=1)
 
 
 def _variants(base: np.ndarray, copies: int, fs: int, cfg: AugmentConfig,
@@ -74,8 +88,6 @@ def build_fragments(
     rng: np.random.Generator | None = None,
 ) -> list[Fragment]:
     """Load + preprocess records, expand balanced augmented copies, window into fragments."""
-    if ecg:
-        raise NotImplementedError(FUSION)
     df = read_split(csv_path, subset, fold)
     col = label_column(df)
     patients = [str(p) for p in df["patient"]]
@@ -86,11 +98,12 @@ def build_fragments(
         copy_counts = np.full(len(labels), max(augment_num, 0), dtype=np.int64)
     cfg = augment_config or AugmentConfig()
 
+    kind = "PCG+ECG" if ecg else "PCG"
     fragments: list[Fragment] = []
     stream = progress(zip(patients, labels, copy_counts),
-                      desc=f"Loading CinC PCG [{subset}]", total=len(patients))
+                      desc=f"Loading CinC {kind} [{subset}]", total=len(patients))
     for patient, label, copies in stream:
-        base = _preprocessed(data_dir, patient, fs_out)
+        base = _preprocessed(data_dir, patient, fs_out, ecg)
         if base is None:
             continue
         for tag, wave in _variants(base, int(copies), fs_out, cfg, rng):

@@ -1,15 +1,17 @@
-"""CinC single-channel PCG classifier runner (port of ``experiments/cinc.py``).
+"""CinC single-channel PCG / ECG and Training-A PCG+ECG classifier runner (port of
+``experiments/cinc.py``).
 
-:func:`run` is the JAX runner's ``mode="pcg"`` on both wires: build the train, valid and
-test fragments (host preprocessing, or raw low-rate windows preprocessed on the card),
-train a wav2vec2 classifier with :class:`..train.classifier.SupervisedTrainer` (on-device
-batch augmentation on the raw wire or with ``device_augment``), score the test split at
-fragment and patient level and append the record to ``results_json``.
-:func:`run_leave_out_db` trains on every CinC database but one and tests on that one.
-:func:`score` is the scoring half alone, on the raw wire. Both runners take the JAX
+:func:`run` is the JAX runner in every mode: build the train, valid and test fragments
+(host preprocessing, or, for ``mode="pcg"`` only, raw low-rate windows preprocessed on the
+card), train a wav2vec2 classifier with :class:`..train.classifier.SupervisedTrainer`
+(on-device batch augmentation on the raw wire or with ``device_augment``, mono PCG only),
+score the test split at fragment and patient level and append the record to
+``results_json``. ``mode="pcg"`` / ``"ecg"`` train one branch on channel 0 / 1;
+``mode="pcg_ecg"`` trains the PCG branch, then the ECG branch, then the two-branch fusion
+model (:mod:`..models.fusion`, the paper's ``big_rnn:2:wav2vec``) on ``[B, T, 2]``
+windows. :func:`run_leave_out_db` trains on every CinC database but one and tests on that
+one. :func:`score` is the scoring half alone, on the raw wire. Both runners take the JAX
 signatures plus ``device`` (default the card) and ``dtype`` (default bfloat16).
-
-The ECG modes (``"ecg"``, the fusion ``"pcg_ecg"``) come with the fusion slice.
 """
 
 from __future__ import annotations
@@ -22,10 +24,11 @@ import torch
 from ..augment.pipelines import AugmentConfig
 from ..augment.torchaug import augment_pcg_batch
 from ..config import WindowSpec
-from ..data.cinc import FUSION, build_fragments, build_raw_fragments
+from ..data.cinc import build_fragments, build_raw_fragments
 from ..data.fragments import FragmentDataset
 from ..models.build import build_classifier
 from ..models.classifier import ClassifierConfig
+from ..models.fusion import two_branch_pcg_ecg
 from ..signal.torchproc import preprocess_pcg
 from ..train.classifier import SupervisedTrainer
 from ..train.evaluate import dequant, evaluate, make_apply_fn
@@ -95,13 +98,12 @@ def run(
     valid_aug = (aug_num // 2) if (reference_train_rnn and augment) else 0
     window = WindowSpec(window_s=window_s)
     win_len = window.window_len(fs)
+    two_branch = mode == "pcg_ecg"
     load_ecg = mode in ("ecg", "pcg_ecg")
 
     raw_wire = wire == "raw"
     if raw_wire and load_ecg:
         raise ValueError("wire='raw' supports the mono 'pcg' mode only")
-    if mode != "pcg":
-        raise NotImplementedError(f"mode={mode!r}: {FUSION}")
     if mesh is not None:
         raise NotImplementedError("multi-card data parallelism is not ported yet")
     if raw_wire:
@@ -114,15 +116,18 @@ def run(
         if augment and not device_augment:
             device_augment = True   # raw mode's only augmentation path
     else:
-        # Under device augmentation the host copies are replaced, not stacked on.
-        host_aug_num = 0 if device_augment else aug_num
+        # Under device augmentation (mono PCG only) the host copies are replaced, not
+        # stacked on.
+        host_aug_num = 0 if (device_augment and not load_ecg) else aug_num
         frags = {
             "train": build_fragments(data_dir, csv_path, "train", fs_out=fs, window=window,
-                                     fold=fold, augment_num=host_aug_num, augment_config=cfg),
+                                     ecg=load_ecg, fold=fold, augment_num=host_aug_num,
+                                     augment_config=cfg),
             "valid": build_fragments(data_dir, csv_path, "valid", fs_out=fs, window=window,
-                                     fold=fold, augment_num=valid_aug, augment_config=cfg),
+                                     ecg=load_ecg, fold=fold, augment_num=valid_aug,
+                                     augment_config=cfg),
             "test": build_fragments(data_dir, csv_path, "test", fs_out=fs, window=window,
-                                    fold=fold),
+                                    ecg=load_ecg, fold=fold),
         }
 
     batch_transform = None
@@ -137,28 +142,52 @@ def run(
     loader_len = window.window_len(frag_fs)
     device_prep = _device_prep(fs_wire, fs, win_len, device) if raw_wire else None
 
-    bcfg = _branch_config(fs, random_init, encoder_config)
-    model = build_classifier(bcfg, seed=seed, device=device, dtype=dtype, train=True)
-    trainer = SupervisedTrainer(model, optimizer_name=optimizer, lr=lr, seed=seed,
-                                log_dir=log_dir, batch_transform=batch_transform,
-                                device_preprocess=device_prep)
-    train_ds = FragmentDataset(frags["train"], fs=frag_fs, channel=0)
-    valid_ds = FragmentDataset(frags["valid"], fs=frag_fs, channel=0)
-    trainer.fit(make_loader(train_ds, batch_size, True, seed, loader_len),
-                make_loader(valid_ds, batch_size, False, seed, loader_len),
-                train_epochs, max_batches, label=f"[{mode}]")
+    def branch(channel: int, label: str):
+        bcfg = _branch_config(fs, random_init, encoder_config)
+        model = build_classifier(bcfg, seed=seed, device=device, dtype=dtype, train=True)
+        valid_channel = 0 if not load_ecg else channel
+        train_ds = FragmentDataset(frags["train"], fs=frag_fs, channel=channel)
+        valid_ds = FragmentDataset(frags["valid"], fs=frag_fs, channel=valid_channel)
+        trainer = SupervisedTrainer(model, optimizer_name=optimizer, lr=lr,
+                                    classifier_config=bcfg, seed=seed, log_dir=log_dir,
+                                    batch_transform=None if load_ecg else batch_transform,
+                                    device_preprocess=device_prep)
+        trainer.fit(make_loader(train_ds, batch_size, True, seed, loader_len),
+                    make_loader(valid_ds, batch_size, False, seed, loader_len),
+                    train_epochs, max_batches, label=label)
+        return model
 
-    apply_fn = make_apply_fn(model)
+    if two_branch:
+        pcg_model = branch(0, "[1/3 PCG branch]")
+        ecg_model = branch(1, "[2/3 ECG branch]")
+        fusion = two_branch_pcg_ecg(pcg_model, ecg_model, seed=seed + 1)
+        trainer = SupervisedTrainer(fusion, optimizer_name=optimizer, lr=lr, seed=seed,
+                                    log_dir=log_dir)
+        train_ds = FragmentDataset(frags["train"], fs=fs, channel=-1)
+        valid_ds = FragmentDataset(frags["valid"], fs=fs, channel=-1)
+        trainer.fit(make_loader(train_ds, batch_size, True, seed, win_len),
+                    make_loader(valid_ds, batch_size, False, seed, win_len),
+                    train_epochs, max_batches, label="[3/3 fusion]")
+        test_ds = FragmentDataset(frags["test"], fs=fs, channel=-1)
+        apply_fn = make_apply_fn(fusion)
+        topology = "big_rnn:2:wav2vec"
+    else:
+        channel = 1 if mode == "ecg" else 0
+        model = branch(channel, f"[{mode}]")
+        test_ds = FragmentDataset(frags["test"], fs=frag_fs,
+                                  channel=channel if load_ecg else 0)
+        apply_fn = make_apply_fn(model)
+        topology = "wav2vec"
+
     if device_prep is not None:
         apply_fn = _prepped(apply_fn, device_prep)       # the test set is raw too
-    test_ds = FragmentDataset(frags["test"], fs=frag_fs, channel=0)
     metrics = evaluate(apply_fn, make_loader(test_ds, batch_size, False, seed, loader_len),
                        max_batches)
     record = {
         "mode": mode, "dataset": dataset, "fs": fs, "epochs": epochs,
         "train_epochs": train_epochs, "augment": augment, "augment_num": aug_num,
         "random_init": random_init, "reference_train_rnn": reference_train_rnn,
-        "topology": "wav2vec", "fold": fold, "run_label": run_label, "wire": wire,
+        "topology": topology, "fold": fold, "run_label": run_label, "wire": wire,
         **metrics,
     }
     append_result(results_json, record)

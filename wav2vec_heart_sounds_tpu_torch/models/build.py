@@ -1,4 +1,5 @@
-"""Construct a classifier on the meta device, allocate it on the target, init from a seed."""
+"""Construct a classifier on the meta device, allocate it on the target, init from a seed;
+and the two-branch PCG+ECG fusion model built from two such classifiers."""
 
 from __future__ import annotations
 
@@ -6,6 +7,7 @@ import torch
 
 from . import hf_port
 from .classifier import ClassifierConfig, Wav2VecClassifier
+from .fusion import EncoderFusion, two_branch_pcg_ecg
 from .wav2vec2 import init_parameters
 
 
@@ -43,3 +45,14 @@ def build_classifier(cfg: ClassifierConfig, seed: int = 0, device="cuda",
                 raise KeyError(f"checkpoint of {cfg.pretrained_name} does not fit the encoder: "
                                f"missing {missing}, unexpected {unexpected}")
     return model.train(train)
+
+
+def build_two_branch(pcg_cfg: ClassifierConfig, ecg_cfg: ClassifierConfig, seed: int = 0,
+                     num_classes: int = 2, device="cuda", dtype: torch.dtype = torch.float32,
+                     train: bool = False) -> EncoderFusion:
+    """A fresh (untrained) two-branch fusion model (the JAX package's ``build_two_branch``):
+    the PCG branch from ``seed``, the ECG branch from ``seed + 1``, the float32 fusion head
+    from ``seed + 2``; the branches are trained separately upstream in the runner."""
+    pcg = build_classifier(pcg_cfg, seed, device, dtype, train)
+    ecg = build_classifier(ecg_cfg, seed + 1, device, dtype, train)
+    return two_branch_pcg_ecg(pcg, ecg, num_classes, seed + 2)

@@ -70,15 +70,18 @@ class Wav2VecClassifier(nn.Module):
                             config.num_classes, dtype)
 
     def encode(self, x: torch.Tensor, train: bool = False,
-               generator: torch.Generator | None = None) -> torch.Tensor:
-        """Mean-pooled encoder features ``[B, hidden]`` (float32) for ``[B, T]`` or ``[B, T, C]``."""
+               generator: torch.Generator | None = None,
+               seed: int | None = None) -> torch.Tensor:
+        """Mean-pooled encoder features ``[B, hidden]`` (float32) for ``[B, T]`` or
+        ``[B, T, C]``; ``seed`` fixes the training step's dropout seed (the fusion model
+        shares one across its branches), else the encoder draws it from ``generator``."""
         if x.ndim == 3:
             x = x.transpose(1, 2)                                       # [B, C, T]
         if self.config.num_channels > 1:
             x = self.channel_mixer(x)
         elif x.ndim == 3:
             x = x[:, 0, :] if x.shape[1] == 1 else x.mean(dim=1)
-        return self.encoder(x, train, generator).mean(dim=1).float()
+        return self.encoder(x, train, generator, seed).mean(dim=1).float()
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:

@@ -1,10 +1,11 @@
 """The JAX package's flax parameter tree (as numpy) <-> this port's state dict.
 
-A flax tree of ``Wav2Vec2Model`` (top key ``feature_encoder``) or of ``Wav2VecClassifier``
-(top keys ``encoder``, ``head`` and, for a multichannel classifier, ``channel_mixer``) maps
-leaf by leaf to the port's keys: dense kernels ``[in, out]`` transpose to
-``weight [out, in]``, conv kernels ``[k, in, out]`` to ``weight [out, in, k]``, norm
-``scale`` becomes ``weight``, LoRA ``lora_a``/``lora_b`` keep their flax layout, and the
+A flax tree of ``Wav2Vec2Model`` (top key ``feature_encoder``), of ``Wav2VecClassifier``
+(top keys ``encoder``, ``head`` and, for a multichannel classifier, ``channel_mixer``) or of
+the fusion model ``EncoderFusion`` (top keys ``head`` and ``branch_0``, ``branch_1``, ...,
+each a classifier tree) maps leaf by leaf to the port's keys: dense kernels ``[in, out]``
+transpose to ``weight [out, in]``, conv kernels ``[k, in, out]`` to ``weight [out, in, k]``,
+norm ``scale`` becomes ``weight``, LoRA ``lora_a``/``lora_b`` keep their flax layout, and the
 delay predictor's attention kernels (``[32, 4, 8]`` for query/key/value, ``[4, 8, 32]``
 for out, biases ``[4, 8]``) flatten to ``[32, 32]`` linears. :func:`to_jax` is the exact
 inverse (it takes each leaf's shape from ``params_like``). The tree is plain nested dicts
@@ -83,17 +84,28 @@ def _mixer_layout(mixer: dict) -> list[tuple[tuple[str, ...], str, str]]:
     return out + _dense(jp + ("output_proj",), f"{tp}.output_proj")
 
 
+def _head_layout(head: dict) -> list[tuple[tuple[str, ...], str, str]]:
+    """An MLP head: ``dense_0`` ... then ``logits``."""
+    names = [f"dense_{i}" for i in range(_count(head, "dense_"))] + ["logits"]
+    return [m for name in names for m in _dense(("head", name), f"head.{name}")]
+
+
 def layout(params: dict) -> list[tuple[tuple[str, ...], str, str]]:
-    """Leaf mapping for a flax encoder or classifier tree."""
+    """Leaf mapping for a flax encoder, classifier or fusion tree."""
+    if "branch_0" in params:
+        out = []
+        for i in range(_count(params, "branch_")):
+            name = f"branch_{i}"
+            out += [((name,) + p, f"{name}.{k}", t) for p, k, t in layout(params[name])]
+        return out + _head_layout(params["head"])
     if "encoder" not in params:
         return _enc_layout(_count(params["feature_encoder"], "conv_"), _count(params, "layers_"),
                            _has_lora(params))
-    enc, head = params["encoder"], params["head"]
+    enc = params["encoder"]
     out = [(("encoder",) + p, "encoder." + k, t)
            for p, k, t in _enc_layout(_count(enc["feature_encoder"], "conv_"),
                                       _count(enc, "layers_"), _has_lora(enc))]
-    for name in [f"dense_{i}" for i in range(_count(head, "dense_"))] + ["logits"]:
-        out += _dense(("head", name), f"head.{name}")
+    out += _head_layout(params["head"])
     if "channel_mixer" in params:
         out += _mixer_layout(params["channel_mixer"])
     return out

@@ -2,7 +2,14 @@
 
 wav2vec2-base: a 7-layer strided conv feature encoder (GroupNorm on conv_0), the feature
 projection, a weight-normed grouped positional conv (materialised at load), and 12
-post-norm encoder layers whose attention is the packed-QKV kernel.
+post-norm encoder layers. By default the attention is the packed-QKV kernel (K3b, one
+``[D, 3D]`` projection); ``Wav2Vec2Config.qkv_fuse=False`` (the JAX package's
+``W2VHS_NO_QKVFUSE=1``) takes the unpacked route: three products and the unpacked kernel
+(K3a) on head views of them. ``Wav2Vec2Config.conv_fuse=True`` (the JAX package's
+``W2VHS_CONVFUSE=1``) runs each conv layer that JAX's gate picks (:func:`conv_fuse_layers`:
+k = 3, s = 2, 128-multiple channels, at least 4096 output frames; conv_1 of wav2vec2-base
+on 4 s at 16 kHz) as K8, the fused ``gelu(conv)`` kernel (:mod:`..ops.kernels.conv`),
+whose GELU is the erf form in every dtype. Both fields leave the parameters as they are.
 
 Parameter names follow HF's ``Wav2Vec2Model`` state-dict keys, so an HF checkpoint loads
 nearly as-is (:mod:`.hf_port`). The compute dtype is the caller's choice: matmul and conv
@@ -44,6 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels import attention as _attention
+from ..ops.kernels.conv import conv_gelu
 from ..ops.kernels.dropout import dropout
 from ..ops.kernels.ffn import dense_gelu_dropout
 from ..ops.kernels.megakernel import ffn_block
@@ -92,6 +100,11 @@ class Wav2Vec2Config:
     # Training FFN sublayer: K4 (True, the JAX package's default W2VHS_FFN_MEGA=1) or the
     # decomposed K5 + output_dense + K2 route (False, the A/B control).
     ffn_mega: bool = True
+    # Attention: the packed-QKV route, K3b (True, the JAX default), or three products and
+    # the unpacked kernel, K3a (False, the JAX package's W2VHS_NO_QKVFUSE=1).
+    qkv_fuse: bool = True
+    # The conv layers of conv_fuse_layers as K8, gelu(conv) fused (the JAX W2VHS_CONVFUSE=1).
+    conv_fuse: bool = False
 
     @classmethod
     def tiny(cls, **kw) -> "Wav2Vec2Config":
@@ -153,8 +166,27 @@ class ChannelGroupNorm(nn.Module):
             + self.bias[None, :, None].to(self.dtype)
 
 
+def conv_fuse_layers(cfg: Wav2Vec2Config, num_samples: int) -> list[bool]:
+    """Which conv layers run as K8 on a ``num_samples`` waveform: the JAX package's
+    ``fused`` rule (``wav2vec2.py:454-458``): ``conv_fuse`` and k = 3, s = 2, both channel
+    counts multiples of 128 and at least 4096 real output frames."""
+    cin = (1,) + cfg.conv_dim[:-1]
+    fused, n = [], num_samples
+    for ci, co, k, s in zip(cin, cfg.conv_dim, cfg.conv_kernel, cfg.conv_stride):
+        n = (n - k) // s + 1
+        fused.append(cfg.conv_fuse and k == 3 and s == 2 and ci % 128 == 0 and co % 128 == 0
+                     and n >= 4096)
+    return fused
+
+
+def step_seed(generator: torch.Generator | None) -> int:
+    """A training step's dropout seed, drawn from ``generator`` (a CPU generator)."""
+    return int(torch.randint(0, 2 ** 32, (1,), generator=generator))
+
+
 class ConvLayer(nn.Module):
-    """``gelu(norm?(conv(x)))`` on ``[B, C, T]``: one layer of the feature encoder."""
+    """``gelu(norm?(conv(x)))`` on ``[B, C, T]``: one layer of the feature encoder; with
+    ``fused`` (a layer without norm) K8's ``gelu(conv(x))`` with the erf GELU."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int, group_norm: bool,
                  eps: float, dtype: torch.dtype):
@@ -162,7 +194,9 @@ class ConvLayer(nn.Module):
         self.conv = nn.Conv1d(cin, cout, kernel, stride=stride, bias=False, dtype=dtype)
         self.layer_norm = ChannelGroupNorm(cout, eps, dtype) if group_norm else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, fused: bool = False) -> torch.Tensor:
+        if fused:
+            return conv_gelu(x, self.conv.weight)
         h = self.conv(x)
         if self.layer_norm is not None:
             h = self.layer_norm(h)
@@ -175,7 +209,7 @@ class FeatureEncoder(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype):
         super().__init__()
         cin = (1,) + cfg.conv_dim[:-1]
-        self.dtype = dtype
+        self.cfg, self.dtype = cfg, dtype
         self.conv_layers = nn.ModuleList(
             ConvLayer(ci, co, k, s, i == 0, cfg.layer_norm_eps, dtype)
             for i, (ci, co, k, s) in enumerate(zip(cin, cfg.conv_dim, cfg.conv_kernel,
@@ -183,8 +217,8 @@ class FeatureEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x[:, None, :].to(self.dtype)
-        for layer in self.conv_layers:
-            h = layer(h)
+        for layer, fused in zip(self.conv_layers, conv_fuse_layers(self.cfg, x.shape[1])):
+            h = layer(h, fused)
         return h
 
 
@@ -217,8 +251,10 @@ class PositionalConvEmbedding(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    """Packed-QKV self-attention: one ``[D, 3D]`` projection (plus the LoRA bypasses of q
-    and v), the attention kernel on the ``[B, 3H, T, d]`` heads, then ``out_proj``."""
+    """Self-attention, then ``out_proj``. Packed (``qkv_fuse``, K3b): one ``[D, 3D]``
+    projection plus the LoRA bypasses of q and v, the kernel on the ``[B, 3H, T, d]`` heads.
+    Unpacked (K3a, the JAX package's bhtd route, ``wav2vec2.py:695-729``): three products,
+    the bypasses added to q and v, the kernel on their ``[B, H, T, d]`` head views."""
 
     def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype,
                  lora_sites: tuple[int, int] = (0, 0)):
@@ -244,6 +280,8 @@ class SelfAttention(nn.Module):
     def forward(self, x: torch.Tensor, seed: int | None = None, site: int = 0,
                 rate: float = 0.0) -> torch.Tensor:
         """Eval with ``seed=None``; else training attention with dropout ``rate``."""
+        if not self.cfg.qkv_fuse:
+            return self._unpacked(x, seed, site, rate)
         B, T, D = x.shape
         H = self.num_heads
         projs = (self.q_proj, self.k_proj, self.v_proj)
@@ -259,6 +297,21 @@ class SelfAttention(nn.Module):
             out = _attention.flash_attention_qkv(qkv, T)                # [B, H, T, d]
         else:
             out = _attention.attention_qkv_train(qkv, T, rate, seed, site)
+        return self.out_proj(out.transpose(1, 2).reshape(B, T, D))
+
+    def _unpacked(self, x: torch.Tensor, seed: int | None, site: int,
+                  rate: float) -> torch.Tensor:
+        B, T, D = x.shape
+        q, k, v = (F.linear(x, p.weight, p.bias) for p in (self.q_proj, self.k_proj,
+                                                           self.v_proj))
+        if self.cfg.lora_rank > 0:
+            q = q + self._bypass(x, self.q_proj, seed, self.lora_sites[0])
+            v = v + self._bypass(x, self.v_proj, seed, self.lora_sites[1])
+        q, k, v = (z.view(B, T, self.num_heads, -1).transpose(1, 2) for z in (q, k, v))
+        if seed is None:
+            out = _attention.flash_attention(q, k, v, T)                 # [B, H, T, d]
+        else:
+            out = _attention.attention_train(q, k, v, T, rate, seed, site)
         return self.out_proj(out.transpose(1, 2).reshape(B, T, D))
 
 
@@ -339,15 +392,17 @@ class Wav2Vec2Model(nn.Module):
         self.masked_spec_embed = nn.Parameter(torch.zeros(cfg.hidden_size))
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        """``train=True`` draws the step's dropout seed, then the SpecAugment spans, from
-        ``generator`` (a CPU ``torch.Generator``; ``None`` takes torch's default)."""
+                generator: torch.Generator | None = None,
+                seed: int | None = None) -> torch.Tensor:
+        """``train=True`` draws the step's dropout seed (unless ``seed`` gives it), then the
+        SpecAugment spans, from ``generator`` (a CPU ``torch.Generator``; ``None`` takes
+        torch's default)."""
         h = self.feature_extractor(x).transpose(1, 2)                   # [B, T', C]
         h = self.feature_projection(h)
         if not train:
             return self.encoder(h)
         cfg = self.config
-        seed = int(torch.randint(0, 2 ** 32, (1,), generator=generator))
+        seed = step_seed(generator) if seed is None else seed
         h = dropout(h, seed, SITE_FEATURE_PROJECTION, cfg.feat_proj_dropout)
         if cfg.mask_time_prob > 0:
             mask = sample_time_mask(generator, h.shape[0], h.shape[1], cfg.mask_time_prob,
