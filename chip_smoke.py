@@ -19,7 +19,10 @@ Phases, each of which exits non-zero on failure:
 5. the training kernels against their plain versions at the training shapes
    (``[96*199, 768]``, ``[96*199, 3072]``, ``[96, 36, 199, 64]``), bfloat16 and float32,
    dropout rate 0.1: ``csrc/philox.cuh`` against the plain Philox bits, every mask bit for
-   bit, every output and gradient at a stated tolerance, CUDA-event timings (median of 20)
+   bit (the attention's decoded in bfloat16 and float32), every output and gradient at a
+   stated tolerance; K3b on the head view of a ``[B, T, 3H, d]`` projection (the encoder's
+   layout) equal bit for bit to the contiguous packed tensor, its backward equal to a
+   second run of itself, timed on both layouts; CUDA-event timings (median of 20)
    beside each kernel's bound and, where one PyTorch call computes the same function, that
    call's time; then K4 (``csrc/ffn_mega.cu``, the FFN sublayer) the same way, both masks
    checked bit for bit through the zero patterns of the backward's ``h`` and ``dhid``, and
@@ -27,7 +30,8 @@ Phases, each of which exits non-zero on failure:
 6. one full-width float32 training step (B=8, dropout and SpecAugment on) from one state
    and one seed, the kernels (K4 on) against all-plain versions: loss and per-parameter
    gradient norms agree, and each kernel ran its exact count of launches in the forward and
-   in the backward; then the bfloat16 K4 route against the decomposed K5 route;
+   in the backward; then the bfloat16 K4 route against the decomposed K5 route (distances
+   to the float32 step averaged over four step seeds);
 7. the training path: ``SupervisedTrainer.fit`` of a full-width bfloat16 classifier at B=96
    on seeded synthetic raw 2 kHz windows (int16 wire, preprocessing on the card), one
    epoch of 4 steps and a validation epoch, on the K4 route and on the K5 control: finite
@@ -53,7 +57,9 @@ Phases, each of which exits non-zero on failure:
    float32, rate 0.1 and 0, t = 199 and 150: masks decoded bit for bit, values and
    gradients against the plain version at K3b's bars, and output, lse and gradients equal
    to K3b's on the packed tensor of the same q, k, v bit for bit; timed beside its bound
-   and ``scaled_dot_product_attention`` on the same views;
+   and ``scaled_dot_product_attention`` on the same views; then both routes at the vest's
+   T = 25 and fusion's T = 51 (t = T and T - 4), bit for bit each other and a second
+   backward run, against the plain version;
 14. K8, the fused conv + erf GELU (``csrc/conv_gelu.cu``), at conv_1's shapes
    (``[96, 512, 12799]`` -> 6399 frames, bfloat16; float32 at B = 8): out, pre, dx and dW
    against the plain version, timed beside its bound and cuDNN ``conv1d`` + ``gelu``;
@@ -110,6 +116,7 @@ KV_HEADS, KV_DIM = 4, 8
 CONV_C, CONV_T = 512, 12799
 # Fusion configuration (bench.py's run_fusion_bench): two branches, 4 s at 4125 Hz, B=64.
 FUSION_BATCH, FUSION_FS = 64, 4125
+FUSION_FRAMES = 51                      # wav2vec2-base frames of 4 s at 4125 Hz (16500 samples)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -437,14 +444,16 @@ def identical(name: str, got: torch.Tensor, ref: torch.Tensor) -> None:
     print(f"[train-kernel] {name}: bit-identical ({got.numel()} elements)")
 
 
-def attention_masks(seed: int, site: int,
-                    unpacked: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """The keep masks [B, H, T, T] the attention kernels applied, decoded exactly (float32):
-    K3b's on the packed tensor, or with ``unpacked`` K3a's on its three head ranges.
+def attention_masks(seed: int, site: int, unpacked: bool = False,
+                    dtype: torch.dtype = torch.float32) -> tuple[torch.Tensor, torch.Tensor]:
+    """The keep masks [B, H, T, T] the attention kernels applied, decoded exactly: K3b's on
+    the packed tensor, or with ``unpacked`` K3a's on its three head ranges, in ``dtype``.
 
     With q = k = 0 every probability is 1/T. Forward: v_k = 2^(k div 64) e_(k mod 64), so
     out[q, j] * T / scale = sum_b keep[q, j + 64 b] 2^b, an integer below 16. Backward:
     do_q = 2^(q div 64) e_(q mod 64) decodes keep[j + 64 b, k] from dv[k, j] the same way.
+    The codes are exact in bfloat16 too: zeros and powers of two in, and an integer below 16
+    times one rounded factor out (2^-8 relative), which rounds back to the integer.
     """
     from wav2vec_heart_sounds_tpu_torch.ops import philox
     from wav2vec_heart_sounds_tpu_torch.ops.kernels import attention
@@ -452,10 +461,10 @@ def attention_masks(seed: int, site: int,
     B = TRAIN_BATCH
     pos = torch.arange(T, device="cuda")
     code_of_pos = (2.0 ** (pos // D)).float()
-    qkv = torch.zeros(B, 3 * H, T, D, device="cuda")
-    qkv[:, 2 * H:, pos, pos % D] = code_of_pos
-    dout = torch.zeros(B, H, T, D, device="cuda")
-    dout[:, :, pos, pos % D] = code_of_pos
+    qkv = torch.zeros(B, 3 * H, T, D, device="cuda", dtype=dtype)
+    qkv[:, 2 * H:, pos, pos % D] = code_of_pos.to(dtype)
+    dout = torch.zeros(B, H, T, D, device="cuda", dtype=dtype)
+    dout[:, :, pos, pos % D] = code_of_pos.to(dtype)
     args = (T, RATE, seed, site)
     if unpacked:
         q, k, v = qkv[:, :H], qkv[:, H:2 * H], qkv[:, 2 * H:]
@@ -467,7 +476,7 @@ def attention_masks(seed: int, site: int,
     scale = philox.keep_scale(RATE)
 
     def decode(a):                     # [B, H, rows, D] codes -> [B, H, rows, T] bits
-        code = torch.round(a * T / scale).to(torch.int64)
+        code = torch.round(a.float() * T / scale).to(torch.int64)
         return torch.cat([((code >> b) & 1).bool()[..., :min(D, T - D * b)]
                           for b in range(-(-T // D))], dim=-1)
 
@@ -510,11 +519,13 @@ def phase_training_kernels() -> dict:
     n = ROWS * FFN
     identical(f"philox.cuh bits vs plain, {n} elements",
               dropout.philox_bits_kernel(n, seed, site, "cuda"), philox.bits(seed, site, n, "cuda"))
-    fwd_mask, bwd_mask = attention_masks(seed, site)
-    want = philox.keep_mask(seed, site, fwd_mask.shape, RATE, "cuda")
-    identical("attention_qkv_fwd mask (decoded) vs plain", fwd_mask, want)
-    identical("attention_qkv_bwd mask (decoded from dv) vs plain", bwd_mask, want)
-    del fwd_mask, bwd_mask, want
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = "bf16" if dtype == torch.bfloat16 else "f32"
+        fwd_mask, bwd_mask = attention_masks(seed, site, dtype=dtype)
+        want = philox.keep_mask(seed, site, fwd_mask.shape, RATE, "cuda")
+        identical(f"attention_qkv_fwd mask {dt} (decoded) vs plain", fwd_mask, want)
+        identical(f"attention_qkv_bwd mask {dt} (decoded from dv) vs plain", bwd_mask, want)
+        del fwd_mask, bwd_mask, want
 
     records = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -594,17 +605,27 @@ def phase_training_kernels() -> dict:
               lambda: ffn.ffn_act_bwd_reference(g, pre, *args), err, 3 * rows_f)
         del pre, g, ten, got, ref, x, ones
 
-        # K3b attention with dropout, [96, 36, 199, 64], then at t = 150 keys
-        qkv, dout = randn(TRAIN_BATCH, 3 * H, T, D), randn(TRAIN_BATCH, H, T, D)
+        # K3b attention with dropout, [96, 36, 199, 64], then at t = 150 keys: on the head
+        # view of a [B, T, 3H, d] projection (the encoder's layout, no copy), held bit for bit
+        # to the contiguous packed tensor of the same values and to a second run of itself
+        strided = randn(TRAIN_BATCH, T, 3 * H, D).transpose(1, 2)
+        qkv, dout = strided.contiguous(), randn(TRAIN_BATCH, H, T, D)
         for t in (T, 150):
             args = (t, RATE, seed, site)
-            out_k, lse_k = attention.attention_qkv_fwd(qkv, *args, with_lse=True)
-            out_p, lse_p = attention.attention_qkv_reference(qkv, *args, with_lse=True)
+            out_k, lse_k = attention.attention_qkv_fwd(strided, *args, with_lse=True)
+            out_c, lse_c = attention.attention_qkv_fwd(qkv, *args, with_lse=True)
+            identical(f"attention_qkv_fwd out {dt} t={t}, strided view vs contiguous", out_k, out_c)
+            identical(f"attention_qkv_fwd lse {dt} t={t}, strided view vs contiguous", lse_k, lse_c)
+            out_p, lse_p = attention.attention_qkv_reference(strided, *args, with_lse=True)
             err_f = agree(f"attention_qkv_fwd out {dt} t={t}", out_k, out_p, *elem)
             agree(f"attention_qkv_fwd lse {dt} t={t}", lse_k, lse_p, 1e-5, 1e-5)
-            err_b = agree(f"attention_qkv_bwd dqkv {dt} t={t}",
-                          attention.attention_qkv_bwd(qkv, out_p, dout, lse_p, *args),
-                          attention.attention_qkv_bwd_reference(qkv, out_p, dout, lse_p, *args),
+            dqkv = attention.attention_qkv_bwd(strided, out_p, dout, lse_p, *args)
+            identical(f"attention_qkv_bwd dqkv {dt} t={t}, two runs",
+                      attention.attention_qkv_bwd(strided, out_p, dout, lse_p, *args), dqkv)
+            identical(f"attention_qkv_bwd dqkv {dt} t={t}, strided view vs contiguous",
+                      attention.attention_qkv_bwd(qkv, out_p, dout, lse_p, *args), dqkv)
+            err_b = agree(f"attention_qkv_bwd dqkv {dt} t={t}", dqkv,
+                          attention.attention_qkv_bwd_reference(strided, out_p, dout, lse_p, *args),
                           *((2e-2, 2e-2) if bf16 else grad))
             if t == T:
                 errs = (err_f, err_b)
@@ -617,17 +638,24 @@ def phase_training_kernels() -> dict:
                                                   dropout_p=RATE)
 
         timed("attention_qkv_fwd",
-              lambda: attention.attention_qkv_fwd(qkv, *args, with_lse=True),
-              lambda: attention.attention_qkv_reference(qkv, *args, with_lse=True), errs[0],
-              *attn_fwd, library=lambda: sdpa(qkv))
-        leaf = qkv.detach().requires_grad_()
+              lambda: attention.attention_qkv_fwd(strided, *args, with_lse=True),
+              lambda: attention.attention_qkv_reference(strided, *args, with_lse=True), errs[0],
+              *attn_fwd, library=lambda: sdpa(strided))
+        rec["attention_qkv_fwd"]["contiguous_ms"] = cuda_ms(
+            lambda: attention.attention_qkv_fwd(qkv, *args, with_lse=True))
+        leaf = strided.detach().requires_grad_()
         lib_out = sdpa(leaf)
         timed("attention_qkv_bwd",
-              lambda: attention.attention_qkv_bwd(qkv, out_p, dout, lse_p, *args),
-              lambda: attention.attention_qkv_bwd_reference(qkv, out_p, dout, lse_p, *args),
+              lambda: attention.attention_qkv_bwd(strided, out_p, dout, lse_p, *args),
+              lambda: attention.attention_qkv_bwd_reference(strided, out_p, dout, lse_p, *args),
               errs[1], *attn_bwd,
               library=lambda: torch.autograd.grad(lib_out, leaf, dout, retain_graph=True))
-        del qkv, dout, out_k, out_p, lse_k, lse_p, leaf, lib_out
+        rec["attention_qkv_bwd"]["contiguous_ms"] = cuda_ms(
+            lambda: attention.attention_qkv_bwd(qkv, out_p, dout, lse_p, *args))
+        print(f"[train-kernel] attention_qkv {dt} on the contiguous [96, 36, 199, 64] tensor: "
+              f"fwd {rec['attention_qkv_fwd']['contiguous_ms']:.4f} ms, bwd "
+              f"{rec['attention_qkv_bwd']['contiguous_ms']:.4f} ms (CUDA events, median of 20)")
+        del qkv, strided, dout, out_k, out_c, out_p, lse_k, lse_c, lse_p, dqkv, leaf, lib_out
         torch.cuda.empty_cache()
         if bf16:
             records = rec
@@ -911,11 +939,13 @@ def phase_unpacked_attention() -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(31)
     seed, site = 1414213562, 11
-    fwd_mask, bwd_mask = attention_masks(seed, site, unpacked=True)
-    want = philox.keep_mask(seed, site, fwd_mask.shape, RATE, "cuda")
-    identical("attention_fwd (K3a) mask (decoded) vs plain", fwd_mask, want)
-    identical("attention_bwd (K3a) mask (decoded from dv) vs plain", bwd_mask, want)
-    del fwd_mask, bwd_mask, want
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = "bf16" if dtype == torch.bfloat16 else "f32"
+        fwd_mask, bwd_mask = attention_masks(seed, site, unpacked=True, dtype=dtype)
+        want = philox.keep_mask(seed, site, fwd_mask.shape, RATE, "cuda")
+        identical(f"attention_fwd (K3a) mask {dt} (decoded) vs plain", fwd_mask, want)
+        identical(f"attention_bwd (K3a) mask {dt} (decoded from dv) vs plain", bwd_mask, want)
+        del fwd_mask, bwd_mask, want
 
     records = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -973,7 +1003,46 @@ def phase_unpacked_attention() -> dict:
                                  "library_ms": lib_ms}
         del proj, q, k, v, dout, out_p, lse_p, leaves, lib_out
         torch.cuda.empty_cache()
+    for batch, frames in ((VEST_BATCH, VEST_FRAMES), (FUSION_BATCH, FUSION_FRAMES)):
+        attention_routes(gen, batch, frames, seed, site)
     return records
+
+
+def attention_routes(gen, batch: int, frames: int, seed: int, site: int) -> None:
+    """Both attention routes at the vest's (T = 25) or fusion's (T = 51) frames, bfloat16 and
+    float32, rate 0.1 and 0, t = T and t < T: K3a on head views of ``[B, T, H, d]``
+    projections and K3b on the head view of the ``[B, T, 3H, d]`` projection of the same
+    values equal bit for bit, the backward equal to a second run of itself, and both
+    against the plain version at phase 5's bars."""
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import attention
+
+    for dtype in (torch.bfloat16, torch.float32):
+        bf16 = dtype == torch.bfloat16
+        elem, grad = ((1e-2, 1e-2), (2e-2, 2e-2)) if bf16 else ((1e-5, 1e-5), (1e-4, 1e-4))
+        proj = torch.randn(batch, frames, 3 * H, D, device="cuda", generator=gen).to(dtype)
+        packed = proj.transpose(1, 2)
+        q, k, v = packed[:, :H], packed[:, H:2 * H], packed[:, 2 * H:]
+        dout = torch.randn(batch, H, frames, D, device="cuda", generator=gen).to(dtype)
+        for t in (frames, frames - 4):
+            for rate in (RATE, 0.0):
+                args = (t, rate, seed, site)
+                tag = f"{str(dtype)[6:]} [{batch}, {H}, {frames}, {D}] t={t} rate={rate}"
+                out_a, lse_a = attention.attention_fwd(q, k, v, *args, with_lse=True)
+                out_b, lse_b = attention.attention_qkv_fwd(packed, *args, with_lse=True)
+                identical(f"attention_fwd (K3a) vs K3b out {tag}", out_a, out_b)
+                identical(f"attention_fwd (K3a) vs K3b lse {tag}", lse_a, lse_b)
+                grads = torch.cat(attention.attention_bwd(q, k, v, out_b, dout, lse_b, *args), 1)
+                dqkv = attention.attention_qkv_bwd(packed, out_b, dout, lse_b, *args)
+                identical(f"attention_bwd (K3a) vs K3b dq, dk, dv {tag}", grads, dqkv)
+                identical(f"attention_qkv_bwd dqkv {tag}, two runs", dqkv,
+                          attention.attention_qkv_bwd(packed, out_b, dout, lse_b, *args))
+                out_p, lse_p = attention.attention_qkv_reference(packed, *args, with_lse=True)
+                agree(f"attention out {tag}", out_b, out_p, *elem)
+                agree(f"attention lse {tag}", lse_b, lse_p, 1e-5, 1e-5)
+                agree(f"attention dqkv {tag}", dqkv, attention.attention_qkv_bwd_reference(
+                    packed, out_b, dout, lse_b, *args), *grad)
+        del proj, packed, q, k, v, dout, out_a, out_b, grads, dqkv
+    torch.cuda.empty_cache()
 
 
 def phase_conv_kernel() -> dict:
@@ -1091,16 +1160,17 @@ def classifier_config(ffn_mega: bool = True, **routes):
                             encoder=Wav2Vec2Config(ffn_mega=ffn_mega, **routes))
 
 
-def train_step(model, x, y, per_step: dict | None):
-    """One training step from a fixed generator: (loss, gradient norm by trained
-    parameter, and ``"input"`` when ``x`` needs a gradient). With ``per_step``, each kernel
-    must launch exactly that often; without, none may launch."""
+def train_step(model, x, y, per_step: dict | None, step_seed: int = 5):
+    """One training step from a fixed generator (``step_seed``): (loss, gradient norm by
+    trained parameter, and ``"input"`` when ``x`` needs a gradient). With ``per_step``, each
+    kernel must launch exactly that often; without, none may launch."""
     from wav2vec_heart_sounds_tpu_torch.train.losses import cross_entropy
 
     model.zero_grad(set_to_none=True)
     x.grad = None
     reset_counts()
-    loss = cross_entropy(model(x, train=True, generator=torch.Generator().manual_seed(5)), y)
+    loss = cross_entropy(model(x, train=True, generator=torch.Generator().manual_seed(step_seed)),
+                         y)
     fwd = counts()
     loss.backward()
     torch.cuda.synchronize()
@@ -1122,10 +1192,14 @@ def worst_norm_gap(norms: dict, ref: dict, floor: float = 1e-6) -> float:
     return max(abs(norms[n] - ref[n]) / (ref[n] + floor * top) for n in ref)
 
 
+STEP_SEEDS = (5, 6, 7, 8)      # generator seeds of phase 6's steps (masks, SpecAugment spans)
+
+
 def phase_train_step() -> None:
     """Phase 6: one full-width training step (B=8, dropout and SpecAugment on). float32:
     the kernels (K4 on) against all-plain versions. bfloat16: the K4 route against the
-    decomposed K5 route, from the same state and seed (identical masks)."""
+    decomposed K5 route, from the same state and step seeds (identical masks), each route's
+    distance to the float32 step averaged over four step seeds."""
     from wav2vec_heart_sounds_tpu_torch.models.build import build_classifier
 
     B = 8
@@ -1146,6 +1220,9 @@ def phase_train_step() -> None:
     check(abs(loss_k - loss_p) <= 1e-4 * max(1.0, abs(loss_p)), "training-step losses differ")
     check(worst <= 1e-3, f"gradient norms differ between kernel and plain routes: {worst}")
     check(all(np.isfinite(v) and v > 0 for v in norms_k.values()), "a gradient is 0 or not finite")
+    # the float32 reference of the bf16 A/B below, at each of its step seeds
+    ref_steps = [(loss_k, norms_k)] + [train_step(model, x, y, PER_STEP, s)
+                                       for s in STEP_SEEDS[1:]]
     del model
 
     # bf16 A/B. Both routes draw the same masks and differ only where bf16 rounds (K4's own
@@ -1153,21 +1230,33 @@ def phase_train_step() -> None:
     # bf16 step's gradient norms are themselves far from float32: measured on the H100 at
     # B=8, each route's norms stray up to ~8-11% from the f32 step's (the worst are the key
     # biases, whose true gradient is 0, and the first layers), and the K5 route's kernels vs
-    # its own plain versions differ by up to 29%. So a direct K4-vs-K5 norm bar would test
-    # bf16 noise. The check: the loss within 1e-2 relative, and for every parameter, K4's
-    # distance to the f32 norm may exceed K5's by at most 5e-2 of the f32 norm (floored at
-    # 1e-4 of the largest).
+    # its own plain versions differ by up to 29%. Which route strays further in one step
+    # depends on the rounding of everything both share: with the same K4 and K5 kernels, the
+    # largest per-parameter excess read 8.9e-2, 7.3e-2 and 2.0e-2 under three attention
+    # implementations (PERF.md). So the distances are averaged over four step seeds
+    # (other dropout masks and SpecAugment spans, the same state and batch). The check: the
+    # loss within 1e-2 relative at every seed, and for every parameter, K4's mean distance to
+    # the f32 norm may exceed K5's by at most 5e-2 of the mean f32 norm (floored at 1e-4 of
+    # the largest).
     results = {}
     for mega, per_step in ((True, PER_STEP), (False, PER_STEP_SPLIT)):
         model = build_classifier(classifier_config(mega), seed=0, device="cuda",
                                  dtype=torch.bfloat16, train=True)
-        results[mega] = train_step(model, x, y, per_step)
+        results[mega] = [train_step(model, x, y, per_step, s) for s in STEP_SEEDS]
         del model
-    (loss_4, norms_4), (loss_5, norms_5) = results[True], results[False]
-    top = max(norms_k.values())
-    excess = max((abs(norms_4[n] - norms_k[n]) - abs(norms_5[n] - norms_k[n]))
-                 / (norms_k[n] + 1e-4 * top) for n in norms_k)
-    rel = abs(loss_4 - loss_5) / max(1.0, abs(loss_5))
+
+    def mean_distance(steps):
+        return {n: float(np.mean([abs(st[1][n] - ref[1][n]) for st, ref in zip(steps, ref_steps)]))
+                for n in norms_k}
+
+    ref_mean = {n: float(np.mean([ref[1][n] for ref in ref_steps])) for n in norms_k}
+    top = max(ref_mean.values())
+    dist_4, dist_5 = mean_distance(results[True]), mean_distance(results[False])
+    excess = max((dist_4[n] - dist_5[n]) / (ref_mean[n] + 1e-4 * top) for n in norms_k)
+    rel = max(abs(a[0] - b[0]) / max(1.0, abs(b[0])) for a, b in zip(results[True], results[False]))
+    (loss_4, norms_4), (loss_5, norms_5) = results[True][0], results[False][0]
+    one_seed = max((abs(norms_4[n] - norms_k[n]) - abs(norms_5[n] - norms_k[n]))
+                   / (norms_k[n] + 1e-4 * max(norms_k.values())) for n in norms_k)
 
     def global_error(norms):
         total = sum(v * v for v in norms.values()) ** 0.5
@@ -1175,12 +1264,14 @@ def phase_train_step() -> None:
         return abs(total - ref) / ref
 
     print(f"[train-step] wav2vec2-base bf16 B={B}, K4 route vs K5 route (same state, seed and "
-          f"masks): loss {loss_4:.6f} vs {loss_5:.6f} (relative {rel:.3e}, limit 1e-2; f32 "
-          f"{loss_k:.6f}); against the f32 step's gradient norms (floor 1e-4 of the largest), "
-          f"K4 worst {worst_norm_gap(norms_4, norms_k, 1e-4):.3e} and global "
+          f"masks): loss {loss_4:.6f} vs {loss_5:.6f} (largest relative difference over "
+          f"{len(STEP_SEEDS)} step seeds {rel:.3e}, limit 1e-2; f32 {loss_k:.6f}); at step "
+          f"seed {STEP_SEEDS[0]}, against the f32 step's gradient norms (floor 1e-4 of the "
+          f"largest), K4 worst {worst_norm_gap(norms_4, norms_k, 1e-4):.3e} and global "
           f"{global_error(norms_4):.3e}, K5 worst {worst_norm_gap(norms_5, norms_k, 1e-4):.3e} "
-          f"and global {global_error(norms_5):.3e}; K4's largest excess over K5 {excess:.3e} of "
-          f"the f32 norm (limit 5e-2); K4 vs K5 directly, worst "
+          f"and global {global_error(norms_5):.3e}, K4's largest excess over K5 {one_seed:.3e}; "
+          f"K4's largest excess over K5 in the mean distance over the seeds {excess:.3e} of "
+          f"the mean f32 norm (limit 5e-2); K4 vs K5 directly, worst "
           f"{worst_norm_gap(norms_4, norms_5, 1e-4):.3e}")
     check(rel <= 1e-2, "bf16 K4 and K5 routes: losses differ")
     check(excess <= 5e-2, f"bf16 K4 route's gradient norms stray further from f32 than K5's: "

@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
 """A short first check of the attention (K3a/K3b), conv + GELU (K8) and FFN (K4) kernels
-on one CUDA card: build them, run each once against its plain version, and time K8.
+on one CUDA card: build them, run each once against its plain version, and time them.
 
-    python3 scripts/torch_kernel_check.py
+    python3 scripts/torch_kernel_check.py [--attention]
 
 A minute of card time where ``chip_smoke.py`` takes several: for the first call after a
-kernel changes. Prints the ptxas register and spill lines of the four sources; K3a against
-K3b bit for bit and against the plain version at ``[96, 12, 199, 64]`` (bf16 and f32, rate
-0.1 and 0, t = 199 and 150); K8 against the plain version at small odd shapes and at
-conv_1's (``[8, 512, 12799]`` f32, ``[96, 512, 12799]`` bf16) with host-clock times (mean
-of 5, after a sync) beside cuDNN ``conv1d`` + ``gelu``; K4 at 400 rows. The last line is
-``ALL_OK`` or ``SOME_FAILED``.
+kernel changes. Prints the ptxas register and spill lines of the sources and the count of
+tensor-core instructions (``HMMA``, from ``cuobjdump -sass``) in each attention kernel;
+the attention masks decoded bit for bit against ``philox.keep_mask`` in bf16 and f32; K3a,
+K3b on the contiguous packed tensor and K3b on the head view of a ``[B, T, 3H, d]``
+projection equal bit for bit, and the backward equal to itself run twice, at
+``[96, 12, 199, 64]``, ``[64, 12, 51, 64]`` and ``[16, 12, 25, 64]`` (bf16 and f32, rate
+0.1 and 0, t = T and one t < T), each against the plain version; their times at the
+training shape beside ``scaled_dot_product_attention`` (CUDA events, median of 20). Without
+``--attention`` also K8 against the plain version at small odd shapes and at conv_1's
+(``[8, 512, 12799]`` f32, ``[96, 512, 12799]`` bf16) with host-clock times beside cuDNN
+``conv1d`` + ``gelu``, and K4 at 400 rows. The last line is ``ALL_OK`` or ``SOME_FAILED``.
 """
 
 from __future__ import annotations
 
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -24,6 +30,8 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+import chip_smoke  # noqa: E402
+from wav2vec_heart_sounds_tpu_torch.ops import philox  # noqa: E402
 from wav2vec_heart_sounds_tpu_torch.ops.kernels import attention as A  # noqa: E402
 from wav2vec_heart_sounds_tpu_torch.ops.kernels import build  # noqa: E402
 from wav2vec_heart_sounds_tpu_torch.ops.kernels import conv as C  # noqa: E402
@@ -54,32 +62,105 @@ def host_ms(fn, runs: int = 5) -> float:
     return (time.perf_counter() - t0) / runs * 1e3
 
 
+def cuda_ms(fn, runs: int = 20) -> float:
+    """Median milliseconds of ``fn()`` over ``runs`` launches, CUDA events, after warm-up."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[runs // 2]
+
+
 def check_attention(gen):
-    B, H, T, D = 96, 12, 199, 64
+    H, D = 12, 64
     for dtype in (torch.bfloat16, torch.float32):
-        bf16 = dtype == torch.bfloat16
-        proj = [torch.randn(B, T, H, D, device="cuda", generator=gen).to(dtype) for _ in range(3)]
-        views = [p.transpose(1, 2) for p in proj]
-        packed = torch.cat(views, dim=1).contiguous()
-        dout = torch.randn(B, H, T, D, device="cuda", generator=gen).to(dtype)
-        for t in (T, 150):
-            for rate in (0.1, 0.0):
-                args = (t, rate, 7, 3)
-                tag = f"{dtype} t={t} rate={rate}"
-                out_a, lse_a = A.attention_fwd(*views, *args, with_lse=True)
+        masks = chip_smoke.attention_masks(5, 6, dtype=dtype)
+        want = philox.keep_mask(5, 6, masks[0].shape, 0.1, "cuda")
+        same = torch.equal(masks[0], want) and torch.equal(masks[1], want)
+        if not same:
+            failures.append(f"K3b masks {dtype}")
+        print(f"K3b masks decoded bit for bit, {dtype}: {same}")
+        del masks, want
+    for B, T in ((96, 199), (64, 51), (16, 25)):
+        for dtype in (torch.bfloat16, torch.float32):
+            bf16 = dtype == torch.bfloat16
+            proj = [torch.randn(B, T, H, D, device="cuda", generator=gen).to(dtype)
+                    for _ in range(3)]
+            views = [p.transpose(1, 2) for p in proj]
+            packed = torch.cat(views, dim=1).contiguous()
+            strided = torch.cat(proj, dim=2).transpose(1, 2)       # head view of [B, T, 3H, d]
+            dout = torch.randn(B, H, T, D, device="cuda", generator=gen).to(dtype)
+            for t in sorted({T, 150 if T == 199 else T - 4}):
+                for rate in (0.1, 0.0):
+                    args = (t, rate, 7, 3)
+                    tag = f"{dtype} [{B}, {H}, {T}] t={t} rate={rate}"
+                    out_a, lse_a = A.attention_fwd(*views, *args, with_lse=True)
+                    out_b, lse_b = A.attention_qkv_fwd(packed, *args, with_lse=True)
+                    out_s, lse_s = A.attention_qkv_fwd(strided, *args, with_lse=True)
+                    grads = A.attention_bwd(*views, out_b, dout, lse_b, *args)
+                    again = A.attention_bwd(*views, out_b, dout, lse_b, *args)
+                    d_b = A.attention_qkv_bwd(packed, out_b, dout, lse_b, *args)
+                    d_s = A.attention_qkv_bwd(strided, out_b, dout, lse_b, *args)
+                    same = (torch.equal(out_a, out_b) and torch.equal(lse_a, lse_b)
+                            and torch.equal(out_s, out_b) and torch.equal(lse_s, lse_b)
+                            and torch.equal(torch.cat(grads, 1), d_b) and torch.equal(d_s, d_b)
+                            and all(torch.equal(x, y) for x, y in zip(grads, again)))
+                    if not same:
+                        failures.append(f"K3a vs K3b vs strided vs repeat {tag}")
+                    print(f"K3a == K3b == strided K3b, backward repeats, bit for bit, {tag}: "
+                          f"{same}")
+                    out_p, lse_p = A.attention_reference(*views, *args, with_lse=True)
+                    report(f"  out vs plain {tag}", out_a, out_p,
+                           *((1e-2, 1e-2) if bf16 else (1e-5, 1e-5)))
+                    report(f"  lse vs plain {tag}", lse_a, lse_p, 1e-5, 1e-5)
+                    ref = A.attention_bwd_reference(*views, out_b, dout, lse_b, *args)
+                    for n, got, want in zip("qkv", grads, ref):
+                        report(f"  d{n} vs plain {tag}", got, want,
+                               *((2e-2, 2e-2) if bf16 else (1e-4, 1e-4)))
+            if T == 199:
+                args = (T, 0.1, 7, 3)
+                keys = torch.ones(B, 1, 1, T, dtype=torch.bool, device="cuda")
+                leaves = [x.detach().requires_grad_() for x in views]
+                lib = F.scaled_dot_product_attention(*leaves, attn_mask=keys, dropout_p=0.1)
                 out_b, lse_b = A.attention_qkv_fwd(packed, *args, with_lse=True)
-                grads = A.attention_bwd(*views, out_b, dout, lse_b, *args)
-                same = (torch.equal(out_a, out_b) and torch.equal(lse_a, lse_b) and torch.equal(
-                    torch.cat(grads, 1), A.attention_qkv_bwd(packed, out_b, dout, lse_b, *args)))
-                if not same:
-                    failures.append(f"K3a vs K3b {tag}")
-                print(f"K3a == K3b bit for bit, {tag}: {same}")
-                report(f"  K3a out vs plain {tag}", out_a, A.attention_reference(*views, *args),
-                       *((1e-2, 1e-2) if bf16 else (1e-5, 1e-5)))
-                ref = A.attention_bwd_reference(*views, out_b, dout, lse_b, *args)
-                for n, got, want in zip("qkv", grads, ref):
-                    report(f"  K3a d{n} vs plain {tag}", got, want,
-                           *((2e-2, 2e-2) if bf16 else (1e-4, 1e-4)))
+                fwd, bwd = A.attention_qkv_fwd, A.attention_qkv_bwd
+                for name, fn in (
+                        ("K3b fwd strided", lambda: fwd(strided, *args, with_lse=True)),
+                        ("K3b fwd packed", lambda: fwd(packed, *args, with_lse=True)),
+                        ("K3a fwd", lambda: A.attention_fwd(*views, *args, with_lse=True)),
+                        ("SDPA fwd", lambda: F.scaled_dot_product_attention(
+                            *views, attn_mask=keys, dropout_p=0.1)),
+                        ("K3b fwd eval", lambda: fwd(strided, T)),
+                        ("K3b bwd strided", lambda: bwd(strided, out_b, dout, lse_b, *args)),
+                        ("K3b bwd packed", lambda: bwd(packed, out_b, dout, lse_b, *args)),
+                        ("K3a bwd", lambda: A.attention_bwd(*views, out_b, dout, lse_b, *args)),
+                        ("SDPA autograd bwd", lambda: torch.autograd.grad(lib, leaves, dout,
+                                                                          retain_graph=True))):
+                    print(f"  {name} {dtype} [{B}, {H}, {T}, {D}]: {cuda_ms(fn):.4f} ms "
+                          f"(CUDA events, median of 20)")
+            del proj, views, packed, strided, dout
+            torch.cuda.empty_cache()
+
+
+def tensor_core_counts(name: str) -> list[tuple[str, int]]:
+    """(kernel, number of HMMA instructions) in the built library of ``csrc/<name>.cu``."""
+    cuobjdump = Path(build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build._target(name))],
+                          capture_output=True, text=True, check=True).stdout
+    rows, kernel = [], None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = line.split("Function :", 1)[1].strip()
+            rows.append([kernel, 0])
+        elif kernel is not None and "HMMA" in line:
+            rows[-1][1] += 1
+    return [(k, n) for k, n in rows]
 
 
 def check_conv(gen):
@@ -131,17 +212,22 @@ def main() -> None:
         raise SystemExit("needs a CUDA card")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    sources = SOURCES[:2] if "--attention" in sys.argv else SOURCES
     t0 = time.perf_counter()
-    build.load_libraries(*SOURCES)
-    print(f"build of {len(SOURCES)} sources: {time.perf_counter() - t0:.1f} s")
-    for name in SOURCES:
+    build.load_libraries(*sources)
+    print(f"build of {len(sources)} sources: {time.perf_counter() - t0:.1f} s")
+    for name in sources:
         for line in build.build_logs.get(name, "").splitlines():
             if "Function properties" in line or "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    for name in SOURCES[:2]:
+        for kernel, count in tensor_core_counts(name):
+            print(f"  {name}: {kernel}: {count} HMMA")
     gen = torch.Generator(device="cuda").manual_seed(0)
     check_attention(gen)
-    check_conv(gen)
-    check_ffn(gen)
+    if "--attention" not in sys.argv:
+        check_conv(gen)
+        check_ffn(gen)
     print("SOME_FAILED: " + ", ".join(failures) if failures else "ALL_OK")
     if failures:
         raise SystemExit(1)

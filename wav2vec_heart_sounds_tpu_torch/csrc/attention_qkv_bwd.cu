@@ -6,11 +6,12 @@
 // q, k, v, the forward's output o, the output cotangent do and the forward's row
 // log-sum-exp lse ([B, H, T] float32, contiguous), it writes dq, dk and dv. Every one of
 // these eight tensors is a [B, H, T, d] view given by its base pointer and element strides
-// over (b, h, t), d contiguous: the three thirds of one packed [B, 3H, T, d] tensor and of
-// one packed gradient (K3b), or separate tensors and head views of [B, T, H, d] ones (K3a).
-// With p the probabilities recomputed as exp(q.k * scale - lse) (keys >= t_keys masked),
-// keep the Philox mask the forward drew at index ((b*H + h)*T + q)*T + k (philox.cuh,
-// whatever the strides) and c the dropout scale 1 / (1 - rate):
+// over (b, h, t), d contiguous, rows 16-byte aligned: the thirds of one packed tensor and of
+// one packed gradient (K3b, contiguous [B, 3H, T, d] or the head view of [B, T, 3H, d]), or
+// separate tensors and head views of [B, T, H, d] ones (K3a). With p the probabilities
+// recomputed as exp(q.k * scale - lse) (keys >= t_keys masked), keep the Philox mask the
+// forward drew at index ((b*H + h)*T + q)*T + k (philox.cuh, whatever the strides) and c
+// the dropout scale 1 / (1 - rate):
 //
 //     dv_k = sum_q keep c p_qk do_q            dp_qk = keep ? c (do_q . v_k) : 0
 //     D_q  = do_q . o_q  (= sum_k dp_qk p_qk, since o is the dropped output)
@@ -19,17 +20,26 @@
 //
 // the FlashAttention-2 backward: nothing of size T x T is stored, and no mask either.
 //
-// What bounds it on this card: at T ~ 199, d = 64 the work per (b, h) is ~35 MFLOP of
-// float32 SIMT arithmetic on ~130 KB, so it is bound by the FMA pipes and shared-memory
-// traffic, not by HBM. Two kernels, neither with atomics (so every run, and the comparison
-// with the plain version, reproduces):
-//   * dq: grid (b*h, 16-query tiles), as the forward: K/V tiles of 64 keys staged in shared
-//     memory as float32; each warp owns 4 query rows, each lane one key per 32 for the
-//     score and dp steps (float4 reads from padded rows) and d / 32 columns of dq (ds
-//     broadcast by warp shuffle). It also writes D = rowsum(do * o) for the second kernel.
-//   * dk/dv: grid (b*h, 16-key tiles), the same scheme with queries and keys exchanged:
-//     Q/dO tiles of 64 queries staged, each warp owns 4 keys.
-// No wgmma or TMA yet: the first version is the simple one that is right.
+// What bounds it on this card: at T ~ 199, d = 64, B = 96 the five score-shaped products
+// are 29 GFLOP (0.030 ms of bf16 tensor-core time) against 236 MB (0.070 ms): bound by
+// bytes, as long as the products run on the tensor cores and the two regenerations of the
+// mask (one per kernel) stay cheap. Two kernels, neither with atomics, so every run, and
+// K3a against K3b, reproduces bit for bit:
+//   * dq: one block per (b*h, 64 queries), 4 warps of 16 query rows, K/V tiles of 64 keys
+//     through a cp.async double buffer (bf16 in padded shared memory, never converted). Per
+//     32-key half: S = Q K^T and dP = dO V^T on mma.sync, ds in registers, rounded to bf16
+//     as the A fragments of dq += ds K (K by ldmatrix.trans). It also writes
+//     D = rowsum(do * o) for the second kernel.
+//   * dk/dv: one block per (b*h, 64 keys), 4 warps of 16 key rows, Q/dO tiles of 64 queries
+//     (and their lse and D) double-buffered. With keys as rows, S^T = K Q^T and
+//     dP^T = V dO^T leave P^T and dS^T in registers as the A fragments of dV = P^T dO and
+//     dK = dS^T Q, with dO and Q read by ldmatrix.trans.
+//   * The mask costs one Philox call per ~3.5 elements in each kernel: a lane draws a run of
+//     consecutive keys (32 of one query row in dq; 16 of one query column in dk/dv) and the
+//     owners take their bits by shuffle (attention_tile.cuh).
+//   * float32 runs the same bodies with the products as FMAs into the same layout.
+// A fused one-kernel backward would draw the mask once, but needs dq partials per key
+// tile reduced in a fixed order; the split keeps each output written by one block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -37,348 +47,307 @@
 
 #include <cstdint>
 
-#include "gelu.cuh"
-#include "philox.cuh"
+#include "attention_tile.cuh"
 
 namespace {
 
-using w2v::store;
+using namespace w2v::attn;
 using w2v::to_float;
 
-constexpr int kWarps = 4;
-constexpr int kRowsPerWarp = 4;
-constexpr int kTile = kWarps * kRowsPerWarp;     // rows a block owns (queries or keys)
-constexpr int kThreads = kWarps * 32;
-constexpr int kStage = 64;                       // rows per staged tile of the other side
-constexpr int kPerLane = kStage / 32;
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// Element strides of a [B, H, T, d] view over (b, h, t); d is contiguous.
-struct View {
-  long long b, h, t;
-};
+constexpr int kHalf = kTile / 2;          // columns of one score-shaped product
 
 // The views of one call, in the order of the C entry's strides.
 struct Views {
   View q, k, v, o, dout, dq, dk, dv;
 };
 
-__device__ __forceinline__ bool kept(uint32_t seed, uint32_t site, uint32_t thr, int bh,
-                                     int seq, int q, int k) {
-  if (!thr) return true;
-  const unsigned long long index =
-      (static_cast<unsigned long long>(bh) * seq + q) * seq + k;
-  return w2v::philox_bits(seed, site, index) >= thr;
+template <int NT>
+__device__ __forceinline__ void zero(float (&a)[NT][4]) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[n][i] = 0.f;
 }
 
-// float4 dot product accumulated into acc.
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+template <typename T>
+constexpr int dq_smem_bytes() {
+  return 6 * Tile<T>::ELEMS * static_cast<int>(sizeof(T)) +
+         p_buffer_floats<T, kHalf>() * static_cast<int>(sizeof(float));
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+template <typename T>
+constexpr int dkdv_smem_bytes() {
+  return 6 * Tile<T>::ELEMS * static_cast<int>(sizeof(T)) +
+         (4 * kTile + p_buffer_floats<T, kHalf>()) * static_cast<int>(sizeof(float));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, min_blocks<T>())
 attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ o,
                         const T* __restrict__ dout, const float* __restrict__ lse,
                         float* __restrict__ dsum, T* __restrict__ dq, Views vw, int heads,
                         int seq, int t_keys, float scale, uint32_t seed, uint32_t site,
                         uint32_t thr, float drop_scale) {
-  constexpr int DPL = D / 32;
-  constexpr int KS = D + 4;
-  __shared__ __align__(16) float q_s[kTile][D];
-  __shared__ __align__(16) float do_s[kTile][D];
-  __shared__ __align__(16) float k_s[kStage][KS];
-  __shared__ __align__(16) float v_s[kStage][KS];
+  constexpr int S = Tile<T>::S;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* q_s = reinterpret_cast<T*>(smem);
+  T* do_s = q_s + Tile<T>::ELEMS;
+  T* kv_s = do_s + Tile<T>::ELEMS;                         // [stage][K, V]
+  float* p_s = reinterpret_cast<float*>(kv_s + 4 * Tile<T>::ELEMS);
 
   const int bh = blockIdx.x;
   const int b = bh / heads, h = bh - (bh / heads) * heads;
-  const int q0 = blockIdx.y * kTile;
+  const int q0 = blockIdx.y * kRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = warp * kRowsPerWarp;
-  const T* q_g = q + b * vw.q.b + h * vw.q.h;
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+  const int wrow = q0 + warp * 16;
+  const bool active = wrow < seq;
   const T* k_g = k + b * vw.k.b + h * vw.k.h;
   const T* v_g = v + b * vw.v.b + h * vw.v.h;
-  const T* o_g = o + b * vw.o.b + h * vw.o.h;
-  const T* do_g = dout + b * vw.dout.b + h * vw.dout.h;
-  T* dq_g = dq + b * vw.dq.b + h * vw.dq.h;
+  float* pbuf = p_s + warp * 16 * (kHalf + 4);
 
-  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
-    const int r = e / D, c = e - (e / D) * D;
-    const int row = q0 + r;
-    const bool ok = row < seq;
-    q_s[r][c] = ok ? to_float(q_g[row * vw.q.t + c]) : 0.f;
-    do_s[r][c] = ok ? to_float(do_g[row * vw.dout.t + c]) : 0.f;
-  }
+  stage(q_s, q + b * vw.q.b + h * vw.q.h, vw.q.t, q0, seq);
+  stage(do_s, dout + b * vw.dout.b + h * vw.dout.h, vw.dout.t, q0, seq);
+  w2v::cp_async_commit();
+  stage(kv_s, k_g, vw.k.t, 0, t_keys);
+  stage(kv_s + Tile<T>::ELEMS, v_g, vw.v.t, 0, t_keys);
+  w2v::cp_async_commit();
+  w2v::cp_async_wait<1>();
   __syncthreads();
 
-  float lse_r[kRowsPerWarp], d_r[kRowsPerWarp], acc[kRowsPerWarp][DPL];
-#pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int row = q0 + row0 + rr;
+  // D = rowsum(do * o): lane L takes row L >> 1, columns 32 (L & 1) .. + 31.
+  float d_r[2] = {0.f, 0.f}, lse_r[2] = {0.f, 0.f};
+  if (active) {
+    const int r = lane >> 1, c0 = 32 * (lane & 1);
+    const int row = wrow + r;
     float part = 0.f;
     if (row < seq) {
+      const T* o_row = o + b * vw.o.b + h * vw.o.h + row * vw.o.t + c0;
+      const T* do_row = do_s + (warp * 16 + r) * S + c0;
+      constexpr int E = 16 / static_cast<int>(sizeof(T));
 #pragma unroll
-      for (int i = 0; i < DPL; ++i)
-        part = fmaf(to_float(o_g[row * vw.o.t + lane + 32 * i]),
-                    do_s[row0 + rr][lane + 32 * i], part);
+      for (int c = 0; c < 32; c += E) {                    // 16-byte loads of o
+        const uint4 chunk = *reinterpret_cast<const uint4*>(o_row + c);
+        const T* oc = reinterpret_cast<const T*>(&chunk);
+#pragma unroll
+        for (int e = 0; e < E; ++e) part = fmaf(to_float(oc[e]), to_float(do_row[c + e]), part);
+      }
     }
-    d_r[rr] = warp_sum(part);
-    lse_r[rr] = row < seq ? lse[static_cast<size_t>(bh) * seq + row] : 0.f;
-    if (row < seq && lane == 0) dsum[static_cast<size_t>(bh) * seq + row] = d_r[rr];
+    part += __shfl_xor_sync(kFull, part, 1);
+    if ((lane & 1) == 0 && row < seq) dsum[static_cast<size_t>(bh) * seq + row] = part;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[rr][i] = 0.f;
+    for (int i = 0; i < 2; ++i) {
+      d_r[i] = __shfl_sync(kFull, part, 2 * (g + 8 * i));
+      const int rr = wrow + g + 8 * i;
+      lse_r[i] = rr < seq ? lse[static_cast<size_t>(bh) * seq + rr] : 0.f;
+    }
   }
 
-  for (int k0 = 0; k0 < t_keys; k0 += kStage) {
-    __syncthreads();   // the previous tile is consumed
-    for (int e = threadIdx.x; e < kStage * D; e += kThreads) {
-      const int r = e / D, c = e - (e / D) * D;
-      const int key = k0 + r;
-      const bool ok = key < t_keys;
-      k_s[r][c] = ok ? to_float(k_g[key * vw.k.t + c]) : 0.f;
-      v_s[r][c] = ok ? to_float(v_g[key * vw.v.t + c]) : 0.f;
+  float acc[8][4];
+  zero(acc);
+  const int tiles = (t_keys + kTile - 1) / kTile;
+  for (int it = 0; it < tiles; ++it) {
+    const int k0 = it * kTile;
+    if (it + 1 < tiles) {
+      T* next = kv_s + ((it + 1) & 1) * 2 * Tile<T>::ELEMS;
+      stage(next, k_g, vw.k.t, k0 + kTile, t_keys);
+      stage(next + Tile<T>::ELEMS, v_g, vw.v.t, k0 + kTile, t_keys);
+      w2v::cp_async_commit();
+      w2v::cp_async_wait<1>();
+    } else {
+      w2v::cp_async_wait<0>();
     }
     __syncthreads();
-
-    // Scores and do . v: lane owns keys j*32 + lane of the tile, for all 4 rows at once.
-    float s[kRowsPerWarp][kPerLane], dp[kRowsPerWarp][kPerLane];
+    const T* k_t = kv_s + (it & 1) * 2 * Tile<T>::ELEMS;
+    const T* v_t = k_t + Tile<T>::ELEMS;
+    if (active) {
+      const uint32_t runs =
+          thr ? draw_row_runs(seed, site, thr,
+                              (static_cast<unsigned long long>(bh) * seq + wrow) * seq + k0,
+                              seq, lane)
+              : kFull;
+#pragma unroll 1                           // rolled: fewer registers and spills
+      for (int half = 0; half < 2; ++half) {
+        const int c0 = half * kHalf;
+        if (k0 + c0 >= t_keys) break;            // the ragged last tile's empty half
+        float s[4][4], dp[4][4];
+        zero(s);
+        zero(dp);
+        mma_abt<4>(s, q_s + warp * 16 * S, k_t + c0 * S, lane);
+        mma_abt<4>(dp, do_s + warp * 16 * S, v_t + c0 * S, lane);
+        uint32_t keep[2];
+        row_keep(runs, lane, half, keep);
+        // ds = p (dp - D), with dp dropped as the forward dropped p.
 #pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr)
+        for (int n = 0; n < 4; ++n)
 #pragma unroll
-      for (int j = 0; j < kPerLane; ++j) s[rr][j] = dp[rr][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; c += 4) {
-      float4 kv[kPerLane], vv[kPerLane];
-#pragma unroll
-      for (int j = 0; j < kPerLane; ++j) {
-        kv[j] = *reinterpret_cast<const float4*>(&k_s[j * 32 + lane][c]);
-        vv[j] = *reinterpret_cast<const float4*>(&v_s[j * 32 + lane][c]);
-      }
-#pragma unroll
-      for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-        const float4 qv = *reinterpret_cast<const float4*>(&q_s[row0 + rr][c]);
-        const float4 dv = *reinterpret_cast<const float4*>(&do_s[row0 + rr][c]);
-#pragma unroll
-        for (int j = 0; j < kPerLane; ++j) {
-          s[rr][j] = dot4(qv, kv[j], s[rr][j]);
-          dp[rr][j] = dot4(dv, vv[j], dp[rr][j]);
-        }
-      }
-    }
-
-    // ds = p (dp - D), with dp dropped as the forward dropped p.
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int row = q0 + row0 + rr;
-#pragma unroll
-      for (int j = 0; j < kPerLane; ++j) {
-        const int key = k0 + j * 32 + lane;
-        const bool valid = row < seq && key < t_keys;
-        const float p = valid ? expf(s[rr][j] * scale - lse_r[rr]) : 0.f;
-        const float dpv =
-            valid && kept(seed, site, thr, bh, seq, row, key) ? dp[rr][j] * drop_scale : 0.f;
-        s[rr][j] = p * (dpv - d_r[rr]);
+          for (int i = 0; i < 4; ++i) {
+            const int c = n * 8 + t2 + (i & 1);
+            const bool valid = k0 + c0 + c < t_keys;
+            const float p = valid ? expf(s[n][i] * scale - lse_r[i >> 1]) : 0.f;
+            const float dpv = (keep[i >> 1] >> c) & 1u ? dp[n][i] * drop_scale : 0.f;
+            s[n][i] = p * (dpv - d_r[i >> 1]);
+          }
+        mma_pv<kHalf>(acc, s, k_t + c0 * S, pbuf, lane);
       }
     }
-
-    // dq += ds k: lane owns columns lane + 32 i; ds arrives by shuffle from lane `src`.
-    // j is unrolled so s[rr][j] stays in registers.
-#pragma unroll
-    for (int j = 0; j < kPerLane; ++j) {
-#pragma unroll 8
-      for (int src = 0; src < 32; ++src) {
-        const int kr = j * 32 + src;
-        float kk[DPL];
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) kk[i] = k_s[kr][lane + 32 * i];
-#pragma unroll
-        for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-          const float ds = __shfl_sync(kFull, s[rr][j], src);
-#pragma unroll
-          for (int i = 0; i < DPL; ++i) acc[rr][i] = fmaf(ds, kk[i], acc[rr][i]);
-        }
-      }
-    }
+    __syncthreads();
   }
 
+  if (!active) return;
+  T* dq_g = dq + b * vw.dq.b + h * vw.dq.h;
 #pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int row = q0 + row0 + rr;
+  for (int r = 0; r < 2; ++r) {
+    const int row = wrow + g + 8 * r;
     if (row >= seq) continue;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i)
-      store(dq_g + row * vw.dq.t + lane + 32 * i, acc[rr][i] * scale);
+    for (int n = 0; n < 8; ++n)
+      store2(dq_g + row * vw.dq.t + n * 8 + t2, acc[n][2 * r] * scale,
+             acc[n][2 * r + 1] * scale);
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
+template <typename T>
+__global__ void __launch_bounds__(kThreads, min_blocks<T>())
 attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ dsum,
                           T* __restrict__ dk_out, T* __restrict__ dv_out, Views vw, int heads,
                           int seq, int t_keys, float scale, uint32_t seed, uint32_t site,
                           uint32_t thr, float drop_scale) {
-  constexpr int DPL = D / 32;
-  constexpr int QS = D + 4;
-  __shared__ __align__(16) float k_s[kTile][D];
-  __shared__ __align__(16) float v_s[kTile][D];
-  __shared__ __align__(16) float q_s[kStage][QS];
-  __shared__ __align__(16) float do_s[kStage][QS];
-  __shared__ float lse_s[kStage];
-  __shared__ float d_s[kStage];
+  constexpr int S = Tile<T>::S;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* k_s = reinterpret_cast<T*>(smem);
+  T* v_s = k_s + Tile<T>::ELEMS;
+  T* qdo_s = v_s + Tile<T>::ELEMS;                         // [stage][Q, dO]
+  float* lse_s = reinterpret_cast<float*>(qdo_s + 4 * Tile<T>::ELEMS);   // [stage][64]
+  float* d_s = lse_s + 2 * kTile;                                        // [stage][64]
+  float* p_s = d_s + 2 * kTile;
 
   const int bh = blockIdx.x;
   const int b = bh / heads, h = bh - (bh / heads) * heads;
-  const int key0 = blockIdx.y * kTile;
+  const int key0 = blockIdx.y * kRows;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row0 = warp * kRowsPerWarp;          // this warp's first key within the tile
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+  const int wkey = key0 + warp * 16;                       // the warp's first key
+  const bool active = wkey < seq;
   const T* q_g = q + b * vw.q.b + h * vw.q.h;
-  const T* k_g = k + b * vw.k.b + h * vw.k.h;
-  const T* v_g = v + b * vw.v.b + h * vw.v.h;
   const T* do_g = dout + b * vw.dout.b + h * vw.dout.h;
-  T* dk_g = dk_out + b * vw.dk.b + h * vw.dk.h;
-  T* dv_g = dv_out + b * vw.dv.b + h * vw.dv.h;
+  const float* lse_g = lse + static_cast<size_t>(bh) * seq;
+  const float* d_g = dsum + static_cast<size_t>(bh) * seq;
+  float* pbuf = p_s + warp * 16 * (kHalf + 4);
 
-  for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
-    const int r = e / D, c = e - (e / D) * D;
-    const int key = key0 + r;
-    const bool ok = key < t_keys;
-    k_s[r][c] = ok ? to_float(k_g[key * vw.k.t + c]) : 0.f;
-    v_s[r][c] = ok ? to_float(v_g[key * vw.v.t + c]) : 0.f;
-  }
-
-  float dk[kRowsPerWarp][DPL], dv[kRowsPerWarp][DPL];
-#pragma unroll
-  for (int kk = 0; kk < kRowsPerWarp; ++kk)
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) dk[kk][i] = dv[kk][i] = 0.f;
-
-  for (int q0 = 0; q0 < seq; q0 += kStage) {
-    __syncthreads();   // the previous tile is consumed (first pass: the key tile is staged)
-    for (int e = threadIdx.x; e < kStage * D; e += kThreads) {
-      const int r = e / D, c = e - (e / D) * D;
-      const int row = q0 + r;
-      const bool ok = row < seq;
-      q_s[r][c] = ok ? to_float(q_g[row * vw.q.t + c]) : 0.f;
-      do_s[r][c] = ok ? to_float(do_g[row * vw.dout.t + c]) : 0.f;
+  auto stage_queries = [&](int buf, int r0) {
+    T* dst = qdo_s + buf * 2 * Tile<T>::ELEMS;
+    stage(dst, q_g, vw.q.t, r0, seq);
+    stage(dst + Tile<T>::ELEMS, do_g, vw.dout.t, r0, seq);
+    w2v::cp_async_commit();
+    for (int r = threadIdx.x; r < kTile; r += kThreads) {
+      const bool ok = r0 + r < seq;
+      lse_s[buf * kTile + r] = ok ? lse_g[r0 + r] : 0.f;
+      d_s[buf * kTile + r] = ok ? d_g[r0 + r] : 0.f;
     }
-    for (int r = threadIdx.x; r < kStage; r += kThreads) {
-      const int row = q0 + r;
-      lse_s[r] = row < seq ? lse[static_cast<size_t>(bh) * seq + row] : 0.f;
-      d_s[r] = row < seq ? dsum[static_cast<size_t>(bh) * seq + row] : 0.f;
+  };
+
+  stage(k_s, k + b * vw.k.b + h * vw.k.h, vw.k.t, key0, t_keys);
+  stage(v_s, v + b * vw.v.b + h * vw.v.h, vw.v.t, key0, t_keys);
+  w2v::cp_async_commit();
+  stage_queries(0, 0);
+
+  float dk[8][4], dv[8][4];
+  zero(dk);
+  zero(dv);
+  const int tiles = (seq + kTile - 1) / kTile;
+  for (int it = 0; it < tiles; ++it) {
+    const int q0 = it * kTile, buf = it & 1;
+    if (it + 1 < tiles) {
+      stage_queries((it + 1) & 1, q0 + kTile);
+      w2v::cp_async_wait<1>();
+    } else {
+      w2v::cp_async_wait<0>();
     }
     __syncthreads();
-
-    // Scores and do . v: lane owns queries j*32 + lane of the tile, for all 4 keys at once.
-    float s[kRowsPerWarp][kPerLane], dp[kRowsPerWarp][kPerLane];
+    const T* q_t = qdo_s + buf * 2 * Tile<T>::ELEMS;
+    const T* do_t = q_t + Tile<T>::ELEMS;
+    if (active) {
+      const uint32_t runs =
+          thr ? draw_col_runs(seed, site, thr,
+                              (static_cast<unsigned long long>(bh) * seq + q0) * seq + wkey,
+                              seq, lane)
+              : kFull;
+#pragma unroll 1                           // rolled: fewer registers and spills
+      for (int half = 0; half < 2; ++half) {
+        const int c0 = half * kHalf;
+        if (q0 + c0 >= seq) break;               // the ragged last tile's empty half
+        float s[4][4], dp[4][4];                 // S^T and dP^T: keys as rows
+        zero(s);
+        zero(dp);
+        mma_abt<4>(s, k_s + warp * 16 * S, q_t + c0 * S, lane);
+        mma_abt<4>(dp, v_s + warp * 16 * S, do_t + c0 * S, lane);
+        // pd = the dropped p (for dv); ds = p (dp - D) (for dk).
 #pragma unroll
-    for (int kk = 0; kk < kRowsPerWarp; ++kk)
+        for (int n = 0; n < 4; ++n)
 #pragma unroll
-      for (int j = 0; j < kPerLane; ++j) s[kk][j] = dp[kk][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; c += 4) {
-      float4 qv[kPerLane], dov[kPerLane];
+          for (int e = 0; e < 2; ++e) {
+            const int c = n * 8 + t2 + e;
+            const uint32_t keep = col_keep(runs, c, half);
+            const float lse_c = lse_s[buf * kTile + c0 + c], d_c = d_s[buf * kTile + c0 + c];
+            const bool valid_q = q0 + c0 + c < seq;
 #pragma unroll
-      for (int j = 0; j < kPerLane; ++j) {
-        qv[j] = *reinterpret_cast<const float4*>(&q_s[j * 32 + lane][c]);
-        dov[j] = *reinterpret_cast<const float4*>(&do_s[j * 32 + lane][c]);
-      }
-#pragma unroll
-      for (int kk = 0; kk < kRowsPerWarp; ++kk) {
-        const float4 kv = *reinterpret_cast<const float4*>(&k_s[row0 + kk][c]);
-        const float4 vv = *reinterpret_cast<const float4*>(&v_s[row0 + kk][c]);
-#pragma unroll
-        for (int j = 0; j < kPerLane; ++j) {
-          s[kk][j] = dot4(qv[j], kv, s[kk][j]);
-          dp[kk][j] = dot4(dov[j], vv, dp[kk][j]);
-        }
-      }
-    }
-
-    // pd = the dropped p (for dv); ds = p (dp - D) (for dk).
-#pragma unroll
-    for (int kk = 0; kk < kRowsPerWarp; ++kk) {
-      const int key = key0 + row0 + kk;
-#pragma unroll
-      for (int j = 0; j < kPerLane; ++j) {
-        const int qr = j * 32 + lane;
-        const int row = q0 + qr;
-        const bool valid = row < seq && key < t_keys;
-        const float p = valid ? expf(s[kk][j] * scale - lse_s[qr]) : 0.f;
-        const bool keep = valid && kept(seed, site, thr, bh, seq, row, key);
-        s[kk][j] = keep ? p * drop_scale : 0.f;
-        dp[kk][j] = p * ((keep ? dp[kk][j] * drop_scale : 0.f) - d_s[qr]);
-      }
-    }
-
-    // dv += pd do, dk += ds q: lane owns columns lane + 32 i; pd and ds arrive by shuffle
-    // from lane `src` (j unrolled, so s and dp stay in registers).
-#pragma unroll
-    for (int j = 0; j < kPerLane; ++j) {
-#pragma unroll 8
-      for (int src = 0; src < 32; ++src) {
-        const int qr = j * 32 + src;
-        float dov[DPL], qv[DPL];
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-          dov[i] = do_s[qr][lane + 32 * i];
-          qv[i] = q_s[qr][lane + 32 * i];
-        }
-#pragma unroll
-        for (int kk = 0; kk < kRowsPerWarp; ++kk) {
-          const float pd = __shfl_sync(kFull, s[kk][j], src);
-          const float ds = __shfl_sync(kFull, dp[kk][j], src);
-#pragma unroll
-          for (int i = 0; i < DPL; ++i) {
-            dv[kk][i] = fmaf(pd, dov[i], dv[kk][i]);
-            dk[kk][i] = fmaf(ds, qv[i], dk[kk][i]);
+            for (int r = 0; r < 2; ++r) {
+              const int i = 2 * r + e;
+              const bool valid = valid_q && wkey + g + 8 * r < t_keys;
+              const float p = valid ? expf(s[n][i] * scale - lse_c) : 0.f;
+              const bool kept = (keep >> (g + 8 * r)) & 1u;
+              s[n][i] = kept ? p * drop_scale : 0.f;
+              dp[n][i] = p * ((kept ? dp[n][i] * drop_scale : 0.f) - d_c);
+            }
           }
-        }
+        mma_pv<kHalf>(dv, s, do_t + c0 * S, pbuf, lane);
+        mma_pv<kHalf>(dk, dp, q_t + c0 * S, pbuf, lane);
       }
     }
+    __syncthreads();
   }
 
+  if (!active) return;
+  T* dk_g = dk_out + b * vw.dk.b + h * vw.dk.h;
+  T* dv_g = dv_out + b * vw.dv.b + h * vw.dv.h;
 #pragma unroll
-  for (int kk = 0; kk < kRowsPerWarp; ++kk) {
-    const int key = key0 + row0 + kk;
-    if (key >= seq) continue;                  // keys in [t_keys, seq) get exact zeros
+  for (int r = 0; r < 2; ++r) {
+    const int key = wkey + g + 8 * r;
+    if (key >= seq) continue;                    // keys in [t_keys, seq) get exact zeros
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      store(dk_g + key * vw.dk.t + lane + 32 * i, dk[kk][i] * scale);
-      store(dv_g + key * vw.dv.t + lane + 32 * i, dv[kk][i]);
+    for (int n = 0; n < 8; ++n) {
+      store2(dk_g + key * vw.dk.t + n * 8 + t2, dk[n][2 * r] * scale, dk[n][2 * r + 1] * scale);
+      store2(dv_g + key * vw.dv.t + n * 8 + t2, dv[n][2 * r], dv[n][2 * r + 1]);
     }
   }
 }
-
-// wav2vec2-base's head width (768 hidden / 12 heads), the only one instantiated.
-constexpr int kHeadDim = 64;
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
            const void* lse, void* dsum, void* dq, void* dk, void* dv, const Views& vw,
            int batch, int heads, int seq, int t_keys, float scale, uint32_t seed, uint32_t site,
            uint32_t thr, float drop_scale, cudaStream_t stream) {
-  const dim3 grid(batch * heads, (seq + kTile - 1) / kTile);
+  static const cudaError_t set_dq = cudaFuncSetAttribute(  // above 48 KB, once per kernel
+      attention_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem_bytes<T>());
+  static const cudaError_t set_dkdv = cudaFuncSetAttribute(
+      attention_bwd_dkdv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dkdv_smem_bytes<T>());
+  if (set_dq != cudaSuccess) return static_cast<int>(set_dq);
+  if (set_dkdv != cudaSuccess) return static_cast<int>(set_dkdv);
+  const dim3 grid(batch * heads, (seq + kRows - 1) / kRows);
   const T *qp = static_cast<const T*>(q), *kp = static_cast<const T*>(k),
           *vp = static_cast<const T*>(v), *dop = static_cast<const T*>(dout);
-  attention_bwd_dq_kernel<T, kHeadDim><<<grid, kThreads, 0, stream>>>(
+  attention_bwd_dq_kernel<T><<<grid, kThreads, dq_smem_bytes<T>(), stream>>>(
       qp, kp, vp, static_cast<const T*>(o), dop, static_cast<const float*>(lse),
       static_cast<float*>(dsum), static_cast<T*>(dq), vw, heads, seq, t_keys, scale, seed, site,
       thr, drop_scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd_dkdv_kernel<T, kHeadDim><<<grid, kThreads, 0, stream>>>(
+  attention_bwd_dkdv_kernel<T><<<grid, kThreads, dkdv_smem_bytes<T>(), stream>>>(
       qp, kp, vp, dop, static_cast<const float*>(lse), static_cast<const float*>(dsum),
       static_cast<T*>(dk), static_cast<T*>(dv), vw, heads, seq, t_keys, scale, seed, site, thr,
       drop_scale);
@@ -399,8 +368,7 @@ extern "C" int attention_bwd(const void* q, const void* k, const void* v, const 
                              int head_dim, int t_keys, float scale, uint32_t seed,
                              uint32_t site, uint32_t thr, float drop_scale, int dtype,
                              void* stream) {
-  if (batch <= 0 || heads <= 0 || seq <= 0 || t_keys <= 0 || t_keys > seq ||
-      head_dim != kHeadDim)
+  if (batch <= 0 || heads <= 0 || seq <= 0 || t_keys <= 0 || t_keys > seq || head_dim != kD)
     return static_cast<int>(cudaErrorInvalidValue);
   View v8[8];
   for (int i = 0; i < 8; ++i)

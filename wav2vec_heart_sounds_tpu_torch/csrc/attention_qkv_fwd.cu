@@ -10,38 +10,38 @@
 //     out[b, h] = (keep ? p * scale : 0) v,   lse[b, h] = log-sum-exp of the scaled scores
 //
 // q, k, v and out are [B, H, T, d] views, each given by its base pointer and its element
-// strides over (b, h, t) (d contiguous), read and written in place: heads h, H + h and
-// 2H + h of one packed [B, 3H, T, d] tensor (K3b), three [B, H, T, d] tensors or the head
-// views of [B, T, H, d] projections (K3a), with no slice or transpose copies. Scores,
-// softmax and the PV sum are float32; out has the input dtype (float32 or bfloat16); lse
+// strides over (b, h, t) (d contiguous, rows 16-byte aligned), read and written in place:
+// the thirds of a packed [B, 3H, T, d] tensor or of the head view of a [B, T, 3H, d]
+// projection (K3b), or head views of [B, T, H, d] tensors (K3a), with no copies. Every
+// stride runs the same instructions, so K3a and K3b agree bit for bit. Scores, softmax and
+// the PV sum accumulate in float32; out has the input dtype (float32 or bfloat16); lse
 // (float32 [B, H, T], contiguous, written when its pointer is not null) is what the
 // backward (attention_qkv_bwd.cu) recomputes the probabilities from. Dropout drops the
 // normalised probabilities, as the JAX kernel (attention.py:125-131): the online softmax
 // accumulates the kept e * v while l sums every e, the algebraically identical deferred
 // form (:116-123). keep is Philox4x32-10 of (seed, site) at element index
-// ((b*H + h)*T + q)*T + k (philox.cuh), whatever the strides: the index the backward and
-// the plain versions use, so both routes draw the same masks; threshold 0 (rate 0, eval)
-// skips it.
+// ((b*H + h)*T + q)*T + k (philox.cuh), whatever the strides and the tiling; threshold 0
+// (rate 0, eval) skips it.
 //
-// What bounds it on this card: at wav2vec2-base's T ~ 199 and d = 64 one (b, h) pair is
-// ~5 MFLOP against 76 KB of q/k/v (bf16), far too little work per byte and per launch for
-// the tensor cores to matter; the kernel is bound by memory and latency (loads, shared
-// memory traffic, the softmax's reductions), not by FLOPs. The tiling answers that:
-//   * the grid is (b*h, query tiles of 16 rows), ~15k blocks at B=96, so every SM has many
-//     blocks in flight to hide load latency;
-//   * key/value tiles of 64 rows are staged once in shared memory as float32 and reused
-//     by all 16 query rows of the block; a block (38 KB) stays under the 48 KB static
-//     shared-memory limit, so several blocks share an SM;
-//   * one warp owns 4 query rows at once: in the score step each lane takes one key of
-//     the tile per 32 and reads K rows as float4 from a row padded to d + 4 floats (no
-//     bank conflicts), reusing each K load for the 4 rows; in the PV step each lane owns
-//     d / 32 output columns and the probabilities are broadcast with warp shuffles;
-//   * an online softmax (running max and sum per row) walks the key tiles, so any T and
-//     the ragged last tile need no padding, and the [T, T] probabilities never leave
-//     registers.
-// No wgmma or TMA yet: the first version is the simple one that is right. With dropout on,
-// each lane draws one Philox call per (row, key) it owns: about as many integer
-// operations again as the score step, paid only in training.
+// What bounds it on this card: at wav2vec2-base's T ~ 199 and d = 64 the bf16 products are
+// 11.7 GFLOP at B = 96 (0.012 ms on the tensor cores), the exponentials 45.6 M (~0.011 ms
+// on the special-function units) and the bytes 118 MB (0.035 ms): bound by bytes. With
+// dropout the mask is the largest arithmetic cost: one Philox4x32-10 call (~80 integer
+// instructions) per element would be ~0.25 ms. The design:
+//   * FlashAttention-2's structure on mma.sync (mma_tile.cuh, attention_tile.cuh): one
+//     block per (b*h, 64 queries), 4 warps of 16 query rows; K/V tiles of 64 keys staged
+//     as bf16 in padded shared memory through a cp.async double buffer (never converted);
+//     S = Q K^T with K as the "col" operand, the online softmax in the accumulator layout
+//     (row max and sum over the quad by shuffles, masked keys at -inf), and the kept
+//     probabilities rounded to bf16 in registers as the A fragments of P V, V read by
+//     ldmatrix.trans. 46 KB of shared memory and 128 registers keep four blocks an SM.
+//   * The mask: each lane draws one run of 32 consecutive keys of one row
+//     (philox_keep_run, 9 calls for 32 elements) and the owners take their bits by four
+//     shuffles a tile, ~1 call per 3.6 elements against 1 per element before.
+//   * float32 keeps this body with the products as FMAs into the same layout (exact f32,
+//     no TF32); its probabilities pass through a per-warp shared buffer.
+// No wgmma or TMA: at d = 64 and T ~ 199 the tensor-core work is a third of the bytes
+// bound, so mma.sync is not the limit; a later redesign may take them for the loads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,202 +49,164 @@
 
 #include <cstdint>
 
-#include "philox.cuh"
+#include "attention_tile.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kRowsPerWarp = 4;
-constexpr int kQueryTile = kWarps * kRowsPerWarp;   // query rows per block
-constexpr int kThreads = kWarps * 32;
-constexpr unsigned kFull = 0xffffffffu;
+using namespace w2v::attn;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-// Element strides of a [B, H, T, d] view over (b, h, t); d is contiguous.
-struct View {
-  long long b, h, t;
-};
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// kTrain = false is the eval instantiation (no dropout, no lse): exactly the rate-0 kernel
-// that came before training, so adding training costs eval nothing.
-template <typename T, int D, bool kTrain>
-__global__ void __launch_bounds__(kThreads)
+// kTrain = false is the eval instantiation (no dropout, no lse).
+template <typename T, bool kTrain>
+__global__ void __launch_bounds__(kThreads, min_blocks<T>())
 attention_fwd_kernel(const T* __restrict__ q, View qs, const T* __restrict__ k, View ks,
                      const T* __restrict__ v, View vs, T* __restrict__ out, View os,
                      float* __restrict__ lse, int heads, int seq, int t_keys, float scale,
                      uint32_t seed, uint32_t site, uint32_t thr, float drop_scale) {
-  constexpr int KT = 64;                  // keys per shared-memory tile
-  constexpr int KPL = KT / 32;            // keys per lane in the score step
-  constexpr int DPL = D / 32;             // output columns per lane in the PV step
-  constexpr int KS = D + 4;               // padded K row: float4 reads without conflicts
-  static_assert(D % 32 == 0, "head dim must be a multiple of 32");
-
-  __shared__ __align__(16) float q_s[kQueryTile][D];
-  __shared__ __align__(16) float k_s[KT][KS];
-  __shared__ __align__(16) float v_s[KT][D];
+  constexpr int S = Tile<T>::S;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* q_s = reinterpret_cast<T*>(smem);
+  T* kv_s = q_s + Tile<T>::ELEMS;                          // [stage][K, V]
+  float* p_s = reinterpret_cast<float*>(kv_s + 4 * Tile<T>::ELEMS);
 
   const int bh = blockIdx.x;
-  const int b = bh / heads;
-  const int h = bh - b * heads;
-  const int q0 = blockIdx.y * kQueryTile;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int row0 = warp * kRowsPerWarp;   // this warp's first row within the tile
-
-  const T* q_g = q + b * qs.b + h * qs.h;
+  const int b = bh / heads, h = bh - (bh / heads) * heads;
+  const int q0 = blockIdx.y * kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t2 = 2 * (lane & 3);
+  const int wrow = q0 + warp * 16;                         // the warp's first query
+  const bool active = wrow < seq;                          // warp-uniform
   const T* k_g = k + b * ks.b + h * ks.h;
   const T* v_g = v + b * vs.b + h * vs.h;
-  T* o_g = out + b * os.b + h * os.h;
+  float* pbuf = p_s + warp * 16 * (kTile + 4);
 
-  for (int e = threadIdx.x; e < kQueryTile * D; e += kThreads) {
-    const int r = e / D, c = e - (e / D) * D;
-    const int row = q0 + r;
-    q_s[r][c] = row < seq ? to_float(q_g[row * qs.t + c]) : 0.f;
-  }
+  stage(q_s, q + b * qs.b + h * qs.h, qs.t, q0, seq);
+  w2v::cp_async_commit();
+  stage(kv_s, k_g, ks.t, 0, t_keys);
+  stage(kv_s + Tile<T>::ELEMS, v_g, vs.t, 0, t_keys);
+  w2v::cp_async_commit();
 
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][DPL];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[8][4];
 #pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    m[rr] = -INFINITY;
-    l[rr] = 0.f;
+  for (int n = 0; n < 8; ++n)
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[rr][i] = 0.f;
-  }
+    for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
 
-  for (int k0 = 0; k0 < t_keys; k0 += KT) {
-    __syncthreads();   // the previous tile is consumed (first pass: q tile is staged)
-    for (int e = threadIdx.x; e < KT * D; e += kThreads) {
-      const int r = e / D, c = e - (e / D) * D;
-      const int key = k0 + r;
-      const bool ok = key < t_keys;
-      k_s[r][c] = ok ? to_float(k_g[key * ks.t + c]) : 0.f;
-      v_s[r][c] = ok ? to_float(v_g[key * vs.t + c]) : 0.f;
+  const int tiles = (t_keys + kTile - 1) / kTile;
+  for (int it = 0; it < tiles; ++it) {
+    const int k0 = it * kTile;
+    if (it + 1 < tiles) {
+      T* next = kv_s + ((it + 1) & 1) * 2 * Tile<T>::ELEMS;
+      stage(next, k_g, ks.t, k0 + kTile, t_keys);
+      stage(next + Tile<T>::ELEMS, v_g, vs.t, k0 + kTile, t_keys);
+      w2v::cp_async_commit();
+      w2v::cp_async_wait<1>();
+    } else {
+      w2v::cp_async_wait<0>();
     }
     __syncthreads();
+    const T* k_t = kv_s + (it & 1) * 2 * Tile<T>::ELEMS;
+    const T* v_t = k_t + Tile<T>::ELEMS;
+    if (active) {
+      float s[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
+      mma_abt<8>(s, q_s + warp * 16 * S, k_t, lane);
 
-    // Scores: lane owns keys j*32 + lane of the tile, for all 4 rows at once.
-    float s[kRowsPerWarp][KPL];
+      // Online softmax; a tile holds key k0 < t_keys, so its row max is finite.
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr)
+      for (int n = 0; n < 8; ++n)
 #pragma unroll
-      for (int j = 0; j < KPL; ++j) s[rr][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; c += 4) {
-      float4 kv[KPL];
-#pragma unroll
-      for (int j = 0; j < KPL; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(&k_s[j * 32 + lane][c]);
-#pragma unroll
-      for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-        const float4 qv = *reinterpret_cast<const float4*>(&q_s[row0 + rr][c]);
-#pragma unroll
-        for (int j = 0; j < KPL; ++j) {
-          float a = s[rr][j];
-          a = fmaf(qv.x, kv[j].x, a);
-          a = fmaf(qv.y, kv[j].y, a);
-          a = fmaf(qv.z, kv[j].z, a);
-          a = fmaf(qv.w, kv[j].w, a);
-          s[rr][j] = a;
+        for (int i = 0; i < 4; ++i) {
+          const bool ok = k0 + n * 8 + t2 + (i & 1) < t_keys;
+          s[n][i] = ok ? s[n][i] * scale : -INFINITY;
+          mx[i >> 1] = fmaxf(mx[i >> 1], s[n][i]);
         }
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        corr[r] = expf(m[r] - m_new);                      // 0 on the first tile (m = -inf)
+        m[r] = m_new;
+        l[r] *= corr[r];
       }
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          o[n][i] *= corr[i >> 1];
+          s[n][i] = expf(s[n][i] - m[i >> 1]);             // masked keys give exactly 0
+          l[i >> 1] += s[n][i];                            // l sums every e, kept or not
+        }
+      if (kTrain && thr) {                                 // PV takes only the kept e
+        const uint32_t runs = draw_row_runs(
+            seed, site, thr, (static_cast<unsigned long long>(bh) * seq + wrow) * seq + k0,
+            seq, lane);
+        uint32_t keep[2][2];
+        row_keep(runs, lane, 0, keep[0]);
+        row_keep(runs, lane, 1, keep[1]);
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (!((keep[n >> 2][i >> 1] >> ((n & 3) * 8 + t2 + (i & 1))) & 1u)) s[n][i] = 0.f;
+      }
+      mma_pv<kTile>(o, s, v_t, pbuf, lane);
     }
-
-    // Online softmax update. Key k0 < t_keys lies in this tile, so the tile max is finite.
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      float tile_max = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < KPL; ++j) {
-        const bool ok = k0 + j * 32 + lane < t_keys;
-        s[rr][j] = ok ? s[rr][j] * scale : -INFINITY;
-        tile_max = fmaxf(tile_max, s[rr][j]);
-      }
-      tile_max = warp_max(tile_max);
-      const float m_new = fmaxf(m[rr], tile_max);
-      const float corr = expf(m[rr] - m_new);   // 0 on the first tile (m = -inf)
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < KPL; ++j) {
-        s[rr][j] = expf(s[rr][j] - m_new);      // masked keys give exactly 0
-        psum += s[rr][j];
-      }
-      l[rr] = l[rr] * corr + warp_sum(psum);
-      m[rr] = m_new;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[rr][i] *= corr;
-      if (kTrain && thr) {                      // dropout: l keeps every e, PV only the kept
-        const unsigned long long row_index =
-            (static_cast<unsigned long long>(bh) * seq + q0 + row0 + rr) * seq + k0 + lane;
-#pragma unroll
-        for (int j = 0; j < KPL; ++j)
-          if (w2v::philox_bits(seed, site, row_index + j * 32) < thr) s[rr][j] = 0.f;
-      }
-    }
-
-    // PV: lane owns columns lane + 32 i; probabilities arrive by shuffle from their lane.
-#pragma unroll
-    for (int kr = 0; kr < KT; ++kr) {
-      float vv[DPL];
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) vv[i] = v_s[kr][lane + 32 * i];
-#pragma unroll
-      for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-        const float p = __shfl_sync(kFull, s[rr][kr / 32], kr % 32);
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[rr][i] = fmaf(p, vv[i], acc[rr][i]);
-      }
-    }
+    __syncthreads();                                       // the stage is free for reuse
   }
 
+  if (!active) return;
+  T* o_g = out + b * os.b + h * os.h;
 #pragma unroll
-  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-    const int row = q0 + row0 + rr;
+  for (int r = 0; r < 2; ++r) {
+    const int row = wrow + (lane >> 2) + 8 * r;
+    const float total = quad_sum(l[r]);
     if (row >= seq) continue;
-    const float inv = (kTrain ? drop_scale : 1.f) / l[rr];
-    if (kTrain && lse != nullptr && lane == 0)
-      lse[static_cast<size_t>(bh) * seq + row] = m[rr] + logf(l[rr]);
+    const float inv = (kTrain ? drop_scale : 1.f) / total;
+    if (kTrain && lse != nullptr && (lane & 3) == 0)
+      lse[static_cast<size_t>(bh) * seq + row] = m[r] + logf(total);
 #pragma unroll
-    for (int i = 0; i < DPL; ++i)
-      store(o_g + row * os.t + lane + 32 * i, acc[rr][i] * inv);
+    for (int n = 0; n < 8; ++n)
+      store2(o_g + row * os.t + n * 8 + t2, o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
   }
 }
 
-// wav2vec2-base's head width (768 hidden / 12 heads), the only one instantiated.
-constexpr int kHeadDim = 64;
+template <typename T>
+constexpr int smem_bytes() {
+  return 5 * Tile<T>::ELEMS * static_cast<int>(sizeof(T)) +
+         p_buffer_floats<T, kTile>() * static_cast<int>(sizeof(float));
+}
+
+template <typename T, bool kTrain>
+int launch_one(const dim3& grid, const T* q, const T* k, const T* v, T* out, float* lse,
+               const View* s, int heads, int seq, int t_keys, float scale, uint32_t seed,
+               uint32_t site, uint32_t thr, float drop_scale, cudaStream_t stream) {
+  static const cudaError_t set = cudaFuncSetAttribute(      // above 48 KB, once per kernel
+      attention_fwd_kernel<T, kTrain>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes<T>());
+  if (set != cudaSuccess) return static_cast<int>(set);
+  attention_fwd_kernel<T, kTrain><<<grid, kThreads, smem_bytes<T>(), stream>>>(
+      q, s[0], k, s[1], v, s[2], out, s[3], lse, heads, seq, t_keys, scale, seed, site, thr,
+      drop_scale);
+  return static_cast<int>(cudaGetLastError());
+}
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse, const View* s,
            int batch, int heads, int seq, int t_keys, float scale, uint32_t seed, uint32_t site,
            uint32_t thr, float drop_scale, cudaStream_t stream) {
-  const dim3 grid(batch * heads, (seq + kQueryTile - 1) / kQueryTile);
+  const dim3 grid(batch * heads, (seq + kRows - 1) / kRows);
   const T *qp = static_cast<const T*>(q), *kp = static_cast<const T*>(k),
           *vp = static_cast<const T*>(v);
   T* op = static_cast<T*>(out);
   if (lse == nullptr && thr == 0)
-    attention_fwd_kernel<T, kHeadDim, false><<<grid, kThreads, 0, stream>>>(
-        qp, s[0], kp, s[1], vp, s[2], op, s[3], nullptr, heads, seq, t_keys, scale, seed, site,
-        thr, drop_scale);
-  else
-    attention_fwd_kernel<T, kHeadDim, true><<<grid, kThreads, 0, stream>>>(
-        qp, s[0], kp, s[1], vp, s[2], op, s[3], static_cast<float*>(lse), heads, seq, t_keys,
-        scale, seed, site, thr, drop_scale);
-  return static_cast<int>(cudaGetLastError());
+    return launch_one<T, false>(grid, qp, kp, vp, op, nullptr, s, heads, seq, t_keys, scale,
+                                seed, site, thr, drop_scale, stream);
+  return launch_one<T, true>(grid, qp, kp, vp, op, static_cast<float*>(lse), s, heads, seq,
+                             t_keys, scale, seed, site, thr, drop_scale, stream);
 }
 
 }  // namespace
@@ -259,8 +221,7 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* 
                              int head_dim, int t_keys, float scale, uint32_t seed,
                              uint32_t site, uint32_t thr, float drop_scale, int dtype,
                              void* stream) {
-  if (batch <= 0 || heads <= 0 || seq <= 0 || t_keys <= 0 || t_keys > seq ||
-      head_dim != kHeadDim)
+  if (batch <= 0 || heads <= 0 || seq <= 0 || t_keys <= 0 || t_keys > seq || head_dim != kD)
     return static_cast<int>(cudaErrorInvalidValue);
   View s[4];
   for (int i = 0; i < 4; ++i) s[i] = View{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};

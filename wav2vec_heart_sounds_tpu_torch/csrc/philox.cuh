@@ -40,6 +40,33 @@ __device__ __forceinline__ uint4 philox_group(uint32_t seed, uint32_t site,
                        seed, site);
 }
 
+// The keep mask of N consecutive elements base .. base + N - 1 (N a multiple of 4, at most
+// 32): bit i is philox_bits(seed, site, base + i) >= thr. One Philox call per group the run
+// touches: N / 4 of them when base is a multiple of 4, N / 4 + 1 otherwise, so a lane that
+// owns a run pays one call per four elements (plus one for the misaligned end) where
+// philox_bits pays one per element. A kernel whose fragments hold scattered elements lets
+// each lane draw one run and hands the bits to their owners with warp shuffles.
+template <int N>
+__device__ __forceinline__ uint32_t philox_keep_run(uint32_t seed, uint32_t site,
+                                                    unsigned long long base, uint32_t thr) {
+  static_assert(N % 4 == 0 && N > 0 && N <= 32, "runs of 4 .. 32 elements");
+  const unsigned long long g0 = base >> 2;
+  const int a = static_cast<int>(base & 3);     // position of base within its group
+  uint32_t mask = 0;
+#pragma unroll
+  for (int s = 0; s <= N / 4; ++s) {
+    if (s == N / 4 && a == 0) break;            // an aligned run ends on a group boundary
+    const uint4 w = philox_group(seed, site, g0 + s);
+    const uint32_t keep = static_cast<uint32_t>(w.x >= thr) |
+                          static_cast<uint32_t>(w.y >= thr) << 1 |
+                          static_cast<uint32_t>(w.z >= thr) << 2 |
+                          static_cast<uint32_t>(w.w >= thr) << 3;
+    // word i of group s is element 4 s + i - a of the run
+    mask |= s == 0 ? keep >> a : keep << (4 * s - a);
+  }
+  return N == 32 ? mask : mask & ((1u << N) - 1u);
+}
+
 // The bits of one element.
 __device__ __forceinline__ uint32_t philox_bits(uint32_t seed, uint32_t site,
                                                 unsigned long long index) {

@@ -292,7 +292,7 @@ class SelfAttention(nn.Module):
             zq = self._bypass(x, self.q_proj, seed, self.lora_sites[0])
             zv = self._bypass(x, self.v_proj, seed, self.lora_sites[1])
             qkv = qkv + torch.cat([zq, torch.zeros_like(zq), zv], dim=-1)
-        qkv = qkv.view(B, T, 3 * H, D // H).transpose(1, 2).contiguous()
+        qkv = qkv.view(B, T, 3 * H, D // H).transpose(1, 2)            # a view, no copy
         if seed is None:
             out = _attention.flash_attention_qkv(qkv, T)                # [B, H, T, d]
         else:

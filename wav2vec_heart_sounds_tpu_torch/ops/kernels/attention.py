@@ -7,9 +7,12 @@ the encoder's default packed-QKV route) and ``flash_attention`` (K3a, the unpack
 exactly K3b's function, and both run one pair of CUDA kernel bodies
 (``csrc/attention_qkv_fwd.cu``, ``csrc/attention_qkv_bwd.cu``) that take every tensor as a
 base pointer and element strides over (b, h, t): K3b passes the three head ranges of one
-packed tensor, K3a three ``[B, H, T, d]`` views (the head views of the ``[B, T, D]``
-projections, no copies) and gets its output and gradients as head views of ``[B, T, H, d]``
-tensors, so the caller's ``[B, T, D]`` reshapes are free.
+packed tensor (the encoder's is the head view of its ``[B, T, 3H, d]`` projection, no
+copy), K3a three ``[B, H, T, d]`` views (the head views of the ``[B, T, D]`` projections);
+both get their output as the head view of a ``[B, T, H, d]`` tensor, so the caller's
+``[B, T, D]`` reshape is free, and their gradients in the strides of their inputs. The
+kernels stage rows with 16-byte copies: a view whose base or (b, h, t) byte strides are not
+multiples of 16 raises.
 
 Layouts are the JAX package's: K3b's input ``[B, 3H, T, d]`` with heads ``0..H-1`` = Q,
 ``H..2H-1`` = K, ``2H..3H-1`` = V; K3a's q, k, v ``[B, H, T, d]``; the output
@@ -105,8 +108,15 @@ def attention_qkv_bwd_reference(qkv, out, dout, lse, t: int | None = None, rate:
                      dim=1)
 
 
+def _aligned(x: torch.Tensor) -> bool:
+    """The kernels stage rows with 16-byte ``cp.async`` copies: the base pointer and the
+    (b, h, t) byte strides must be multiples of 16."""
+    return x.data_ptr() % 16 == 0 and all(s * x.element_size() % 16 == 0 for s in x.stride()[:3])
+
+
 def _check(name: str, t: int, *views: torch.Tensor) -> None:
-    """Every view is a CUDA ``[B, H, T, 64]`` tensor of one shape and dtype, d contiguous."""
+    """Every view is a CUDA ``[B, H, T, 64]`` tensor of one shape and dtype, d contiguous,
+    its rows 16-byte aligned."""
     first = views[0]
     if not first.is_cuda:
         raise ValueError(f"{name} needs CUDA tensors, got {first.device}")
@@ -121,6 +131,11 @@ def _check(name: str, t: int, *views: torch.Tensor) -> None:
                              f"on {first.device}, got {tuple(x.shape)} {x.dtype} on {x.device}")
         if x.stride(3) != 1:
             raise ValueError(f"{name}: the head dim of every view must be contiguous")
+        if not _aligned(x):
+            raise ValueError(f"{name}: every view needs a 16-byte aligned base and (b, h, t) "
+                             f"byte strides that are multiples of 16, got pointer "
+                             f"{x.data_ptr()} and strides {x.stride()} of "
+                             f"{x.element_size()}-byte elements")
     if not 1 <= t <= first.shape[2]:
         raise ValueError(f"key count t={t} outside [1, T={first.shape[2]}]")
 
@@ -165,16 +180,18 @@ def _lse_or_none(q: torch.Tensor, with_lse: bool):
 
 def attention_qkv_fwd(qkv: torch.Tensor, t: int | None = None, rate: float = 0.0,
                       seed: int = 0, site: int = 0, with_lse: bool = False):
-    """K3b: launch the forward kernel on the packed tensor's three head ranges, on the
-    current stream; counts launches in ``.launches``. Returns ``out`` (contiguous
-    ``[B, H, T, d]``), or ``(out, lse)`` with ``with_lse``."""
+    """K3b: launch the forward kernel on the packed tensor's three head ranges (any strides
+    the kernel takes: a contiguous ``[B, 3H, T, d]`` or the head view of a
+    ``[B, T, 3H, d]`` projection), on the current stream; counts launches in ``.launches``.
+    ``out`` is the head view of a ``[B, T, H, d]`` tensor, so the caller's ``[B, T, D]``
+    reshape is free; returns ``out``, or ``(out, lse)`` with ``with_lse``."""
     T = qkv.shape[2]
     t = T if t is None else int(t)
     if qkv.ndim != 4 or qkv.shape[1] % 3:
         raise ValueError(f"expected packed [B, 3H, T, d], got {tuple(qkv.shape)}")
     q, k, v = _split(qkv)
     _check("attention_qkv_fwd", t, q, k, v)
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    out = _heads_of_bthd(q)
     lse = _lse_or_none(q, with_lse)
     _launch_fwd("attention_qkv_fwd", q, k, v, out, lse, t, rate, seed, site)
     attention_qkv_fwd.launches += 1
@@ -184,7 +201,7 @@ def attention_qkv_fwd(qkv: torch.Tensor, t: int | None = None, rate: float = 0.0
 def attention_qkv_bwd(qkv, out, dout, lse, t: int | None = None, rate: float = 0.0,
                       seed: int = 0, site: int = 0) -> torch.Tensor:
     """K3b: launch the backward kernels on the current stream, writing the three head ranges
-    of one packed ``dqkv``; counts calls in ``.launches``."""
+    of one packed ``dqkv`` with the strides of ``qkv``; counts calls in ``.launches``."""
     T = qkv.shape[2]
     t = T if t is None else int(t)
     if qkv.ndim != 4 or qkv.shape[1] % 3:
@@ -269,8 +286,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, t: int | 
 
 
 def _dense_dout(dout: torch.Tensor) -> torch.Tensor:
-    # autograd may hand over a view whose head dim is strided
-    return dout if dout.stride(3) == 1 else dout.contiguous()
+    # autograd may hand over a view whose head dim is strided or whose rows are misaligned
+    return dout if dout.stride(3) == 1 and _aligned(dout) else dout.contiguous()
 
 
 class _AttentionQKV(torch.autograd.Function):
@@ -280,7 +297,7 @@ class _AttentionQKV(torch.autograd.Function):
         if qkv.device.type == "cpu":
             out, lse = attention_qkv_reference(qkv, *args, with_lse=True)
         else:
-            out, lse = attention_qkv_fwd(qkv.contiguous(), *args, with_lse=True)
+            out, lse = attention_qkv_fwd(qkv, *args, with_lse=True)
         ctx.save_for_backward(qkv, out, lse)
         ctx.args = args
         return out
@@ -291,7 +308,7 @@ class _AttentionQKV(torch.autograd.Function):
         if dout.device.type == "cpu":
             dqkv = attention_qkv_bwd_reference(qkv, out, dout, lse, *ctx.args)
         else:
-            dqkv = attention_qkv_bwd(qkv.contiguous(), out, _dense_dout(dout), lse, *ctx.args)
+            dqkv = attention_qkv_bwd(qkv, out, _dense_dout(dout), lse, *ctx.args)
         return dqkv, None, None, None, None
 
 
