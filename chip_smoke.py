@@ -24,9 +24,11 @@ Phases, each of which exits non-zero on failure:
    layout) equal bit for bit to the contiguous packed tensor, its backward equal to a
    second run of itself, timed on both layouts; CUDA-event timings (median of 20)
    beside each kernel's bound and, where one PyTorch call computes the same function, that
-   call's time; then K4 (``csrc/ffn_mega.cu``, the FFN sublayer) the same way, both masks
-   checked bit for bit through the zero patterns of the backward's ``h`` and ``dhid``, and
-   timed beside the decomposed route (cuBLAS products + K5 + K2);
+   call's time; then K4 (``csrc/ffn_mega.cu``, the FFN sublayer) the same way at 19104,
+   3264 (fusion), 400 (vest) and 127 (ragged) rows, both masks checked bit for bit through
+   the zero patterns of the backward's ``h`` and ``dhid``, timed beside the decomposed route
+   (cuBLAS products + K5 + K2), with the device time of each bf16 stage (``torch.profiler``)
+   and each product's TFLOP/s;
 6. one full-width float32 training step (B=8, dropout and SpecAugment on) from one state
    and one seed, the kernels (K4 on) against all-plain versions: loss and per-parameter
    gradient norms agree, and each kernel ran its exact count of launches in the forward and
@@ -662,12 +664,66 @@ def phase_training_kernels() -> dict:
     return records
 
 
+# The row counts K4 runs at: CinC training (96 x 199 frames), fusion (64 x 51), the vest
+# (16 x 25), and a ragged count inside one 128-row tile.
+K4_ROWS = (ROWS, FUSION_BATCH * FUSION_FRAMES, VEST_BATCH * VEST_FRAMES, 127)
+# The kernels K4 launches in bf16, by stage (csrc/ffn_mega.cu and csrc/resid.cuh), and
+# whether the stage is a product of 2 * rows * 768 * 3072 operations.
+K4_STAGES = (("(A) x W1^T", "ffn_up_wgmma_kernel", True),
+             ("(B) h W2^T", "ffn_down_wgmma_kernel", True),
+             ("LN pass", "ln_rows_kernel", False),
+             ("(C) row pass", "resid_bwd_kernel", False),
+             ("(D) dhid W2", "ffn_dgrad_wgmma_kernel", True))
+
+
+def decomposed_ffn_fwd(x, w1, b1, w2, b2, lw, lb, seed, s_act, s_hid, rate_act, rate_hid, eps):
+    """K4's yardstick forward: cuBLAS products, K5, then K2."""
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import ffn, resid
+
+    h = ffn.ffn_act_fwd_kernel(torch.nn.functional.linear(x, w1, b1), seed, s_act, rate_act)
+    return resid.resid_fwd_kernel(torch.nn.functional.linear(h, w2, b2), x, lw, lb, seed,
+                                  s_hid, rate_hid, eps)
+
+
+def decomposed_ffn_bwd(g, s, pre, w2, lw, seed, s_act, s_hid, rate_act, rate_hid, eps):
+    """K4's yardstick backward (its in-kernel part): K2's backward, cuBLAS, K5's backward."""
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import ffn, resid
+
+    dhid, _, _, _ = resid.resid_bwd_kernel(g, s, lw, seed, s_hid, rate_hid, eps)
+    return ffn.ffn_act_bwd_kernel(dhid @ w2, pre, seed, s_act, rate_act)
+
+
+def print_k4_stages(fwd, bwd, rows: int, runs: int = 10) -> dict:
+    """Device ms per call of each K4 stage kernel (``torch.profiler`` over ``runs`` forward
+    and backward calls after a warm-up), and each product's TFLOP/s."""
+    cuda = torch.autograd.DeviceType.CUDA
+    fwd(), bwd()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fwd(), bwd()
+        torch.cuda.synchronize()
+    stage_ms = {}
+    for e in prof.key_averages():
+        for stage, kernel, _ in K4_STAGES:
+            if e.device_type == cuda and kernel in e.key:
+                stage_ms[stage] = stage_ms.get(stage, 0.0) + e.self_device_time_total / 1e3 / runs
+    for stage, kernel, product in K4_STAGES:
+        ms = stage_ms.get(stage)
+        check(ms is not None, f"the profile shows no {kernel} launch")
+        rate = f", {2 * rows * HIDDEN * FFN / ms / 1e9:.1f} TFLOP/s" if product else ""
+        print(f"[train-kernel] K4 stage {stage} ({kernel}) bf16 [{rows}, {HIDDEN}] -> {FFN}: "
+              f"{ms:.4f} ms{rate} (torch.profiler, mean of {runs})")
+    return stage_ms
+
+
 def phase_megakernel() -> dict:
-    """K4 (the FFN-sublayer kernels) against its plain version at the training shapes, in
-    bfloat16 and float32 at rate 0.1, with the decomposed route (``F.linear`` + K5 +
-    ``F.linear`` + K2) timed beside it. Returns the bfloat16 records by kernel name."""
+    """K4 (the FFN-sublayer kernels) against its plain version in bfloat16 and float32 at
+    rate 0.1, at every row count of ``K4_ROWS``, and at the training shape timed beside the
+    decomposed route (``F.linear`` + K5 + ``F.linear`` + K2), with the device time of each
+    bf16 stage. Returns the bfloat16 records by kernel name."""
     from wav2vec_heart_sounds_tpu_torch.ops import philox
-    from wav2vec_heart_sounds_tpu_torch.ops.kernels import ffn, megakernel as mk, resid
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import megakernel as mk
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     seed, s_act, s_hid, eps = 3141592653, 4, 5, 1e-5
@@ -686,63 +742,67 @@ def phase_megakernel() -> dict:
         def randn(*shape, std=1.0):
             return (std * torch.randn(*shape, device="cuda", generator=gen)).to(dtype)
 
-        x, g = randn(ROWS, HIDDEN), randn(ROWS, HIDDEN)
         w1, b1 = randn(FFN, HIDDEN, std=HIDDEN ** -0.5), randn(FFN, std=0.1)
         w2, b2 = randn(HIDDEN, FFN, std=FFN ** -0.5), randn(HIDDEN, std=0.1)
         lw = 1.0 + 0.1 * torch.randn(HIDDEN, device="cuda", generator=gen)
         lb = 0.1 * torch.randn(HIDDEN, device="cuda", generator=gen)
-        fwd_in = (x, w1, b1, w2, b2, lw, lb, *args)
-        y_k, s_k, pre_k = mk.ffn_mega_fwd_kernel(*fwd_in)
-        y_p, s_p, pre_p = mk.ffn_mega_fwd_reference(*fwd_in)
-        err = max(agree(f"ffn_mega_fwd {name} {dt} [{ROWS}, {HIDDEN}] -> {FFN}", a, r, *elem)
-                  for name, a, r in (("pre", pre_k, pre_p), ("s", s_k, s_p), ("y", y_k, y_p)))
-        del y_k, s_k, pre_k
+        for rows in K4_ROWS:
+            x, g = randn(rows, HIDDEN), randn(rows, HIDDEN)
+            fwd_in = (x, w1, b1, w2, b2, lw, lb, *args)
+            y_k, s_k, pre_k = mk.ffn_mega_fwd_kernel(*fwd_in)
+            y_p, s_p, pre_p = mk.ffn_mega_fwd_reference(*fwd_in)
+            err = max(agree(f"ffn_mega_fwd {name} {dt} [{rows}, {HIDDEN}] -> {FFN}", a, r, *elem)
+                      for name, a, r in (("pre", pre_k, pre_p), ("s", s_k, s_p),
+                                         ("y", y_k, y_p)))
+            del y_k, s_k, pre_k
 
-        bwd_in = (g, s_p, pre_p, w2, lw, *args)
-        got = mk.ffn_mega_bwd_kernel(*bwd_in)
-        ref = mk.ffn_mega_bwd_reference(*bwd_in)
-        names = ("ds", "dhid", "dpre", "h", "db1", "db2", "dweight", "dbias")
-        err_b = max(agree(f"ffn_mega_bwd {name} {dt}", a, r, *(colsum if i >= 4 else grad))
-                    for i, (name, a, r) in enumerate(zip(names, got, ref)))
-        # Both masks bit for bit: with the same pre, g and s the zero patterns of h (act
-        # mask) and dhid (hidden mask) are the plain ones, which contain the masks' zeros.
-        for name, a, r, site, shape in (("h (act mask)", got[3], ref[3], s_act, (ROWS, FFN)),
-                                        ("dhid (hidden mask)", got[1], ref[1], s_hid,
-                                         (ROWS, HIDDEN))):
-            keep = philox.keep_mask(seed, site, shape, RATE, "cuda")
-            check(not bool((r[~keep] != 0).any()), f"plain {name} is nonzero off its mask")
-            identical(f"ffn_mega_bwd zero pattern of {name} {dt}", a == 0, r == 0)
-        del got, ref
+            bwd_in = (g, s_p, pre_p, w2, lw, *args)
+            got = mk.ffn_mega_bwd_kernel(*bwd_in)
+            ref = mk.ffn_mega_bwd_reference(*bwd_in)
+            names = ("ds", "dhid", "dpre", "h", "db1", "db2", "dweight", "dbias")
+            err_b = max(agree(f"ffn_mega_bwd {name} {dt} [{rows}, {HIDDEN}]", a, r,
+                              *(colsum if i >= 4 else grad))
+                        for i, (name, a, r) in enumerate(zip(names, got, ref)))
+            # Both masks bit for bit: with the same pre, g and s the zero patterns of h (act
+            # mask) and dhid (hidden mask) are the plain ones, which contain the masks' zeros.
+            for name, a, r, site, shape in (("h (act mask)", got[3], ref[3], s_act, (rows, FFN)),
+                                            ("dhid (hidden mask)", got[1], ref[1], s_hid,
+                                             (rows, HIDDEN))):
+                keep = philox.keep_mask(seed, site, shape, RATE, "cuda")
+                check(not bool((r[~keep] != 0).any()), f"plain {name} is nonzero off its mask")
+                identical(f"ffn_mega_bwd zero pattern of {name} {dt} [{rows}, {HIDDEN}]",
+                          a == 0, r == 0)
+            del got, ref
+            if rows != ROWS:
+                continue
 
-        def decomposed_fwd():
-            h = ffn.ffn_act_fwd_kernel(torch.nn.functional.linear(x, w1, b1), seed, s_act, RATE)
-            return resid.resid_fwd_kernel(torch.nn.functional.linear(h, w2, b2), x, lw, lb,
-                                          seed, s_hid, RATE, eps)
-
-        def decomposed_bwd():
-            dhid, ds, _, _ = resid.resid_bwd_kernel(g, s_p, lw, seed, s_hid, RATE, eps)
-            return ffn.ffn_act_bwd_kernel(dhid @ w2, pre_p, seed, s_act, RATE)
-
-        size = torch.finfo(dtype).bits // 8
-        rows_d, rows_f, weights = ROWS * HIDDEN * size, ROWS * FFN * size, 2 * HIDDEN * FFN * size
-        products = 2 * ROWS * HIDDEN * FFN
-        # forward: x, W1, W2 in; y, s, pre out. backward (in-kernel part): g, s, pre, W2 in;
-        # ds, dhid, dpre, h out (vectors and partials are below 0.1% of it).
-        fwd_bound = bound(3 * rows_d + weights + rows_f, 2 * products, dtype)
-        bwd_bound = bound(4 * rows_d + weights // 2 + 3 * rows_f, products, dtype)
-        for name, kernel, plain, decomposed, b, e in (
-                ("ffn_mega_fwd", lambda: mk.ffn_mega_fwd_kernel(*fwd_in),
-                 lambda: mk.ffn_mega_fwd_reference(*fwd_in), decomposed_fwd, fwd_bound, err),
-                ("ffn_mega_bwd", lambda: mk.ffn_mega_bwd_kernel(*bwd_in),
-                 lambda: mk.ffn_mega_bwd_reference(*bwd_in), decomposed_bwd, bwd_bound, err_b)):
-            ms, plain_ms, dec_ms = cuda_ms(kernel), cuda_ms(plain), cuda_ms(decomposed)
-            print(f"[train-kernel] {name} {dt}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"decomposed route (cuBLAS products + K5 + K2) {dec_ms:.4f} ms, bound "
-                  f"{b['bound_ms']:.4f} ms by {b['bound_by']} (CUDA events, median of 20)")
+            size = torch.finfo(dtype).bits // 8
+            rows_d, rows_f = ROWS * HIDDEN * size, ROWS * FFN * size
+            weights = 2 * HIDDEN * FFN * size
+            products = 2 * ROWS * HIDDEN * FFN
+            # forward: x, W1, W2 in; y, s, pre out. backward (in-kernel part): g, s, pre, W2
+            # in; ds, dhid, dpre, h out (vectors and partials are below 0.1% of it).
+            fwd_bound = bound(3 * rows_d + weights + rows_f, 2 * products, dtype)
+            bwd_bound = bound(4 * rows_d + weights // 2 + 3 * rows_f, products, dtype)
+            for name, kernel, plain, decomposed, b, e in (
+                    ("ffn_mega_fwd", lambda: mk.ffn_mega_fwd_kernel(*fwd_in),
+                     lambda: mk.ffn_mega_fwd_reference(*fwd_in),
+                     lambda: decomposed_ffn_fwd(*fwd_in), fwd_bound, err),
+                    ("ffn_mega_bwd", lambda: mk.ffn_mega_bwd_kernel(*bwd_in),
+                     lambda: mk.ffn_mega_bwd_reference(*bwd_in),
+                     lambda: decomposed_ffn_bwd(*bwd_in), bwd_bound, err_b)):
+                ms, plain_ms, dec_ms = cuda_ms(kernel), cuda_ms(plain), cuda_ms(decomposed)
+                print(f"[train-kernel] {name} {dt}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                      f"decomposed route (cuBLAS products + K5 + K2) {dec_ms:.4f} ms, bound "
+                      f"{b['bound_ms']:.4f} ms by {b['bound_by']} (CUDA events, median of 20)")
+                if bf16:
+                    records[name] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": e,
+                                     "decomposed_ms": dec_ms, **b, "library_ms": None}
             if bf16:
-                records[name] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": e,
-                                 "decomposed_ms": dec_ms, **b, "library_ms": None}
-        del x, g, s_p, pre_p, y_p
+                stages = print_k4_stages(lambda: mk.ffn_mega_fwd_kernel(*fwd_in),
+                                         lambda: mk.ffn_mega_bwd_kernel(*bwd_in), ROWS)
+                records["ffn_mega_fwd"]["stages_ms"] = stages
+            del x, g, s_p, pre_p, y_p
         torch.cuda.empty_cache()
     return records
 

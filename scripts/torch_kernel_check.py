@@ -2,11 +2,12 @@
 """A short first check of the attention (K3a/K3b), conv + GELU (K8) and FFN (K4) kernels
 on one CUDA card: build them, run each once against its plain version, and time them.
 
-    python3 scripts/torch_kernel_check.py [--attention]
+    python3 scripts/torch_kernel_check.py [--attention | --ffn]
 
 A minute of card time where ``chip_smoke.py`` takes several: for the first call after a
 kernel changes. Prints the ptxas register and spill lines of the sources and the count of
-tensor-core instructions (``HMMA``, from ``cuobjdump -sass``) in each attention kernel;
+tensor-core instructions (``HMMA`` for ``mma.sync``, ``HGMMA`` for ``wgmma``, from
+``cuobjdump -sass``) in each attention and FFN kernel;
 the attention masks decoded bit for bit against ``philox.keep_mask`` in bf16 and f32; K3a,
 K3b on the contiguous packed tensor and K3b on the head view of a ``[B, T, 3H, d]``
 projection equal bit for bit, and the backward equal to itself run twice, at
@@ -15,7 +16,11 @@ projection equal bit for bit, and the backward equal to itself run twice, at
 training shape beside ``scaled_dot_product_attention`` (CUDA events, median of 20). Without
 ``--attention`` also K8 against the plain version at small odd shapes and at conv_1's
 (``[8, 512, 12799]`` f32, ``[96, 512, 12799]`` bf16) with host-clock times beside cuDNN
-``conv1d`` + ``gelu``, and K4 at 400 rows. The last line is ``ALL_OK`` or ``SOME_FAILED``.
+``conv1d`` + ``gelu``, and K4. ``--ffn`` builds and checks K4 alone: forward and backward
+against the plain version at 19104, 3264, 400 and 127 rows in bf16 and f32 (rate 0.1, the
+masks through the zero patterns of ``h`` and ``dhid``), the bf16 times at 19104 rows beside
+the decomposed route, and the device time of each stage kernel (``torch.profiler``) with
+each product's TFLOP/s. The last line is ``ALL_OK`` or ``SOME_FAILED``.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from wav2vec_heart_sounds_tpu_torch.ops.kernels import conv as C  # noqa: E402
 from wav2vec_heart_sounds_tpu_torch.ops.kernels import megakernel as mk  # noqa: E402
 
 SOURCES = ("attention_qkv_fwd", "attention_qkv_bwd", "conv_gelu", "ffn_mega")
+FFN_SOURCES = ("ffn_mega", "ffn_act", "resid")      # K4 and the decomposed route's K5 + K2
 failures = []
 
 
@@ -148,8 +154,9 @@ def check_attention(gen):
             torch.cuda.empty_cache()
 
 
-def tensor_core_counts(name: str) -> list[tuple[str, int]]:
-    """(kernel, number of HMMA instructions) in the built library of ``csrc/<name>.cu``."""
+def tensor_core_counts(name: str) -> list[tuple[str, int, int]]:
+    """(kernel, HMMA instructions, HGMMA instructions) in the built library of
+    ``csrc/<name>.cu``: ``mma.sync`` compiles to HMMA, ``wgmma`` to HGMMA."""
     cuobjdump = Path(build.find_nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(build._target(name))],
                           capture_output=True, text=True, check=True).stdout
@@ -157,10 +164,14 @@ def tensor_core_counts(name: str) -> list[tuple[str, int]]:
     for line in sass.splitlines():
         if "Function :" in line:
             kernel = line.split("Function :", 1)[1].strip()
-            rows.append([kernel, 0])
-        elif kernel is not None and "HMMA" in line:
-            rows[-1][1] += 1
-    return [(k, n) for k, n in rows]
+            rows.append([kernel, 0, 0])
+        elif kernel is not None:
+            op = line.split("*/", 1)[-1].split()
+            if op and op[0].startswith("HGMMA"):
+                rows[-1][2] += 1
+            elif op and op[0].startswith("HMMA"):
+                rows[-1][1] += 1
+    return [(k, n, m) for k, n, m in rows]
 
 
 def check_conv(gen):
@@ -193,18 +204,54 @@ def check_conv(gen):
 
 
 def check_ffn(gen):
+    """K4 at chip_smoke's phase-5 bars, every row count the paths give it."""
+    seed, s_act, s_hid, rate, eps = 5, 4, 5, 0.1, 1e-5
     for dtype in (torch.bfloat16, torch.float32):
+        bf16 = dtype == torch.bfloat16
+        elem = (3e-2, 2e-2) if bf16 else (1e-5, 1e-5)
+        grad = (3e-2, 2e-2) if bf16 else (1e-4, 1e-4)
+        colsum = (1e-1, 2e-2) if bf16 else (1e-2, 1e-4)
+
         def randn(*shape, std=1.0):
             return (std * torch.randn(*shape, device="cuda", generator=gen)).to(dtype)
 
-        args = (randn(400, 768), randn(3072, 768, std=768 ** -0.5), randn(3072, std=0.1),
-                randn(768, 3072, std=3072 ** -0.5), randn(768, std=0.1),
-                torch.ones(768, device="cuda"), torch.zeros(768, device="cuda"),
-                5, 4, 5, 0.1, 0.1, 1e-5)
-        for name, got, ref in zip(("y", "s", "pre"), mk.ffn_mega_fwd_kernel(*args),
-                                  mk.ffn_mega_fwd_reference(*args)):
-            report(f"K4 {name} {dtype} [400, 768]", got, ref,
-                   *((3e-2, 2e-2) if dtype == torch.bfloat16 else (1e-5, 1e-5)))
+        weights = (randn(3072, 768, std=768 ** -0.5), randn(3072, std=0.1),
+                   randn(768, 3072, std=3072 ** -0.5), randn(768, std=0.1))
+        lw = 1.0 + 0.1 * torch.randn(768, device="cuda", generator=gen)
+        lb = 0.1 * torch.randn(768, device="cuda", generator=gen)
+        for rows in chip_smoke.K4_ROWS:
+            tag = f"{dtype} [{rows}, 768]"
+            x, g = randn(rows, 768), randn(rows, 768)
+            fwd_in = (x, *weights, lw, lb, seed, s_act, s_hid, rate, rate, eps)
+            got = mk.ffn_mega_fwd_kernel(*fwd_in)
+            torch.cuda.synchronize()
+            ref = mk.ffn_mega_fwd_reference(*fwd_in)
+            for name, a, r in zip(("y", "s", "pre"), got, ref):
+                report(f"K4 fwd {name} {tag}", a, r, *elem)
+            bwd_in = (g, ref[1], ref[2], weights[2], lw, seed, s_act, s_hid, rate, rate, eps)
+            got = mk.ffn_mega_bwd_kernel(*bwd_in)
+            torch.cuda.synchronize()
+            want = mk.ffn_mega_bwd_reference(*bwd_in)
+            names = ("ds", "dhid", "dpre", "h", "db1", "db2", "dweight", "dbias")
+            for i, (name, a, r) in enumerate(zip(names, got, want)):
+                report(f"K4 bwd {name} {tag}", a, r, *(colsum if i >= 4 else grad))
+            for name, a, r in (("h", got[3], want[3]), ("dhid", got[1], want[1])):
+                same = torch.equal(a == 0, r == 0)
+                if not same:
+                    failures.append(f"K4 zero pattern of {name} {tag}")
+                print(f"K4 zero pattern of {name} (its mask) bit for bit, {tag}: {same}")
+            if bf16 and rows == chip_smoke.ROWS:
+                fwd = lambda: mk.ffn_mega_fwd_kernel(*fwd_in)        # noqa: E731
+                bwd = lambda: mk.ffn_mega_bwd_kernel(*bwd_in)        # noqa: E731
+                for name, fn in (("K4 fwd", fwd), ("K4 bwd", bwd),
+                                 ("decomposed fwd", lambda: chip_smoke.decomposed_ffn_fwd(
+                                     *fwd_in)),
+                                 ("decomposed bwd", lambda: chip_smoke.decomposed_ffn_bwd(
+                                     *bwd_in))):
+                    print(f"  {name} {tag}: {cuda_ms(fn):.4f} ms (CUDA events, median of 20)")
+                chip_smoke.print_k4_stages(fwd, bwd, rows)
+            del x, g, got, ref, want
+            torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -212,7 +259,8 @@ def main() -> None:
         raise SystemExit("needs a CUDA card")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    sources = SOURCES[:2] if "--attention" in sys.argv else SOURCES
+    sources = (SOURCES[:2] if "--attention" in sys.argv
+               else FFN_SOURCES if "--ffn" in sys.argv else SOURCES)
     t0 = time.perf_counter()
     build.load_libraries(*sources)
     print(f"build of {len(sources)} sources: {time.perf_counter() - t0:.1f} s")
@@ -220,12 +268,16 @@ def main() -> None:
         for line in build.build_logs.get(name, "").splitlines():
             if "Function properties" in line or "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    for name in SOURCES[:2]:
-        for kernel, count in tensor_core_counts(name):
-            print(f"  {name}: {kernel}: {count} HMMA")
+    for name in sources:
+        if name in ("attention_qkv_fwd", "attention_qkv_bwd", "ffn_mega"):
+            for kernel, hmma, hgmma in tensor_core_counts(name):
+                print(f"  {name}: {kernel}: {hmma} HMMA, {hgmma} HGMMA")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    check_attention(gen)
-    if "--attention" not in sys.argv:
+    if "--ffn" in sys.argv:
+        check_ffn(gen)
+    else:
+        check_attention(gen)
+    if "--attention" not in sys.argv and "--ffn" not in sys.argv:
         check_conv(gen)
         check_ffn(gen)
     print("SOME_FAILED: " + ", ".join(failures) if failures else "ALL_OK")

@@ -27,21 +27,25 @@
 // (one product, 90 GFLOP, 91 us; 474 MB, 142 us) is bound by bytes. On the TPU both weight
 // matrices sit in VMEM and one program streams row blocks; here 9.4 MB of weights and a
 // [rows, 3072] intermediate do not fit in 227 KB of shared memory, so the design holds the
-// contract, not the form:
-//   (A) ffn_up: a tiled GEMM over W1 (128x128 tiles, mma.sync m16n8k16 bf16 on the tensor
-//       cores, ldmatrix from a 3-stage cp.async ring) whose epilogue adds b1, rounds and
-//       stores pre, applies GELU and the act mask, and stores h;
-//   (B) ffn_down_ln: a GEMM over W2 whose block owns 32 rows and all 768 columns, so the
-//       bias, the hidden mask, +x, the rounding to s and the row LayerNorm run as its
-//       epilogue from the accumulators (8 warps x 96 columns, row sums through shared
-//       memory);
+// contract, not the form. The bfloat16 bodies are Hopper GEMMs (wgmma_tile.cuh): TMA loads
+// with the 128-byte swizzle into a 4-slot mbarrier ring fed by one producer warp, and two
+// consumer groups of two warpgroups on wgmma m64n128k16 that take turns on 128 x 128 tiles,
+// one block an SM walking over the tiles, so one group's epilogue (8 warps) overlaps the
+// other's products. Each epilogue stages its tile through the group's shared tile, so
+// a thread owns runs of 8 consecutive columns: 16-byte loads and stores, and the mask at one
+// Philox call per four elements (philox_keep_run):
+//   (A) ffn_up: x W1^T; pre = round(acc + b1), h = keep_a ? gelu(pre) * scale_a : 0;
+//   (B) ffn_down: h W2^T; y2 = round(acc + b2), s = round(x + (keep_h ? y2 * scale_h : 0));
+//   (L) the row LayerNorm of s into y (resid.cuh's ln_rows_kernel, 16-byte rows);
 //   (C) the K2 backward row pass of resid.cuh, which also emits the db2 partials;
-//   (D) ffn_dgrad: a GEMM of dhid W2 (B tile loaded transposed, ldmatrix.trans) whose
-//       epilogue computes dpre, recomputes h from pre and the act mask (instead of keeping
-//       the forward's h: 117 MB per layer less memory held), and emits the db1 partials.
-// h round-trips device memory between (A) and (B), 235 MB the TPU kernel never moves. The
-// float32 instantiation keeps the same tiling and computes the products with FMAs (not
-// TF32), so float32 checks stay tight. wgmma and TMA are the later step.
+//   (D) ffn_dgrad: dhid W2 with W2 read N-major (wgmma's transpose-B); dh = round(acc),
+//       dpre, h recomputed from pre and the act mask (instead of keeping the forward's h:
+//       117 MB per layer less memory held), and the db1 partials of its 128 rows.
+// h round-trips device memory between (A) and (B), 235 MB (~70 us) the TPU kernel never
+// moves: a fused block would hold a 64 x 768 float32 accumulator and reread both weights
+// from L2 once per 64 rows (~2.8 GB), which costs more than the round trip saves. The
+// float32 bodies keep the mma_tile.cuh tiling and compute the products with FMAs (wgmma on
+// float32 is TF32), so float32 checks stay tight.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,11 +57,12 @@
 #include "mma_tile.cuh"
 #include "philox.cuh"
 #include "resid.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = w2v::kTileThreads;      // 8 warps
-constexpr int kDownCols = 768;                  // (B) owns whole rows of wav2vec2-base
+constexpr int kThreads = w2v::kTileThreads;      // 8 warps (the float32 bodies)
+constexpr int kDownCols = 768;                  // the row width: wav2vec2-base's hidden size
 constexpr unsigned kFull = 0xffffffffu;
 
 using w2v::cp_async_commit;
@@ -66,14 +71,13 @@ using w2v::load_tile;
 using w2v::Tiling;
 using w2v::warp_tile;
 
-// Per dtype: bf16 on the tensor cores with a 3-stage ring; float32 FMAs, 2 stages, and a
+// ---- float32 bodies: FMAs in the mma_tile.cuh layout ---------------------------------------
+//
+// (A) and (D) as 128 x 128 tiles; (B) owns 32 whole 768-column rows, so the bias, the hidden
+// mask, +x, the rounding to s and the row LayerNorm run as its epilogue from the
+// accumulators (8 warps x 96 columns, row sums through shared memory). 2 stages, and a
 // shallower k step for (B) so two stages of its 768-row W2 tile fit.
 template <typename T> struct Cfg;
-template <> struct Cfg<__nv_bfloat16> {
-  using Up = Tiling<__nv_bfloat16, 128, 128, 32, 64, 32, false, 3>;
-  using Down = Tiling<__nv_bfloat16, 32, kDownCols, 32, 32, 96, false, 3>;
-  using Dgrad = Tiling<__nv_bfloat16, 128, 128, 32, 64, 32, true, 3>;
-};
 template <> struct Cfg<float> {
   using Up = Tiling<float, 128, 128, 32, 64, 32, false, 2>;
   using Down = Tiling<float, 32, kDownCols, 16, 32, 96, false, 2>;
@@ -346,6 +350,197 @@ ffn_dgrad_kernel(const T* __restrict__ dhid, const T* __restrict__ w2, const T* 
   }
 }
 
+// ---- bfloat16 bodies: wgmma fed by TMA (wgmma_tile.cuh) ------------------------------------
+
+using bf16 = __nv_bfloat16;
+// (A) x [N, 768] . W1 [F, 768] and (B) h [N, F] . W2 [768, F] read B K-major; (D)
+// dhid [N, 768] . W2 reads W2 as [K=768, N=F], N-major.
+using KMajor = w2v::WgmmaTiling<false>;
+using NMajor = w2v::WgmmaTiling<true>;
+using Acc = float[w2v::kGemmAcc];
+constexpr int kLd = w2v::kStageLd;
+
+// Eight consecutive bf16 travel as one 16-byte word; pair i is its 32-bit word i.
+__device__ __forceinline__ float2 pair_of(const uint4& v, int i) {
+  return __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(&v)[i]);
+}
+
+__device__ __forceinline__ uint32_t pack_pair(float a, float b) {
+  const __nv_bfloat162 t = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&t);
+}
+
+// The calling warpgroup's sums (+ bias) rounded to bf16 into its group's staging tile
+// [128][kLd].
+__device__ __forceinline__ void stage_acc(bf16* tile, const Acc& acc,
+                                          const bf16* __restrict__ bias, int n0) {
+  const int lane = threadIdx.x & 31;
+  const int r = (w2v::group_thread() / 128) * 64 + ((threadIdx.x / 32) & 3) * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < w2v::kGemmBN / 8; ++j) {
+    const int c = 8 * j + 2 * (lane & 3);
+    float2 b = make_float2(0.f, 0.f);
+    if (bias != nullptr)
+      b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + n0 + c));
+    *reinterpret_cast<__nv_bfloat162*>(tile + r * kLd + c) =
+        __floats2bfloat162_rn(acc[4 * j] + b.x, acc[4 * j + 1] + b.y);
+    *reinterpret_cast<__nv_bfloat162*>(tile + (r + 8) * kLd + c) =
+        __floats2bfloat162_rn(acc[4 * j + 2] + b.x, acc[4 * j + 3] + b.y);
+  }
+}
+
+// The keep bits of the run's 8 elements idx .. idx + 7 (bit i for idx + i); rate 0 keeps all.
+__device__ __forceinline__ uint32_t keep8(uint32_t seed, uint32_t site, size_t idx,
+                                          uint32_t thr) {
+  return thr ? w2v::philox_keep_run<8>(seed, site, idx, thr) : 0xffu;
+}
+
+// One 16-byte word of a [rows, ld] bf16 matrix at the thread's run j of tile (m0, n0), or
+// zeros past the rows: loaded one run ahead, so its latency hides behind a run's arithmetic.
+// A group thread takes kGemmRuns runs of its staged tile, one column run over 8 rows.
+__device__ __forceinline__ uint4 run_word(const bf16* __restrict__ src, int ld, int m0, int n0,
+                                          int rows, int j) {
+  const int row = m0 + w2v::run_row(j);
+  return row < rows ? *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row) * ld + n0 +
+                                                      w2v::run_col())
+                    : make_uint4(0u, 0u, 0u, 0u);
+}
+
+// (A) pre = x W1^T + b1 -> pre, h = keep_a ? gelu(pre) * scale_a : 0
+__global__ void __launch_bounds__(w2v::kGemmThreads, 1)
+ffn_up_wgmma_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mw1,
+                    const bf16* __restrict__ b1, bf16* __restrict__ pre, bf16* __restrict__ h,
+                    int rows, int f, uint32_t seed, uint32_t site, uint32_t thr, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const w2v::GemmSmem<KMajor> sm(smem_raw);
+  w2v::gemm_tiles(sm, &mx, &mw1, rows, f, kDownCols, [&](const Acc& acc, int g, int m0, int n0,
+                                                         int) {
+    bf16* tile = sm.staging(g);
+    w2v::group_sync(g);                         // the group's previous runs are read
+    stage_acc(tile, acc, b1, n0);
+    w2v::group_sync(g);
+    const int c = w2v::run_col();
+#pragma unroll 1
+    for (int j = 0; j < w2v::kGemmRuns; ++j) {
+      const int r = w2v::run_row(j), row = m0 + r;
+      if (row >= rows) break;
+      const size_t idx = static_cast<size_t>(row) * f + n0 + c;
+      const uint4 v = *reinterpret_cast<const uint4*>(tile + r * kLd + c);
+      const uint32_t keep = keep8(seed, site, idx, thr);
+      uint32_t out[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 p = pair_of(v, i);
+        out[i] = pack_pair((keep >> (2 * i)) & 1 ? act<true>(p.x) * scale : 0.f,
+                           (keep >> (2 * i + 1)) & 1 ? act<true>(p.y) * scale : 0.f);
+      }
+      *reinterpret_cast<uint4*>(pre + idx) = v;
+      *reinterpret_cast<uint4*>(h + idx) = make_uint4(out[0], out[1], out[2], out[3]);
+    }
+  });
+}
+
+// (B) y2 = h W2^T + b2 -> s = round(x + (keep_h ? y2 * scale_h : 0)); the row LayerNorm
+// follows as its own pass.
+__global__ void __launch_bounds__(w2v::kGemmThreads, 1)
+ffn_down_wgmma_kernel(const __grid_constant__ CUtensorMap mh,
+                      const __grid_constant__ CUtensorMap mw2, const bf16* __restrict__ b2,
+                      const bf16* __restrict__ x, bf16* __restrict__ s, int rows, int f,
+                      uint32_t seed, uint32_t site, uint32_t thr, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const w2v::GemmSmem<KMajor> sm(smem_raw);
+  w2v::gemm_tiles(sm, &mh, &mw2, rows, kDownCols, f, [&](const Acc& acc, int g, int m0, int n0,
+                                                         int) {
+    bf16* tile = sm.staging(g);
+    w2v::group_sync(g);
+    stage_acc(tile, acc, b2, n0);
+    uint4 next = run_word(x, kDownCols, m0, n0, rows, 0);
+    w2v::group_sync(g);
+    const int c = w2v::run_col();
+#pragma unroll 1
+    for (int j = 0; j < w2v::kGemmRuns; ++j) {
+      const uint4 xv = next;
+      if (j + 1 < w2v::kGemmRuns) next = run_word(x, kDownCols, m0, n0, rows, j + 1);
+      const int r = w2v::run_row(j), row = m0 + r;
+      if (row >= rows) break;
+      const size_t idx = static_cast<size_t>(row) * kDownCols + n0 + c;
+      const uint4 y2 = *reinterpret_cast<const uint4*>(tile + r * kLd + c);
+      const uint32_t keep = keep8(seed, site, idx, thr);
+      uint32_t out[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 yv = pair_of(y2, i), xf = pair_of(xv, i);
+        // __fmul_rn: not contracted with the add, as the plain multiply then add.
+        const float h0 = (keep >> (2 * i)) & 1 ? __fmul_rn(yv.x, scale) : 0.f;
+        const float h1 = (keep >> (2 * i + 1)) & 1 ? __fmul_rn(yv.y, scale) : 0.f;
+        out[i] = pack_pair(xf.x + h0, xf.y + h1);
+      }
+      *reinterpret_cast<uint4*>(s + idx) = make_uint4(out[0], out[1], out[2], out[3]);
+    }
+  });
+}
+
+// (D) dh = round(dhid W2) -> dpre = (keep_a ? dh * scale_a : 0) * gelu'(pre), h recomputed,
+// and the tile's float32 column sums of dpre (the db1 partial of its row tile), summed in a
+// fixed order: each thread's 8 rows, then the group's 16 row groups through its scratch.
+__global__ void __launch_bounds__(w2v::kGemmThreads, 1)
+ffn_dgrad_wgmma_kernel(const __grid_constant__ CUtensorMap mdhid,
+                       const __grid_constant__ CUtensorMap mw2, const bf16* __restrict__ pre,
+                       bf16* __restrict__ dpre, bf16* __restrict__ h,
+                       float* __restrict__ db1_part, int rows, int f, uint32_t seed,
+                       uint32_t site, uint32_t thr, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const w2v::GemmSmem<NMajor> sm(smem_raw);
+  w2v::gemm_tiles(sm, &mdhid, &mw2, rows, f, kDownCols, [&](const Acc& acc, int g, int m0,
+                                                            int n0, int row_tile) {
+    bf16* tile = sm.staging(g);
+    w2v::group_sync(g);
+    stage_acc(tile, acc, nullptr, n0);
+    uint4 next = run_word(pre, f, m0, n0, rows, 0);
+    w2v::group_sync(g);
+    const int c = w2v::run_col();
+    float colsum[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) colsum[e] = 0.f;
+#pragma unroll 1
+    for (int j = 0; j < w2v::kGemmRuns; ++j) {
+      const uint4 pv = next;
+      if (j + 1 < w2v::kGemmRuns) next = run_word(pre, f, m0, n0, rows, j + 1);
+      const int r = w2v::run_row(j), row = m0 + r;
+      if (row >= rows) break;
+      const size_t idx = static_cast<size_t>(row) * f + n0 + c;
+      const uint4 dh = *reinterpret_cast<const uint4*>(tile + r * kLd + c);
+      const uint32_t keep = keep8(seed, site, idx, thr);
+      uint32_t dp_out[4], h_out[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 dv = pair_of(dh, i), p = pair_of(pv, i);
+        const bool k0 = (keep >> (2 * i)) & 1, k1 = (keep >> (2 * i + 1)) & 1;
+        const float d0 = (k0 ? dv.x * scale : 0.f) * act_grad<true>(p.x);
+        const float d1 = (k1 ? dv.y * scale : 0.f) * act_grad<true>(p.y);
+        colsum[2 * i] += d0;
+        colsum[2 * i + 1] += d1;
+        dp_out[i] = pack_pair(d0, d1);
+        h_out[i] = pack_pair(k0 ? act<true>(p.x) * scale : 0.f, k1 ? act<true>(p.y) * scale : 0.f);
+      }
+      *reinterpret_cast<uint4*>(dpre + idx) =
+          make_uint4(dp_out[0], dp_out[1], dp_out[2], dp_out[3]);
+      *reinterpret_cast<uint4*>(h + idx) = make_uint4(h_out[0], h_out[1], h_out[2], h_out[3]);
+    }
+    float* red = sm.scratch(g);                  // [16 row groups][128 columns]
+    const int gt = w2v::group_thread();
+#pragma unroll
+    for (int e = 0; e < 8; ++e) red[(gt / 16) * w2v::kGemmBN + c + e] = colsum[e];
+    w2v::group_sync(g);
+    if (gt < w2v::kGemmBN) {
+      float v = 0.f;
+#pragma unroll
+      for (int q = 0; q < w2v::kGemmGroup / 16; ++q) v += red[q * w2v::kGemmBN + gt];
+      db1_part[static_cast<size_t>(row_tile) * f + n0 + gt] = v;
+    }
+  });
+}
+
 template <typename K>
 cudaError_t set_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -394,6 +589,55 @@ int bwd(const T* g, const T* s, const T* pre, const T* w2, const float* gamma, T
   return static_cast<int>(cudaGetLastError());
 }
 
+int fwd_bf16(const bf16* x, const bf16* w1, const bf16* b1, const bf16* w2, const bf16* b2,
+             const float* gamma, const float* beta, bf16* pre, bf16* h, bf16* s, bf16* y,
+             int rows, int d, int f, uint32_t seed, uint32_t site_act, uint32_t site_hid,
+             uint32_t thr_act, uint32_t thr_hid, float scale_act, float scale_hid, float eps,
+             cudaStream_t st) {
+  CUtensorMap mx, mw1, mh, mw2;
+  if (!w2v::tensor_map(&mx, x, rows, d, w2v::kGemmBM) ||
+      !w2v::tensor_map(&mw1, w1, f, d, w2v::kGemmBN) ||
+      !w2v::tensor_map(&mh, h, rows, f, w2v::kGemmBM) ||
+      !w2v::tensor_map(&mw2, w2, d, f, w2v::kGemmBN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = set_smem(ffn_up_wgmma_kernel, KMajor::SMEM);
+  if (err == cudaSuccess) err = set_smem(ffn_down_wgmma_kernel, KMajor::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ffn_up_wgmma_kernel<<<w2v::gemm_grid(rows, f), w2v::kGemmThreads, KMajor::SMEM, st>>>(
+      mx, mw1, b1, pre, h, rows, f, seed, site_act, thr_act, scale_act);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ffn_down_wgmma_kernel<<<w2v::gemm_grid(rows, d), w2v::kGemmThreads, KMajor::SMEM, st>>>(
+      mh, mw2, b2, x, s, rows, f, seed, site_hid, thr_hid, scale_hid);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int ln_blocks = (rows + w2v::kResidWarps - 1) / w2v::kResidWarps;
+  w2v::ln_rows_kernel<<<ln_blocks < 65535 ? ln_blocks : 65535, w2v::kResidThreads, 0, st>>>(
+      s, gamma, beta, y, rows, d, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int bwd_bf16(const bf16* g, const bf16* s, const bf16* pre, const bf16* w2, const float* gamma,
+             bf16* ds, bf16* dhid, bf16* dpre, bf16* h, float* dgamma_part, float* dbeta_part,
+             float* db2_part, float* db1_part, int rows, int d, int f, uint32_t seed,
+             uint32_t site_act, uint32_t site_hid, uint32_t thr_act, uint32_t thr_hid,
+             float scale_act, float scale_hid, float eps, int row_blocks, cudaStream_t st) {
+  CUtensorMap mdhid, mw2;
+  if (!w2v::tensor_map(&mdhid, dhid, rows, d, w2v::kGemmBM) ||
+      !w2v::tensor_map(&mw2, w2, d, f, w2v::kGemmBK))     // boxes of 64 k rows x 64 columns
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = set_smem(ffn_dgrad_wgmma_kernel, NMajor::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  w2v::resid_bwd_kernel<bf16, true><<<row_blocks, w2v::kResidThreads, 0, st>>>(
+      g, s, gamma, dhid, ds, dgamma_part, dbeta_part, db2_part, rows, d, eps, seed, site_hid,
+      thr_hid, scale_hid);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ffn_dgrad_wgmma_kernel<<<w2v::gemm_grid(rows, f), w2v::kGemmThreads, NMajor::SMEM, st>>>(
+      mdhid, mw2, pre, dpre, h, db1_part, rows, f, seed, site_act, thr_act, scale_act);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool bad_shape(int rows, int d, int f) {
   return rows <= 0 || d != kDownCols || f <= 0 || f % 128;
 }
@@ -404,7 +648,9 @@ bool bad_shape(int rows, int d, int f) {
 // biases and every [rows, *] tensor are in it; gamma, beta and the partials are float32.
 // d must be 768 and f a multiple of 128. Each returns the cudaError_t of its launches.
 
-// Forward: (A) then (B). h is [rows, f] scratch between the two.
+// Forward: (A) then (B); in bfloat16 (B) writes s and the row LayerNorm pass y. h is
+// [rows, f] scratch between (A) and (B). Every tensor is 16-byte aligned (TMA and the
+// epilogues' 16-byte accesses in bfloat16; cp.async in float32).
 extern "C" int ffn_mega_fwd(const void* x, const void* w1, const void* b1, const void* w2,
                             const void* b2, const void* gamma, const void* beta, void* pre,
                             void* h, void* s, void* y, int rows, int d, int f, uint32_t seed,
@@ -424,13 +670,12 @@ extern "C" int ffn_mega_fwd(const void* x, const void* w1, const void* b1, const
                         rows, d, f, seed, site_act, site_hid, thr_act, thr_hid, scale_act,
                         scale_hid, eps, st);
     case 1:
-      return fwd<__nv_bfloat16>(
-          static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w1),
-          static_cast<const __nv_bfloat16*>(b1), static_cast<const __nv_bfloat16*>(w2),
-          static_cast<const __nv_bfloat16*>(b2), ga, be, static_cast<__nv_bfloat16*>(pre),
-          static_cast<__nv_bfloat16*>(h), static_cast<__nv_bfloat16*>(s),
-          static_cast<__nv_bfloat16*>(y), rows, d, f, seed, site_act, site_hid, thr_act,
-          thr_hid, scale_act, scale_hid, eps, st);
+      return fwd_bf16(static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
+                      static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),
+                      static_cast<const bf16*>(b2), ga, be, static_cast<bf16*>(pre),
+                      static_cast<bf16*>(h), static_cast<bf16*>(s), static_cast<bf16*>(y), rows,
+                      d, f, seed, site_act, site_hid, thr_act, thr_hid, scale_act, scale_hid,
+                      eps, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -461,13 +706,11 @@ extern "C" int ffn_mega_bwd(const void* g, const void* s, const void* pre, const
                         rows, d, f, seed, site_act, site_hid, thr_act, thr_hid, scale_act,
                         scale_hid, eps, row_blocks, st);
     case 1:
-      return bwd<__nv_bfloat16>(
-          static_cast<const __nv_bfloat16*>(g), static_cast<const __nv_bfloat16*>(s),
-          static_cast<const __nv_bfloat16*>(pre), static_cast<const __nv_bfloat16*>(w2), ga,
-          static_cast<__nv_bfloat16*>(ds), static_cast<__nv_bfloat16*>(dhid),
-          static_cast<__nv_bfloat16*>(dpre), static_cast<__nv_bfloat16*>(h), dgp, dbp, d2p,
-          d1p, rows, d, f, seed, site_act, site_hid, thr_act, thr_hid, scale_act, scale_hid,
-          eps, row_blocks, st);
+      return bwd_bf16(static_cast<const bf16*>(g), static_cast<const bf16*>(s),
+                      static_cast<const bf16*>(pre), static_cast<const bf16*>(w2), ga,
+                      static_cast<bf16*>(ds), static_cast<bf16*>(dhid), static_cast<bf16*>(dpre),
+                      static_cast<bf16*>(h), dgp, dbp, d2p, d1p, rows, d, f, seed, site_act,
+                      site_hid, thr_act, thr_hid, scale_act, scale_hid, eps, row_blocks, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,6 +1,7 @@
 // Device code of the residual tail LayerNorm(x + dropout(h)) (K2), shared by resid.cu and
-// by the FFN-sublayer backward of ffn_mega.cu, which adds the column sums of dh (the
-// output-dense bias gradient) to the same row pass.
+// by the FFN sublayer ffn_mega.cu: its backward adds the column sums of dh (the
+// output-dense bias gradient) to the same row pass, and its bfloat16 forward ends with the
+// row LayerNorm alone (ln_rows_kernel).
 //
 // Contract (the plain version in ops/kernels/resid.py):
 //   forward:  s = round_T(x + keep ? h * scale : 0)   (the sum rounded to the compute dtype)
@@ -93,6 +94,60 @@ resid_fwd_kernel(const T* __restrict__ h, const T* __restrict__ x,
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         store(out + base + col + j, (sv[gi][j] - mean) * rstd * gamma[col + j] + beta[col + j]);
+    }
+  }
+}
+
+// The row LayerNorm alone, out = (s - mean) * rsqrt(var + eps) * gamma + beta over bf16
+// rows of s (the K4 forward's last pass, after its (B) epilogue formed s): the statistics of
+// resid_fwd_kernel (float32, var = E[s^2] - E[s]^2 clamped at 0, warp sums in a fixed
+// order). One warp a row; a lane reads runs of 8 columns (16 bytes) at 8 (lane + 32 i), so a
+// row of up to 768 columns, a multiple of 256, is read once into registers.
+constexpr int kLnMaxRuns = kResidMaxCols / 256;
+
+__global__ void __launch_bounds__(kResidThreads)
+ln_rows_kernel(const __nv_bfloat16* __restrict__ s, const float* __restrict__ gamma,
+               const float* __restrict__ beta, __nv_bfloat16* __restrict__ out, int rows,
+               int cols, float eps) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int runs = cols >> 8;
+  for (int row = blockIdx.x * kResidWarps + warp; row < rows;
+       row += gridDim.x * kResidWarps) {
+    const size_t base = static_cast<size_t>(row) * cols;
+    float v[kLnMaxRuns][8];
+    float sum = 0.f, sq = 0.f;
+#pragma unroll
+    for (int i = 0; i < kLnMaxRuns; ++i) {
+      if (i >= runs) break;
+      const uint4 raw = *reinterpret_cast<const uint4*>(s + base + 8 * (lane + 32 * i));
+      const __nv_bfloat162* pair = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = __bfloat1622float2(pair[j]);
+        v[i][2 * j] = f.x;
+        v[i][2 * j + 1] = f.y;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        sum += v[i][j];
+        sq += v[i][j] * v[i][j];
+      }
+    }
+    const float mean = warp_sum(sum) / cols;
+    const float var = fmaxf(warp_sum(sq) / cols - mean * mean, 0.f);
+    const float rstd = rsqrtf(var + eps);
+#pragma unroll
+    for (int i = 0; i < kLnMaxRuns; ++i) {
+      if (i >= runs) break;
+      const int col = 8 * (lane + 32 * i);
+      uint4 raw;
+      __nv_bfloat162* pair = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        pair[j] = __floats2bfloat162_rn(
+            (v[i][2 * j] - mean) * rstd * gamma[col + 2 * j] + beta[col + 2 * j],
+            (v[i][2 * j + 1] - mean) * rstd * gamma[col + 2 * j + 1] + beta[col + 2 * j + 1]);
+      *reinterpret_cast<uint4*>(out + base + col) = raw;
     }
   }
 }

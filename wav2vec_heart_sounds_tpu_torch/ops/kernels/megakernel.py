@@ -11,8 +11,14 @@ over ``[N, F]`` and ``(seed, s_hid)`` over ``[N, D]``, the same as that route's.
 The kernel pair (``csrc/ffn_mega.cu``) computes the forward's two products and the
 backward's ``dhid W2`` itself; ``dx = dpre W1 + ds``, ``dW1 = dpre^T x`` and
 ``dW2 = dhid^T h`` stay matrix products here, as the JAX package leaves them to XLA.
-:func:`ffn_block` takes the plain versions only for CPU tensors; CUDA tensors go to the
-kernels or raise.
+In bfloat16 the kernels run as stages, each with its plain version here: (A)
+:func:`ffn_up_reference`, (B) :func:`ffn_down_reference`, the row LayerNorm
+(:func:`.resid.layer_norm_reference`), (C) :func:`.resid.resid_bwd_reference` and (D)
+:func:`ffn_dgrad_reference`; composed, they are the two plain versions above bit for bit.
+The bfloat16 bodies read their operands with TMA and store 16 bytes at a time, so the
+wrappers take dense rows whose base and row stride are multiples of 16 bytes, and raise
+``ValueError`` otherwise before any CUDA call. :func:`ffn_block` takes the plain versions
+only for CPU tensors; CUDA tensors go to the kernels or raise.
 """
 
 from __future__ import annotations
@@ -26,10 +32,11 @@ from .. import philox
 from . import build
 from .dropout import DTYPE_CODES, check_cuda
 from .ffn import ffn_act_bwd_reference, ffn_act_fwd_reference
-from .resid import PARTIAL_BLOCKS, resid_bwd_reference, resid_fwd_reference
+from .resid import (PARTIAL_BLOCKS, dropout_add_reference, resid_bwd_reference,
+                    resid_fwd_reference)
 
 _P, _U32, _F, _I = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float, ctypes.c_int
-HIDDEN = 768        # the row width the kernels take (wav2vec2-base); (B) owns whole rows
+HIDDEN = 768        # the row width the kernels take (wav2vec2-base's hidden size)
 UP_ROWS = 128       # row tile of (A) and (D): the db1 partials have ceil(N / 128) rows
 
 
@@ -54,34 +61,58 @@ def ffn_mega_bwd_reference(g, s, pre, w2, weight, seed: int, s_act: int, s_hid: 
     return ds, dhid, dpre, h, db1, dhid.sum(0), dweight, dbias
 
 
+def ffn_up_reference(x, w1, b1, seed: int, s_act: int, rate_act: float):
+    """Plain (A): ``(pre, h)``, the first product with its bias and the dropped activation."""
+    pre = F.linear(x, w1, b1)
+    return pre, ffn_act_fwd_reference(pre, seed, s_act, rate_act)
+
+
+def ffn_down_reference(h, w2, b2, x, seed: int, s_hid: int, rate_hid: float):
+    """Plain (B): ``s = round(x + dropout(h W2^T + b2))``; the row LayerNorm follows."""
+    return dropout_add_reference(F.linear(h, w2, b2), x, seed, s_hid, rate_hid)
+
+
+def ffn_dgrad_reference(dhid, w2, pre, seed: int, s_act: int, rate_act: float):
+    """Plain (D): ``(dpre, h, db1)`` from ``dh = round(dhid W2)``, ``h`` recomputed from
+    ``pre``; db1 is float32."""
+    dpre, db1 = ffn_act_bwd_reference(dhid @ w2, pre, seed, s_act, rate_act)
+    return dpre, ffn_act_fwd_reference(pre, seed, s_act, rate_act), db1
+
+
 def _check(name: str, rows_like: torch.Tensor, f: int, *vectors: torch.Tensor) -> int:
     if rows_like.dim() != 2 or rows_like.shape[1] != HIDDEN or f % 128:
         raise ValueError(f"{name}: takes [N, {HIDDEN}] rows and an FFN width that is a "
                          f"multiple of 128, got {tuple(rows_like.shape)} and {f}")
     for v in vectors:
-        if v.dtype != torch.float32 or not v.is_cuda or tuple(v.shape) != (HIDDEN,):
-            raise ValueError(f"{name}: LayerNorm parameters must be float32 CUDA [{HIDDEN}]")
+        if v.dtype != torch.float32 or tuple(v.shape) != (HIDDEN,):
+            raise ValueError(f"{name}: LayerNorm parameters must be float32 [{HIDDEN}]")
     return rows_like.shape[0]
 
 
 def _same(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
+    """One dtype, and the layout the TMA loads and 16-byte accesses take: bases and row
+    strides that are multiples of 16 bytes (checked before any CUDA call)."""
     for t in tensors:
         if t.dtype != dtype:
             raise TypeError(f"{name}: every tensor but the LayerNorm parameters must be {dtype}")
         if t.data_ptr() % 16:
-            raise ValueError(f"{name}: tensors must be 16-byte aligned")
+            raise ValueError(f"{name}: tensor bases must be 16-byte aligned")
+        if t.dim() == 2 and t.stride(0) * t.element_size() % 16:
+            raise ValueError(f"{name}: row strides must be multiples of 16 bytes, got "
+                             f"{t.stride(0) * t.element_size()}")
 
 
 def ffn_mega_fwd_kernel(x, w1, b1, w2, b2, weight, bias, seed: int, s_act: int, s_hid: int,
                         rate_act: float, rate_hid: float, eps: float):
-    """Launch the forward of ``csrc/ffn_mega.cu`` ((A) then (B)); counts calls in
-    ``.launches``. ``x`` is ``[N, 768]``; the weights are ``nn.Linear``'s ``[out, in]``."""
-    check_cuda("ffn_mega_fwd_kernel", x, w1, b1, w2, b2)
+    """Launch the forward of ``csrc/ffn_mega.cu`` ((A), (B), and in bfloat16 the row
+    LayerNorm); counts calls in ``.launches``. ``x`` is ``[N, 768]``; the weights are
+    ``nn.Linear``'s ``[out, in]``."""
     f = w1.shape[0]
     rows = _check("ffn_mega_fwd_kernel", x, f, weight, bias)
     if tuple(w1.shape) != (f, HIDDEN) or tuple(w2.shape) != (HIDDEN, f):
         raise ValueError("ffn_mega_fwd_kernel: w1 must be [F, 768] and w2 [768, F]")
     _same("ffn_mega_fwd_kernel", x.dtype, x, w1, b1, w2, b2)
+    check_cuda("ffn_mega_fwd_kernel", x, w1, b1, w2, b2, weight, bias)
     pre = x.new_empty((rows, f))
     h = torch.empty_like(pre)
     s, y = torch.empty_like(x), torch.empty_like(x)
@@ -102,12 +133,12 @@ def ffn_mega_bwd_kernel(g, s, pre, w2, weight, seed: int, s_act: int, s_hid: int
     """Launch the backward of ``csrc/ffn_mega.cu`` ((C) then (D)); counts calls in
     ``.launches``. Returns what :func:`ffn_mega_bwd_reference` returns; the vector
     gradients are float32."""
-    check_cuda("ffn_mega_bwd_kernel", g, s, pre, w2)
     f = pre.shape[-1]
     rows = _check("ffn_mega_bwd_kernel", g, f, weight)
     if s.shape != g.shape or tuple(pre.shape) != (rows, f) or tuple(w2.shape) != (HIDDEN, f):
         raise ValueError("ffn_mega_bwd_kernel: g, s [N, 768], pre [N, F] and w2 [768, F]")
     _same("ffn_mega_bwd_kernel", g.dtype, g, s, pre, w2)
+    check_cuda("ffn_mega_bwd_kernel", g, s, pre, w2, weight)
     row_blocks = min(-(-rows // 4), PARTIAL_BLOCKS)
     ds, dhid = torch.empty_like(g), torch.empty_like(g)
     dpre, h = torch.empty_like(pre), torch.empty_like(pre)

@@ -29,14 +29,24 @@ def _stats(sf: torch.Tensor, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
     return mean, torch.rsqrt(var + eps)
 
 
-def resid_fwd_reference(h, x, weight, bias, seed: int, site: int, rate: float, eps: float):
-    """Plain forward: ``(out, s)`` with ``s = round(x + dropout(h))`` in ``h.dtype``."""
+def dropout_add_reference(h, x, seed: int, site: int, rate: float) -> torch.Tensor:
+    """Plain residual sum ``s = round(x + dropout(h))`` in ``h.dtype``."""
     keep = philox.keep_mask(seed, site, h.shape, rate, h.device)
     hf = torch.where(keep, h.float() * philox.keep_scale(rate), 0.0)
-    s = (x.float() + hf).to(h.dtype)
+    return (x.float() + hf).to(h.dtype)
+
+
+def layer_norm_reference(s, weight, bias, eps: float) -> torch.Tensor:
+    """Plain row LayerNorm of ``s`` with float32 statistics, in ``s.dtype``."""
     sf = s.float()
     mean, rstd = _stats(sf, eps)
-    return ((sf - mean) * rstd * weight + bias).to(h.dtype), s
+    return ((sf - mean) * rstd * weight + bias).to(s.dtype)
+
+
+def resid_fwd_reference(h, x, weight, bias, seed: int, site: int, rate: float, eps: float):
+    """Plain forward: ``(out, s)`` with ``s = round(x + dropout(h))`` in ``h.dtype``."""
+    s = dropout_add_reference(h, x, seed, site, rate)
+    return layer_norm_reference(s, weight, bias, eps), s
 
 
 def resid_bwd_reference(g, s, weight, seed: int, site: int, rate: float, eps: float):
