@@ -44,13 +44,18 @@ Phases, each of which exits non-zero on failure:
    augmentation on the card, and the host chain with augmented copies;
 9. the vest slice's kernels against their plain versions at the vest shapes: K6
    (``csrc/flash_kv.cu``, ``[16, 8250, 4, 8]`` in float32 and through the bfloat16
-   boundary cast, timed beside ``scaled_dot_product_attention``) and K7
+   boundary cast, its backward equal bit for bit to a second run, also at T = 300 and 77,
+   timed beside ``scaled_dot_product_attention``; its bound counts the products at the
+   dense TF32 rate and the exponentials at the special-function rate) and K7
    (``csrc/sinc_delay.cu``, ``[96, 8250]`` rows, delays in [0, 41.25] with integers), each
    beside its bound; K3b at the vest encoder's T = 25 and K4 at its 400 rows;
 10. one full-width float32 vest training step (B=2, 6 microphones, LoRA under the freeze
    mask, the waveform's gradient asked for too) kernels against all-plain versions;
 11. ``SupervisedTrainer.fit`` on bench.py's vest config (B=16, bfloat16, AdamW, lazy host
-   augmentation): exact launches per step and vest training windows/s (median of 3);
+   augmentation): exact launches per step and vest training windows/s (median of 3); then
+   a second timed arm on the same model with the augmentation on the card (the host head
+   of ``vest_dataset(device_augment=True)``, ``augment_multi_pcg_batch`` as the trainer's
+   batch transform), its exact launches and its windows/s;
 12. the vest runner ``experiments.multichannel.run`` on a synthetic vest directory (9-column
    int16 WAVs), full width, bfloat16: the host chain with cross-entropy, and device
    augmentation with the contrastive-focal loss;
@@ -381,7 +386,7 @@ KERNELS = {
     "ffn_mega_fwd": ("ffn_mega.cu", "megakernel.py:206"),
     "ffn_mega_bwd": ("ffn_mega.cu", "megakernel.py:260"),
     "flash_kv_fwd": ("flash_kv.cu", "flash_kv.py:210"),
-    "flash_kv_bwd": ("flash_kv.cu", "flash_kv.py:273"),
+    "flash_kv_bwd": ("flash_kv.cu", "flash_kv.py:258"),
     "sinc_delay_fwd": ("sinc_delay.cu", "beamformer.py:111"),
     "sinc_delay_grad_d": ("sinc_delay.cu", "beamformer.py:167"),
     "sinc_delay_grad_x": ("sinc_delay.cu", "beamformer.py:176"),
@@ -486,16 +491,18 @@ def attention_masks(seed: int, site: int, unpacked: bool = False,
 
 
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM device memory
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense tensor core / f32 FMA
+# dense tensor core (bf16), f32 FMA outside the tensor cores, dense TF32 tensor core (K6)
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
 # Exponentials: 16 results per clock per SM from the special-function units (CUDA's
 # arithmetic-throughput table, compute capability 9.0) x 132 SMs x the 1.98 GHz boost clock.
 EXP_PER_S = 16 * 132 * 1.98e9
 
 
-def bound(bytes_moved: float, flops: float, dtype: torch.dtype, exps: float = 0.0) -> dict:
+def bound(bytes_moved: float, flops: float, dtype, exps: float = 0.0) -> dict:
     """The least time the card could take: bytes over the memory rate, or operations over
-    the peak rate for ``dtype`` (and exponentials over the special-function rate),
-    whichever is larger (H100 SXM data-sheet rates)."""
+    the peak rate for ``dtype`` (a torch dtype, or ``"tf32"`` for float32 products on the
+    tensor cores), or exponentials over the special-function rate, whichever is larger
+    (H100 SXM data-sheet rates)."""
     mem_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     op_ms = max(flops / PEAK_FLOPS[dtype], exps / EXP_PER_S) * 1e3
     return {"bound_ms": max(mem_ms, op_ms), "bound_by": "bytes" if mem_ms >= op_ms else "operations"}
@@ -807,14 +814,23 @@ def phase_megakernel() -> dict:
     return records
 
 
+def repeat_bits(fk, shape: str, q, k, v, o, lse, g, first) -> None:
+    """K6's backward run again on the same inputs gives the same bits (no atomics)."""
+    again = fk.flash_kv_bwd_kernel(q, k, v, o, lse, g)
+    same = all(torch.equal(a, b) for a, b in zip(again, first))
+    check(same, f"flash_kv_bwd {shape}: a second run gives other bits")
+    print(f"[vest-kernel] flash_kv_bwd dq, dk, dv f32 {shape}: a second run bit-identical")
+
+
 def phase_vest_kernels() -> dict:
     """The vest slice's kernels against their plain versions at the vest shapes: K6 (the
     delay predictor's attention, ``[16, 8250, 4, 8]``, float32, and bfloat16 in and out
     through the boundary cast) and K7 (the sinc delay, ``[96, 8250]`` rows, delays uniform
     in [0, 41.25] with integers among them), with CUDA-event timings beside each bound and,
     for K6, ``scaled_dot_product_attention`` in float32 (forward and its autograd
-    backward). Then K3b at the vest encoder's T = 25 and K4 at its B*T = 400 rows, both
-    dtypes, rate 0.1. Returns the K6 and K7 records by kernel name."""
+    backward); K6's backward equal bit for bit to a second run, and K6 at the ragged
+    T = 300 and 77 (below one tile). Then K3b at the vest encoder's T = 25 and K4 at its
+    B*T = 400 rows, both dtypes, rate 0.1. Returns the K6 and K7 records by kernel name."""
     import torch.nn.functional as F
 
     from wav2vec_heart_sounds_tpu_torch.ops.kernels import attention, flash_kv as fk
@@ -848,7 +864,24 @@ def phase_vest_kernels() -> dict:
     ref = fk.attention_kv_bwd_reference(q, k, v, o_p, lse_p, g)
     err_b = max(agree(f"flash_kv_bwd {name} f32", a, r, 1e-4, 1e-3)
                 for name, a, r in zip(("dq", "dk", "dv"), got, ref))
+    repeat_bits(fk, "[16, 8250, 4, 8]", q, k, v, o_p, lse_p, g, got)
     del o_k, lse_k, got, ref
+
+    # Ragged lengths: T = 300 (a ragged key tile and query tile) and T = 77 (below one tile),
+    # from a generator of their own, so that the inputs drawn after them stay as they were.
+    ragged = torch.Generator(device="cuda").manual_seed(22)
+    for Tr in (300, 77):
+        qr, kr, vr, gr = (torch.randn(2, Tr, Hk, dk, device="cuda", generator=ragged)
+                          for _ in range(4))
+        o_r, lse_r = fk.attention_kv_fwd_reference(qr, kr, vr)
+        o_rk, lse_rk = fk.flash_kv_fwd_kernel(qr, kr, vr)
+        agree(f"flash_kv_fwd o f32 [2, {Tr}, 4, 8]", o_rk, o_r, 2e-5, 1e-4)
+        agree(f"flash_kv_fwd lse f32 [2, {Tr}, 4, 8]", lse_rk, lse_r, 2e-5, 1e-4)
+        got = fk.flash_kv_bwd_kernel(qr, kr, vr, o_r, lse_r, gr)
+        for name, a, r in zip(("dq", "dk", "dv"), got,
+                              fk.attention_kv_bwd_reference(qr, kr, vr, o_r, lse_r, gr)):
+            agree(f"flash_kv_bwd {name} f32 [2, {Tr}, 4, 8]", a, r, 1e-4, 1e-3)
+        repeat_bits(fk, f"[2, {Tr}, 4, 8]", qr, kr, vr, o_r, lse_r, gr, got)
 
     # bfloat16 in and out: float32 inside, kernels against the plain route (one bf16 ulp
     # at unit scale is 7.8e-3; the output is rounded once, each gradient once).
@@ -871,13 +904,19 @@ def phase_vest_kernels() -> dict:
     lse_bytes = 4 * B * Hk * Tv
     # forward: q.k and p.v, 2 d FLOPs each per (query, key) pair, one exponential each;
     # backward: the five products of the gradient (q.k, g.v, ds k, ds^T q, p^T g), one
-    # exponential (the split form's kernels recompute two products and the exponential).
-    fwd_b = bound(4 * qkv_bytes + lse_bytes, 4 * dk * pairs, torch.float32, pairs)
-    bwd_b = bound(8 * qkv_bytes + lse_bytes, 10 * dk * pairs, torch.float32, pairs)
+    # exponential. The kernels run the products on the tensor cores (3xTF32, three TF32
+    # products each, counted once here: the function's work) and the exponentials on the
+    # special-function units.
+    fwd_flops, bwd_flops = 4 * dk * pairs, 10 * dk * pairs
+    fwd_b = bound(4 * qkv_bytes + lse_bytes, fwd_flops, "tf32", pairs)
+    bwd_b = bound(8 * qkv_bytes + lse_bytes, bwd_flops, "tf32", pairs)
     print(f"[vest-kernel] K6 work per layer: {pairs / 1e9:.3f} G (query, key) pairs, "
-          f"{4 * dk * pairs / 1e9:.1f} GFLOP and {pairs / 1e9:.3f} G exponentials forward "
-          f"({pairs / EXP_PER_S * 1e3:.4f} ms of exponentials, "
-          f"{4 * dk * pairs / PEAK_FLOPS[torch.float32] * 1e3:.4f} ms of float32 products)")
+          f"{pairs / 1e9:.3f} G exponentials each way ({pairs / EXP_PER_S * 1e3:.4f} ms at "
+          f"16 a clock an SM); products {fwd_flops / 1e9:.1f} GFLOP forward and "
+          f"{bwd_flops / 1e9:.1f} backward ({fwd_flops / PEAK_FLOPS['tf32'] * 1e3:.4f} / "
+          f"{bwd_flops / PEAK_FLOPS['tf32'] * 1e3:.4f} ms at the dense TF32 rate); bound "
+          f"{fwd_b['bound_ms']:.4f} / {bwd_b['bound_ms']:.4f} ms by {fwd_b['bound_by']} / "
+          f"{bwd_b['bound_by']}")
 
     def sdpa(a, b, c):
         return F.scaled_dot_product_attention(a.transpose(1, 2), b.transpose(1, 2),
@@ -1191,7 +1230,8 @@ PER_STEP_GATED = {**PER_STEP, "attention_qkv_fwd": (0, 0), "attention_qkv_bwd": 
 PER_STEP_FUSION = {k: (2 * f, 2 * b) for k, (f, b) in PER_STEP.items()}
 # The vest step (6 microphones, LoRA on q/v): K1 runs at the feature projection, the
 # encoder input and the 24 LoRA bypasses (two per layer); K6 once per delay-predictor layer
-# (its backward wrapper launches the dq and the dk/dv kernel); K7 once for all microphones.
+# (its backward wrapper launches the delta pre-pass, the fused pass and the dq reduce); K7
+# once for all microphones.
 # K7's input gradient runs only when the waveform itself needs a gradient, never in
 # training (the data needs none; the JAX package's XLA drops that pallas_call too):
 # phase 9 asks for it, and so its launches come from there.
@@ -1665,13 +1705,15 @@ def phase_vest_training(card: str) -> dict:
     """``SupervisedTrainer.fit`` on bench.py's vest config (B=16, bfloat16, AdamW at 1e-4,
     the LoRA freeze mask, lazy host augmentation with 15 augmented copies per window):
     finite losses, exact launches per step, vest training windows/s (median of 3 timed
-    epochs). Returns the launches of the fit."""
+    epochs); then the same with the augmentation on the card (exact launches, a finite
+    loss, windows/s). Returns the launches of the fit."""
     from functools import partial
 
     from wav2vec_heart_sounds_tpu_torch.augment.pipelines import AugmentConfig
+    from wav2vec_heart_sounds_tpu_torch.augment.torchaug import augment_multi_pcg_batch
     from wav2vec_heart_sounds_tpu_torch.data.fragments import FragmentDataset
     from wav2vec_heart_sounds_tpu_torch.data.loader import Batcher
-    from wav2vec_heart_sounds_tpu_torch.data.vest import multi_augment
+    from wav2vec_heart_sounds_tpu_torch.data.vest import multi_augment, multi_augment_host_residual
     from wav2vec_heart_sounds_tpu_torch.experiments.common import make_loader
     from wav2vec_heart_sounds_tpu_torch.models.build import build_classifier
     from wav2vec_heart_sounds_tpu_torch.train.classifier import SupervisedTrainer
@@ -1725,6 +1767,35 @@ def phase_vest_training(card: str) -> dict:
           f"{steps * VEST_BATCH / np.median(runs):.1f} vest training windows/s on {card} "
           f"(median of 3 epochs: {', '.join(f'{s * 1e3:.1f}' for s in runs)} ms; host clock, "
           f"host augmentation, batching and transfer included)")
+
+    # The same model and config with the augmentation on the card, as
+    # experiments.multichannel.run builds it for device_augment=True without a noise bank:
+    # the host keeps the head of the pipeline (vest_dataset's multi_augment_host_residual),
+    # augment_multi_pcg_batch runs the rest on the card as the trainer's batch transform.
+    device_ds = FragmentDataset(
+        vest_fragments(-(-VEST_BATCH * steps // 16), 0), fs=VEST_FS, augment_num=15,
+        augment_fn=partial(multi_augment_host_residual, cfg=AugmentConfig(),
+                           recorded_on_device=False))
+    device_train = make_loader(device_ds, VEST_BATCH, True, 0, VEST_T)
+    trainer.batch_transform = partial(augment_multi_pcg_batch, fs=VEST_FS, noise_bank=None)
+    trainer._run_epoch(device_train, True, 1)                            # warm-up step
+    torch.cuda.synchronize()
+    reset_counts()
+    runs = [timed_epoch(trainer, device_train) for _ in range(3)]
+    got_device = counts()
+    for name, (f, b) in PER_STEP_VEST.items():
+        want = 3 * steps * (f + b)
+        check(got_device[name] == want,
+              f"vest {name}, device augmentation: {got_device[name]} launches, expected {want}")
+    loss = trainer._run_epoch(device_train, True, 1)[1]
+    check(np.isfinite(loss), f"vest training loss with device augmentation: {loss}")
+    trainer.batch_transform = None
+    print(f"[vest-train] device augmentation: launches in 3 epochs of {steps} steps "
+          f"{json.dumps({k: v for k, v in got_device.items() if v})}; "
+          f"{steps * VEST_BATCH / np.median(runs):.1f} vest training windows/s on {card} "
+          f"(median of 3 epochs: {', '.join(f'{s * 1e3:.1f}' for s in runs)} ms; host clock, "
+          f"the host head of the augmentation, batching, transfer and augment_multi_pcg_batch "
+          f"on the card included)")
     return got
 
 

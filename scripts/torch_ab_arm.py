@@ -1,0 +1,82 @@
+#!/usr/bin/env python3
+"""One arm of a parent/change A/B on one CUDA card, run on a tree of the repository.
+
+    python3 scripts/torch_ab_arm.py <tree>
+
+``<tree>`` is a checkout of either commit (for the parent, a ``git archive`` unpacked into
+a directory that ``.gitignore`` lists); run the arms in the order parent, change, change,
+parent, one process each, in one card call. Each arm runs, from the tree's own
+``chip_smoke.py``: phase 9 (K6, K7 and the vest's K3b and K4 against their plain versions,
+with their times), phase 7 (CinC training windows/s on the three routes) and phase 16a
+(fusion training windows/s); and, with the code below, the same on both trees: the vest's
+two training arms on one model (bench.py's vest config), lazy host augmentation and the
+augmentation on the card (the host head of ``vest_dataset(device_augment=True)``,
+``augment_multi_pcg_batch`` as the trainer's batch transform), timed in turns, median of 3
+epochs each. Prints the card's name and power limit first.
+"""
+import subprocess
+import sys
+import time
+from functools import partial
+from pathlib import Path
+
+import numpy as np
+
+tree = Path(sys.argv[1]).resolve()
+sys.path.insert(0, str(tree))
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+
+print(f"== A/B arm {tree.name}", flush=True)
+card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                      capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+print(card, flush=True)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+cs.kernel_wrappers()
+cs.phase_build()
+cs.phase_vest_kernels()
+
+
+def vest_arms():
+    from wav2vec_heart_sounds_tpu_torch.augment.pipelines import AugmentConfig
+    from wav2vec_heart_sounds_tpu_torch.augment.torchaug import augment_multi_pcg_batch
+    from wav2vec_heart_sounds_tpu_torch.data.fragments import FragmentDataset
+    from wav2vec_heart_sounds_tpu_torch.data.vest import multi_augment, multi_augment_host_residual
+    from wav2vec_heart_sounds_tpu_torch.experiments.common import make_loader
+    from wav2vec_heart_sounds_tpu_torch.models.build import build_classifier
+    from wav2vec_heart_sounds_tpu_torch.train.classifier import SupervisedTrainer
+
+    steps, B = 4, cs.VEST_BATCH
+    frags = cs.vest_fragments(-(-B * steps // 16), 0)
+    host = make_loader(FragmentDataset(frags, fs=cs.VEST_FS, augment_num=15,
+                                       augment_fn=partial(multi_augment, cfg=AugmentConfig())),
+                       B, True, 0, cs.VEST_T)
+    dev = make_loader(FragmentDataset(frags, fs=cs.VEST_FS, augment_num=15,
+                                      augment_fn=partial(multi_augment_host_residual,
+                                                         cfg=AugmentConfig(),
+                                                         recorded_on_device=False)),
+                      B, True, 0, cs.VEST_T)
+    cfg = cs.vest_config()
+    model = build_classifier(cfg, seed=0, device="cuda", dtype=torch.bfloat16, train=True)
+    trainer = SupervisedTrainer(model, optimizer_name="adamw", lr=1e-4, classifier_config=cfg,
+                                log=lambda line: None)
+    transform = partial(augment_multi_pcg_batch, fs=cs.VEST_FS, noise_bank=None)
+    runs = {"host": [], "device": []}
+    for arm, loader, bt in (("host", host, None), ("device", dev, transform)):
+        trainer.batch_transform = bt
+        trainer._run_epoch(loader, True, 1)
+    for _ in range(3):
+        for arm, loader, bt in (("host", host, None), ("device", dev, transform)):
+            trainer.batch_transform = bt
+            runs[arm].append(cs.timed_epoch(trainer, loader))
+    for arm, r in runs.items():
+        print(f"[ab-vest] {tree.name} {arm} augmentation: {steps * B / np.median(r):.1f} vest "
+              f"training windows/s on {card} (median of 3 epochs, in turns: "
+              f"{', '.join(f'{s * 1e3:.1f}' for s in r)} ms)", flush=True)
+
+
+vest_arms()
+cs.phase_training(card)
+cs.phase_fusion_training(card)

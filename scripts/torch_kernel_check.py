@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""A short first check of the attention (K3a/K3b), conv + GELU (K8) and FFN (K4) kernels
-on one CUDA card: build them, run each once against its plain version, and time them.
+"""A short first check of the attention (K3a/K3b), conv + GELU (K8), FFN (K4) and
+long-sequence attention (K6) kernels on one CUDA card: build them, run each once against its
+plain version, and time them.
 
-    python3 scripts/torch_kernel_check.py [--attention | --ffn]
+    python3 scripts/torch_kernel_check.py [--attention | --ffn | --flash-kv]
 
 A minute of card time where ``chip_smoke.py`` takes several: for the first call after a
 kernel changes. Prints the ptxas register and spill lines of the sources and the count of
@@ -20,7 +21,12 @@ training shape beside ``scaled_dot_product_attention`` (CUDA events, median of 2
 against the plain version at 19104, 3264, 400 and 127 rows in bf16 and f32 (rate 0.1, the
 masks through the zero patterns of ``h`` and ``dhid``), the bf16 times at 19104 rows beside
 the decomposed route, and the device time of each stage kernel (``torch.profiler``) with
-each product's TFLOP/s. The last line is ``ALL_OK`` or ``SOME_FAILED``.
+each product's TFLOP/s. ``--flash-kv`` builds and checks K6 alone: forward and backward
+against the plain version at the vest's ``[16, 8250, 4, 8]`` and at T = 300 and 77 (float32
+bars o/lse 2e-5 / 1e-4, gradients 1e-4 / 1e-3), the backward equal bit for bit to a second
+run, the times beside ``scaled_dot_product_attention`` in float32 and the bound, and the
+device time of each backward kernel (``torch.profiler``); each K6 product kernel must show
+HMMA. The last line is ``ALL_OK`` or ``SOME_FAILED``.
 """
 
 from __future__ import annotations
@@ -40,10 +46,13 @@ from wav2vec_heart_sounds_tpu_torch.ops import philox  # noqa: E402
 from wav2vec_heart_sounds_tpu_torch.ops.kernels import attention as A  # noqa: E402
 from wav2vec_heart_sounds_tpu_torch.ops.kernels import build  # noqa: E402
 from wav2vec_heart_sounds_tpu_torch.ops.kernels import conv as C  # noqa: E402
+from wav2vec_heart_sounds_tpu_torch.ops.kernels import flash_kv as FK  # noqa: E402
 from wav2vec_heart_sounds_tpu_torch.ops.kernels import megakernel as mk  # noqa: E402
 
 SOURCES = ("attention_qkv_fwd", "attention_qkv_bwd", "conv_gelu", "ffn_mega")
 FFN_SOURCES = ("ffn_mega", "ffn_act", "resid")      # K4 and the decomposed route's K5 + K2
+# K6's kernels that hold its products (the delta pre-pass and the dq reduce have none).
+FLASH_KV_PRODUCTS = ("flash_kv_fwd_kernel", "flash_kv_bwd_kernel")
 failures = []
 
 
@@ -254,13 +263,69 @@ def check_ffn(gen):
             torch.cuda.empty_cache()
 
 
+def check_flash_kv(gen):
+    """K6 at chip_smoke's phase-9 bars, the vest shape and two ragged lengths."""
+    for B, T in ((16, 8250), (2, 300), (2, 77)):
+        tag = f"[{B}, {T}, 4, 8]"
+        q, k, v, g = (torch.randn(B, T, 4, 8, device="cuda", generator=gen) for _ in range(4))
+        o, lse = FK.flash_kv_fwd_kernel(q, k, v)
+        torch.cuda.synchronize()
+        o_p, lse_p = FK.attention_kv_fwd_reference(q, k, v)
+        report(f"K6 fwd o {tag}", o, o_p, 2e-5, 1e-4)
+        report(f"K6 fwd lse {tag}", lse, lse_p, 2e-5, 1e-4)
+        got = FK.flash_kv_bwd_kernel(q, k, v, o_p, lse_p, g)
+        torch.cuda.synchronize()
+        for n, a, r in zip(("dq", "dk", "dv"), got,
+                           FK.attention_kv_bwd_reference(q, k, v, o_p, lse_p, g)):
+            report(f"K6 bwd {n} {tag}", a, r, 1e-4, 1e-3)
+        again = FK.flash_kv_bwd_kernel(q, k, v, o_p, lse_p, g)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        if not same:
+            failures.append(f"K6 backward repeat {tag}")
+        print(f"K6 backward equal to a second run bit for bit, {tag}: {same}")
+        if T != chip_smoke.VEST_T:
+            continue
+        pairs = B * 4 * T * T
+        io = 4 * B * T * 4 * 8
+        bounds = (chip_smoke.bound(4 * io + 4 * B * 4 * T, 32 * pairs, "tf32", pairs),
+                  chip_smoke.bound(8 * io + 4 * B * 4 * T, 80 * pairs, "tf32", pairs))
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        heads = [x.transpose(1, 2) for x in leaves]
+        lib = F.scaled_dot_product_attention(*heads)
+        g_heads = g.transpose(1, 2)
+        fwd = lambda: FK.flash_kv_fwd_kernel(q, k, v)                       # noqa: E731
+        bwd = lambda: FK.flash_kv_bwd_kernel(q, k, v, o_p, lse_p, g)        # noqa: E731
+        for name, fn, b in (
+                ("K6 fwd", fwd, bounds[0]), ("K6 bwd", bwd, bounds[1]),
+                ("SDPA f32 fwd", lambda: F.scaled_dot_product_attention(
+                    *(x.transpose(1, 2) for x in (q, k, v))), None),
+                ("SDPA f32 autograd bwd", lambda: torch.autograd.grad(
+                    lib, leaves, g_heads, retain_graph=True), None)):
+            ms = cuda_ms(fn, 10)
+            extra = (f", bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+                     f"({b['bound_ms'] / ms:.1%} of it)" if b else "")
+            print(f"  {name} {tag}: {ms:.4f} ms{extra} (CUDA events, median of 10)")
+        cuda = torch.autograd.DeviceType.CUDA
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fwd(), bwd()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == cuda and "flash_kv" in e.key:
+                print(f"  {e.key}: {e.self_device_time_total / 1e3 / 5:.4f} ms a call "
+                      f"(torch.profiler, mean of 5)")
+        del q, k, v, g, o, lse, o_p, lse_p, got, again, leaves, heads, lib
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     sources = (SOURCES[:2] if "--attention" in sys.argv
-               else FFN_SOURCES if "--ffn" in sys.argv else SOURCES)
+               else FFN_SOURCES if "--ffn" in sys.argv
+               else ("flash_kv",) if "--flash-kv" in sys.argv else SOURCES)
     t0 = time.perf_counter()
     build.load_libraries(*sources)
     print(f"build of {len(sources)} sources: {time.perf_counter() - t0:.1f} s")
@@ -269,15 +334,20 @@ def main() -> None:
             if "Function properties" in line or "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     for name in sources:
-        if name in ("attention_qkv_fwd", "attention_qkv_bwd", "ffn_mega"):
+        if name in ("attention_qkv_fwd", "attention_qkv_bwd", "ffn_mega", "flash_kv"):
             for kernel, hmma, hgmma in tensor_core_counts(name):
                 print(f"  {name}: {kernel}: {hmma} HMMA, {hgmma} HGMMA")
+                if name == "flash_kv" and any(p in kernel for p in FLASH_KV_PRODUCTS) and \
+                        not hmma + hgmma:
+                    failures.append(f"{kernel} has no tensor-core instruction")
     gen = torch.Generator(device="cuda").manual_seed(0)
     if "--ffn" in sys.argv:
         check_ffn(gen)
+    elif "--flash-kv" in sys.argv:
+        check_flash_kv(gen)
     else:
         check_attention(gen)
-    if "--attention" not in sys.argv and "--ffn" not in sys.argv:
+    if not {"--attention", "--ffn", "--flash-kv"} & set(sys.argv):
         check_conv(gen)
         check_ffn(gen)
     print("SOME_FAILED: " + ", ".join(failures) if failures else "ALL_OK")

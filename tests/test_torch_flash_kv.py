@@ -1,13 +1,20 @@
 """K6, the delay predictor's attention: the port's plain versions vs the JAX package.
 
-``flash_attention_kv`` on CPU tensors runs the plain forward and the plain split backward
-(the formulas of ``csrc/flash_kv.cu``, query-chunked). They are held to the Pallas kernel
+``flash_attention_kv`` on CPU tensors runs the plain forward and the plain fused backward
+(the formulas of ``csrc/flash_kv.cu``: query-chunked, the backward key-blocked with dq from
+partials summed in key-block order). They are held to the Pallas kernel
 in interpret mode (forward, lse and ``jax.vjp``, with the default fused backward and under
 ``W2VHS_FLASHKV_SPLIT_BWD=1``, at T = 300 with 128-row blocks, so the padding and the
 ``col < t`` mask are exercised) and to ``_chunked_attention`` (T = 700: two query chunks).
 Bars as ``tests/test_pallas_flash_kv.py``: atol 3e-5 in float32 (sums in other orders),
-2e-2 across the bfloat16 boundary cast (one bf16 ulp at unit scale is 7.8e-3).
+2e-2 across the bfloat16 boundary cast (one bf16 ulp at unit scale is 7.8e-3). The
+key-blocked backward is also held to JAX's fused pass at T = 700 with 256-key blocks (a
+ragged last block). A model of the kernel's operand precision (3xTF32: every product as
+``hi hi + hi lo + lo hi`` of TF32 halves, hi truncated) is held to the card's bars against the float32
+plain version at T = 2048, and one TF32 product is shown to miss them.
 """
+
+import math
 
 import numpy as np
 import jax
@@ -65,7 +72,8 @@ def test_plain_matches_chunked_attention_across_chunks():
 
 
 def test_split_passes_are_the_exact_softmax_gradient():
-    """The dq and dk/dv passes against autograd of a materialised softmax."""
+    """The fused backward (key blocks, dq partials) against autograd of a materialised
+    softmax."""
     q, k, v = _qkv(2, 130, 2, seed=5)
     g = np.random.default_rng(6).normal(size=q.shape).astype(np.float32)
     out, grads = _port(q, k, v, g)
@@ -110,3 +118,85 @@ def test_mask_bias_dropout_and_cpu_kernel_calls_raise():
             flash_kv.flash_attention_kv(q, q, q, **kw)
     with pytest.raises(ValueError, match="CUDA"):
         flash_kv.flash_kv_fwd_kernel(q, q, q)
+
+
+@pytest.mark.parametrize("key_block", [256, 512])
+def test_key_blocked_backward_matches_the_fused_pallas_pass(key_block, monkeypatch):
+    """T = 700: three 256-key blocks (or two of 512), the last ragged, against JAX's fused
+    ``_bwd_fused_kernel`` at 256-row blocks in interpret mode."""
+    monkeypatch.setenv("W2VHS_FLASHKV_SPLIT_BWD", "0")
+    q, k, v = _qkv(1, 700, 2, seed=11)
+    g = np.random.default_rng(12).normal(size=q.shape).astype(np.float32)
+    tq, tk, tv, tg = map(torch.from_numpy, (q, k, v, g))
+    o, lse = flash_kv.attention_kv_fwd_reference(tq, tk, tv)
+    got = flash_kv.attention_kv_bwd_reference(tq, tk, tv, o, lse, tg, key_block=key_block)
+    _, vjp = jax.vjp(lambda *a: jax_flash_kv.flash_attention_kv(*a, 256, 256, True),
+                     *map(jnp.asarray, (q, k, v)))
+    for a, want in zip(got, vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(a.numpy(), np.asarray(want), atol=3e-5)
+
+
+def _tf32(x: torch.Tensor, round_: bool = False) -> torch.Tensor:
+    """float32 -> TF32 (10-bit mantissa): truncated, as the kernel splits its operands and
+    as the tensor cores read an unrounded one, or with ``round_`` to nearest, ties away from
+    zero (``cvt.rna``)."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    if round_:
+        bits = bits + 0x1000                   # sign-magnitude: ties round away from zero
+    return (bits & 0xFFFFE000).to(torch.uint32).view(torch.int32).view(torch.float32)
+
+
+def _mm(a, b, passes):
+    """``a @ b`` as the kernel forms it on the tensor cores: 3 passes is 3xTF32 (hi = x
+    truncated to TF32, lo = x - hi; ``lo hi + hi lo``, then ``hi hi``, float32 sums), 1 pass
+    a single TF32 product of the operands rounded to nearest."""
+    if passes == 1:
+        return _tf32(a, round_=True) @ _tf32(b, round_=True)
+    ahi, bhi = _tf32(a), _tf32(b)
+    alo, blo = _tf32(a - ahi), _tf32(b - bhi)
+    return (alo @ bhi + ahi @ blo) + ahi @ bhi
+
+
+def _modelled_attention(q, k, v, g, passes):
+    """The kernel's forward and backward formulas on ``[B, H, T, 8]`` with each product
+    through :func:`_mm`: scores in log2 units (log2(e) / sqrt(8) folded into q), one ex2 a
+    score, dq and dk scaled at the end."""
+    scale = 1.0 / math.sqrt(8.0)
+    qs = q * torch.tensor(scale * math.log2(math.e), dtype=torch.float32)
+    s = _mm(qs, k.transpose(-1, -2), passes)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = _mm(p, v, passes) / l
+    lse = (m + torch.log2(l))[..., 0] * math.log(2.0)
+    p = torch.exp2(s - (lse * math.log2(math.e))[..., None])
+    delta = (g * o).sum(dim=-1, keepdim=True)
+    dv = _mm(p.transpose(-1, -2), g, passes)
+    ds = p * (_mm(g, v.transpose(-1, -2), passes) - delta)
+    dk = _mm(ds.transpose(-1, -2), q, passes) * scale
+    dq = _mm(ds, k, passes) * scale
+    return o, lse, dq, dk, dv
+
+
+def _worst(got, want, atol, rtol):
+    """The largest ``|got - want| / (atol + rtol |want|)``: at most 1 inside the bar."""
+    return ((got - want).abs() / (atol + rtol * want.abs())).max().item()
+
+
+def test_tf32x3_operands_hold_the_float32_bars():
+    """The card's bars (o and lse 2e-5 / 1e-4, gradients 1e-4 / 1e-3) against the float32
+    plain version at T = 2048, unit-normal q, k, v, g: 3xTF32 inside them, one TF32 product
+    (~11 bits) outside."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2048, 2, seed=13))
+    g = torch.from_numpy(np.random.default_rng(14).normal(size=q.shape).astype(np.float32))
+    o, lse = flash_kv.attention_kv_fwd_reference(q, k, v)
+    want = (o, lse, *flash_kv.attention_kv_bwd_reference(q, k, v, o, lse, g))
+    bars = ((2e-5, 1e-4),) * 2 + ((1e-4, 1e-3),) * 3
+    heads = [x.permute(0, 2, 1, 3) for x in (q, k, v, g)]
+    worst = {}
+    for passes in (3, 1):
+        got = list(_modelled_attention(*heads, passes))
+        got = [got[0].permute(0, 2, 1, 3), got[1]] + [x.permute(0, 2, 1, 3) for x in got[2:]]
+        worst[passes] = [_worst(a, w, *bar) for a, w, bar in zip(got, want, bars)]
+    assert max(worst[3]) <= 1.0, worst
+    assert worst[1][0] > 1.0, worst

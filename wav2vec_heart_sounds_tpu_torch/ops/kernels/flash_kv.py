@@ -5,13 +5,15 @@ delay predictor's attention over every waveform sample. Inputs are ``[B, T, H, d
 flax ``attention_fn`` layout), the softmax is exact and unmasked, the scores are scaled by
 ``1 / sqrt(d)`` inside. Everything inside is float32: a bfloat16 input is cast at the
 boundary and the output cast back (``flash_kv.py:322-331``). The forward saves the row
-log-sum-exp (float32 ``[B, H, T]``); the backward is the split form, a dq pass (which also
-writes ``delta = rowsum(g * o)``) and a dk/dv pass, each recomputing the probabilities
-from the lse: one wrapper call, two kernels.
+log-sum-exp (float32 ``[B, H, T]``); the backward is the fused one-pass form of the JAX
+package's default ``_bwd_fused_kernel``: ``delta = rowsum(g * o)``, then one pass per block
+of :data:`KEY_BLOCK` keys that recomputes the probabilities from the lse and gives that
+block's dk, dv and a dq partial, then the partials summed in key-block order. One wrapper
+call, three kernels (delta, the pass, the dq reduce).
 
 The plain versions are the query-chunked exact softmax of the JAX package's
 ``_chunked_attention`` (``models/beamformer.py:54-71``), chunks of 512 query rows so that
-no ``[B, H, T, T]`` tensor exists, and the same chunking for the backward formulas.
+no ``[B, H, T, T]`` tensor exists, and the kernel's key-blocked form for the backward.
 :func:`flash_attention_kv` takes them only for CPU tensors; CUDA tensors go to
 ``csrc/flash_kv.cu`` or raise.
 """
@@ -27,6 +29,7 @@ from . import build
 
 HEAD_DIM = 8        # the delay predictor's head width (d_model 32 / 4 heads)
 CHUNK = 512         # query rows per chunk of the plain versions
+KEY_BLOCK = 512     # keys per block of the backward (csrc/flash_kv.cu kKeyBlock)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -34,8 +37,8 @@ def _heads(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 1, 3)                 # [B, T, H, d] -> [B, H, T, d] (a view)
 
 
-def _chunks(T: int):
-    return [(i, min(T, i + CHUNK)) for i in range(0, T, CHUNK)]
+def _chunks(T: int, size: int = CHUNK):
+    return [(i, min(T, i + size)) for i in range(0, T, size)]
 
 
 def attention_kv_fwd_reference(q, k, v) -> tuple[torch.Tensor, torch.Tensor]:
@@ -51,30 +54,32 @@ def attention_kv_fwd_reference(q, k, v) -> tuple[torch.Tensor, torch.Tensor]:
     return _heads(torch.cat(outs, dim=2)).contiguous(), torch.cat(lses, dim=2)
 
 
-def attention_kv_bwd_reference(q, k, v, o, lse, g) -> tuple[torch.Tensor, ...]:
-    """Plain split backward: ``(dq, dk, dv)``. The dq pass (which also forms
-    ``delta = rowsum(g * o)``), then the dk/dv pass summing over query chunks; each
-    recomputes the probabilities from the lse."""
+def attention_kv_bwd_reference(q, k, v, o, lse, g,
+                               key_block: int = KEY_BLOCK) -> tuple[torch.Tensor, ...]:
+    """Plain fused backward, the kernel's form: ``(dq, dk, dv)``. ``delta = rowsum(g * o)``;
+    per block of ``key_block`` keys one pass over the query chunks recomputes the
+    probabilities from the lse once and gives the block's dk, dv and a dq partial; the
+    partials are summed in key-block order, then scaled."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     qh, kh, vh, gh = _heads(q), _heads(k), _heads(v), _heads(g)
     delta = (gh * _heads(o)).sum(dim=-1)
-    dqs = []
-    for i0, i1 in _chunks(q.shape[1]):
-        s = torch.einsum("bhqd,bhkd->bhqk", qh[:, :, i0:i1], kh) * scale
-        p = torch.exp(s - lse[:, :, i0:i1, None])
-        dp = torch.einsum("bhqd,bhkd->bhqk", gh[:, :, i0:i1], vh)
-        ds = p * (dp - delta[:, :, i0:i1, None])
-        dqs.append(torch.einsum("bhqk,bhkd->bhqd", ds, kh) * scale)
-    dk, dv = torch.zeros_like(kh), torch.zeros_like(vh)
-    for i0, i1 in _chunks(q.shape[1]):
-        qc, gc = qh[:, :, i0:i1], gh[:, :, i0:i1]
-        s = torch.einsum("bhqd,bhkd->bhqk", qc, kh) * scale
-        p = torch.exp(s - lse[:, :, i0:i1, None])
-        dv += torch.einsum("bhqk,bhqd->bhkd", p, gc)
-        ds = p * (torch.einsum("bhqd,bhkd->bhqk", gc, vh) - delta[:, :, i0:i1, None])
-        dk += torch.einsum("bhqk,bhqd->bhkd", ds, qc) * scale
-    return (_heads(torch.cat(dqs, dim=2)).contiguous(), _heads(dk).contiguous(),
-            _heads(dv).contiguous())
+    dq, dks, dvs = None, [], []
+    for j0, j1 in _chunks(q.shape[1], key_block):
+        kc, vc = kh[:, :, j0:j1], vh[:, :, j0:j1]
+        dk, dv, part = torch.zeros_like(kc), torch.zeros_like(vc), []
+        for i0, i1 in _chunks(q.shape[1]):
+            qc, gc = qh[:, :, i0:i1], gh[:, :, i0:i1]
+            p = torch.exp(torch.einsum("bhqd,bhkd->bhqk", qc, kc) * scale - lse[:, :, i0:i1, None])
+            dv += torch.einsum("bhqk,bhqd->bhkd", p, gc)
+            ds = p * (torch.einsum("bhqd,bhkd->bhqk", gc, vc) - delta[:, :, i0:i1, None])
+            dk += torch.einsum("bhqk,bhqd->bhkd", ds, qc)
+            part.append(torch.einsum("bhqk,bhkd->bhqd", ds, kc))
+        part = torch.cat(part, dim=2)
+        dq = part if dq is None else dq + part
+        dks.append(dk * scale)
+        dvs.append(dv)
+    return (_heads(dq * scale).contiguous(), _heads(torch.cat(dks, dim=2)).contiguous(),
+            _heads(torch.cat(dvs, dim=2)).contiguous())
 
 
 def _check(name: str, *tensors: torch.Tensor) -> tuple[int, int, int]:
@@ -107,23 +112,22 @@ def flash_kv_fwd_kernel(q, k, v) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def flash_kv_bwd_kernel(q, k, v, o, lse, g) -> tuple[torch.Tensor, ...]:
-    """Launch the backward of ``csrc/flash_kv.cu``: the dq kernel (which writes delta),
-    then the dk/dv kernel; counts calls in ``.launches`` (two kernels each)."""
+    """Launch the fused backward of ``csrc/flash_kv.cu``: the delta pre-pass, one pass per
+    block of keys writing dk, dv and a dq partial, and the dq reduce; counts calls in
+    ``.launches`` (three kernels each)."""
     B, T, H = _check("flash_kv_bwd_kernel", q, k, v, o, g)
     if lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, T) or not lse.is_contiguous():
         raise ValueError("flash_kv_bwd_kernel: lse must be contiguous float32 [B, H, T]")
+    key_block = build.entry("flash_kv", "flash_kv_key_block", ())()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty_like(lse)
-    scale, stream = 1.0 / math.sqrt(HEAD_DIM), build.stream(q)
-    args = (_P,) * 8 + (_I,) * 4 + (_F, _P)
-    dq_fn = build.entry("flash_kv", "flash_kv_dq", args)
-    build.check(dq_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                      g.data_ptr(), dq.data_ptr(), delta.data_ptr(), B, T, H, HEAD_DIM, scale,
-                      stream), "flash_kv_bwd_kernel (dq)")
-    dkv_fn = build.entry("flash_kv", "flash_kv_dkv", args)
-    build.check(dkv_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
-                       delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, H, HEAD_DIM,
-                       scale, stream), "flash_kv_bwd_kernel (dk/dv)")
+    dq_part = torch.empty((-(-T // key_block), B, H, T, HEAD_DIM), dtype=torch.float32,
+                          device=q.device)
+    fn = build.entry("flash_kv", "flash_kv_bwd", (_P,) * 11 + (_I,) * 4 + (_F, _P))
+    build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                   g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+                   dq_part.data_ptr(), B, T, H, HEAD_DIM, 1.0 / math.sqrt(HEAD_DIM),
+                   build.stream(q)), "flash_kv_bwd_kernel")
     flash_kv_bwd_kernel.launches += 1
     return dq, dk, dv
 
