@@ -47,8 +47,11 @@ Phases, each of which exits non-zero on failure:
    boundary cast, its backward equal bit for bit to a second run, also at T = 300 and 77,
    timed beside ``scaled_dot_product_attention``; its bound counts the products at the
    dense TF32 rate and the exponentials at the special-function rate) and K7
-   (``csrc/sinc_delay.cu``, ``[96, 8250]`` rows, delays in [0, 41.25] with integers), each
-   beside its bound; K3b at the vest encoder's T = 25 and K4 at its 400 rows;
+   (``csrc/sinc_delay.cu``, ``[96, 8250]`` rows, delays in [0, 41.25] with integers) on three
+   draws (``k7_draws``: the phase's own stream and two other seed-21 streams, one of them a
+   stream on which the forward once missed its bar beyond the taps), each side's error against the
+   plain version in float64 printed inside and beyond the taps, each beside its bound; K3b
+   at the vest encoder's T = 25 and K4 at its 400 rows;
 10. one full-width float32 vest training step (B=2, 6 microphones, LoRA under the freeze
    mask, the waveform's gradient asked for too) kernels against all-plain versions;
 11. ``SupervisedTrainer.fit`` on bench.py's vest config (B=16, bfloat16, AdamW, lazy host
@@ -68,8 +71,11 @@ Phases, each of which exits non-zero on failure:
    T = 25 and fusion's T = 51 (t = T and T - 4), bit for bit each other and a second
    backward run, against the plain version;
 14. K8, the fused conv + erf GELU (``csrc/conv_gelu.cu``), at conv_1's shapes
-   (``[96, 512, 12799]`` -> 6399 frames, bfloat16; float32 at B = 8): out, pre, dx and dW
-   against the plain version, timed beside its bound and cuDNN ``conv1d`` + ``gelu``;
+   (``[96, 512, 12799]`` and ``[96, 512, 12800]`` -> 6399 frames, bfloat16, and a ragged
+   ``[3, 256, 301]`` -> 128; float32 at B = 8): out, pre, dx and dW against the plain
+   version, the bfloat16 frame view and padded channels-last dpre bit for bit against
+   theirs, timed beside its bound and cuDNN ``conv1d`` + ``gelu``, with each bfloat16 stage
+   (pack, GEMM, dpre, dx, dW and its reduce) timed alone;
 15. one full-width float32 training step on the opt-in route (``qkv_fuse=False``,
    ``conv_fuse=True``; B = 2, 64000-sample windows) kernels against all-plain versions
    (phase 7's ``fit`` runs that route too: K3a 12+12 and K8 1+1 launches a step, K3b none);
@@ -410,12 +416,16 @@ def plain_route():
     from wav2vec_heart_sounds_tpu_torch.ops.kernels import megakernel as mk
     from wav2vec_heart_sounds_tpu_torch.ops.kernels import sinc_delay as sk
 
+    def conv_fwd_plain(x, w, keep_frames=False):
+        out, pre = conv.conv_gelu_fwd_reference(x, w)
+        return (out, pre, x) if keep_frames else (out, pre)
+
     def conv_bwd_plain(x, w, pre, g, need_dx=True, need_dw=True):
         return conv.conv_gelu_bwd_reference(x, w, pre, g)
 
     pairs = [(attention, "attention_fwd", attention.attention_reference),
              (attention, "attention_bwd", attention.attention_bwd_reference),
-             (conv, "conv_gelu_fwd_kernel", conv.conv_gelu_fwd_reference),
+             (conv, "conv_gelu_fwd_kernel", conv_fwd_plain),
              (conv, "conv_gelu_bwd_kernel", conv_bwd_plain),
              (fk, "flash_kv_fwd_kernel", fk.attention_kv_fwd_reference),
              (fk, "flash_kv_bwd_kernel", fk.attention_kv_bwd_reference),
@@ -702,7 +712,8 @@ def decomposed_ffn_bwd(g, s, pre, w2, lw, seed, s_act, s_hid, rate_act, rate_hid
 
 def print_k4_stages(fwd, bwd, rows: int, runs: int = 10) -> dict:
     """Device ms per call of each K4 stage kernel (``torch.profiler`` over ``runs`` forward
-    and backward calls after a warm-up), and each product's TFLOP/s."""
+    and backward calls after a warm-up, each kernel's time over the launches the profile
+    recorded), and each product's TFLOP/s."""
     cuda = torch.autograd.DeviceType.CUDA
     fwd(), bwd()
     torch.cuda.synchronize()
@@ -714,7 +725,8 @@ def print_k4_stages(fwd, bwd, rows: int, runs: int = 10) -> dict:
     for e in prof.key_averages():
         for stage, kernel, _ in K4_STAGES:
             if e.device_type == cuda and kernel in e.key:
-                stage_ms[stage] = stage_ms.get(stage, 0.0) + e.self_device_time_total / 1e3 / runs
+                stage_ms[stage] = (stage_ms.get(stage, 0.0)
+                                   + e.self_device_time_total / 1e3 / e.count)
     for stage, kernel, product in K4_STAGES:
         ms = stage_ms.get(stage)
         check(ms is not None, f"the profile shows no {kernel} launch")
@@ -820,6 +832,89 @@ def repeat_bits(fk, shape: str, q, k, v, o, lse, g, first) -> None:
     same = all(torch.equal(a, b) for a, b in zip(again, first))
     check(same, f"flash_kv_bwd {shape}: a second run gives other bits")
     print(f"[vest-kernel] flash_kv_bwd dq, dk, dv f32 {shape}: a second run bit-identical")
+
+
+K7_WINDOW = tuple(float(w) for w in np.hamming(41).astype(np.float32))
+
+
+def k7_inputs(source: torch.Generator) -> tuple:
+    """K7's ``[96, 8250]`` inputs from ``source``: x and the cotangent g unit normals, the
+    delays uniform in [0, 41.25] samples with 5% integers (0 to 41)."""
+    R, T = VEST_BATCH * VEST_MICS, VEST_T
+    x, g = (torch.randn(R, T, device="cuda", generator=source) for _ in range(2))
+    d = torch.rand(R, T, device="cuda", generator=source) * (0.01 * VEST_FS)
+    hit = torch.rand(R, T, device="cuda", generator=source) < 0.05
+    d = torch.where(hit, torch.randint(0, 42, (R, T), device="cuda", generator=source).float(),
+                    d)
+    return x, g, d
+
+
+def k7_draws(source: torch.Generator | None = None) -> tuple:
+    """Three draws of K7's inputs, ``(label, (x, g, d))`` each: phase 9's own (from
+    ``source``, its seed-21 generator after K6's four ``[16, 8250, 4, 8]`` inputs, or without
+    it a fresh one that draws those first: the same values); the stream on which the forward
+    once missed its bar beyond the taps (K6's ragged 4 x ``[2, 300, 4, 8]`` and
+    4 x ``[2, 77, 4, 8]`` drawn from it in between); and a seed-21 generator that has drawn
+    only the ragged eight."""
+    def after(*shapes):
+        fresh = torch.Generator(device="cuda").manual_seed(21)
+        for shape in shapes:
+            torch.randn(*shape, device="cuda", generator=fresh)
+        return k7_inputs(fresh)
+
+    k6 = [(VEST_BATCH, VEST_T, KV_HEADS, KV_DIM)] * 4
+    ragged = [(2, 300, KV_HEADS, KV_DIM)] * 4 + [(2, 77, KV_HEADS, KV_DIM)] * 4
+    first = k7_inputs(source) if source is not None else after(*k6)
+    return (("after K6", first), ("after K6 and the ragged eight", after(*k6, *ragged)),
+            ("after the ragged eight", after(*ragged)))
+
+
+def sinc_condition(x: torch.Tensor, d: torch.Tensor, window) -> torch.Tensor:
+    """Per sample beyond the taps (|rint(d)| > K // 2), the float32 condition factor of y in
+    float64: sum_k |e_k xpad[t + k]| / |sum_k e_k|, e_k = (-1)^(c_k + 1) w_k / (pi (c_k - d))."""
+    K = len(window)
+    half = K // 2
+    x64, d64 = x.double(), d.double()
+    xpad = torch.nn.functional.pad(x64[:, None], (half, half), mode="reflect")[:, 0]
+    far = torch.round(d64).abs() > half
+    num, den = torch.zeros_like(d64), torch.zeros_like(d64)
+    for k, w in enumerate(window):
+        c = k - half
+        e = (1.0 if c % 2 else -1.0) * w / (np.pi * (c - d64))
+        num += (e * xpad[:, k:k + x.shape[1]]).abs()
+        den += e
+    return (num / den.abs())[far]
+
+
+def k7_checks(sk, label: str, x, g, d, window) -> tuple[float, float, float]:
+    """K7 on one draw of ``[96, 8250]`` inputs: forward, ``grad_d`` and ``grad_x`` against
+    the plain versions at the unchanged bars (y and s 1e-5 / 1e-5; the gradients 2e-4 /
+    1e-3), after printing each side's largest error against the plain version evaluated in
+    float64 (float64 copies of x and d, the same taps), inside and beyond the taps, and the
+    largest float32 condition factor of y beyond them. Returns the three largest errors."""
+    far = torch.round(d).abs() > len(window) // 2
+    y_k, s_k = sk.sinc_fwd_kernel(x, d, window)
+    y_p, s_p = sk.sinc_fwd_reference(x, d, window)
+    y_64, s_64 = sk.sinc_fwd_reference(x.double(), d.double(), window)
+    for name, a, r, r64 in (("y", y_k, y_p, y_64), ("s", s_k, s_p, s_64)):
+        for region, sel in (("inside the taps", ~far), ("beyond the taps", far)):
+            kp, k64, p64 = ((u[sel].double() - v[sel].double()).abs().max().item()
+                            for u, v in ((a, r), (a, r64), (r, r64)))
+            print(f"[vest-kernel] K7 {label}: sinc_delay_fwd {name} {region}: kernel vs plain "
+                  f"{kp:.3e}; vs float64 kernel {k64:.3e}, plain {p64:.3e} (max |float64| "
+                  f"{r64[sel].abs().max().item():.3e})")
+    cond = sinc_condition(x, d, window)
+    print(f"[vest-kernel] K7 {label}: {cond.numel()} samples beyond the taps, float32 condition "
+          f"factor of y sum|e xpad| / |sum e| up to {cond.max().item():.1f} (median "
+          f"{cond.median().item():.1f})")
+    err_f = max(agree(f"sinc_delay_fwd y f32 [96, 8250] ({label})", y_k, y_p, 1e-5, 1e-5),
+                agree(f"sinc_delay_fwd s f32 ({label})", s_k, s_p, 1e-5, 1e-5))
+    err_d = agree(f"sinc_delay_grad_d dd f32 ({label})", sk.sinc_grad_d_kernel(x, d, g, window),
+                  sk.sinc_grad_d_reference(x, d, g, window), 2e-4, 1e-3)
+    err_x = agree(f"sinc_delay_grad_x dxpad f32 ({label})",
+                  sk.sinc_grad_x_kernel(d, g, s_p, window),
+                  sk.sinc_grad_x_reference(d, g, s_p, window), 2e-4, 1e-3)
+    return err_f, err_d, err_x
 
 
 def phase_vest_kernels() -> dict:
@@ -935,29 +1030,14 @@ def phase_vest_kernels() -> dict:
     del q, k, v, g, o_p, lse_p, leaves, lib_out, g_heads
     torch.cuda.empty_cache()
 
-    # K7 at [96, 8250]: every microphone of a B=16 batch in one launch.
+    # K7 at [96, 8250]: every microphone of a B=16 batch in one launch, on three draws of
+    # its inputs (k7_draws), each held at the same bars.
     R = VEST_BATCH * VEST_MICS
-    window = tuple(float(w) for w in np.hamming(41).astype(np.float32))
-    x, g = randn(R, Tv), randn(R, Tv)
-    d = torch.rand(R, Tv, device="cuda", generator=gen) * (0.01 * VEST_FS)
-    hit = torch.rand(R, Tv, device="cuda", generator=gen) < 0.05
-    d = torch.where(hit, torch.randint(0, 42, (R, Tv), device="cuda", generator=gen).float(), d)
-    far = torch.round(d).abs() > 20
-    y_k, s_k = sk.sinc_fwd_kernel(x, d, window)
-    y_p, s_p = sk.sinc_fwd_reference(x, d, window)
-    for name, a, r in (("y", y_k, y_p), ("s", s_k, s_p)):
-        for region, sel in (("inside the taps", ~far), ("beyond the taps", far)):
-            e = (a[sel] - r[sel]).abs().max().item()
-            print(f"[vest-kernel] sinc_delay_fwd {name} {region}: max_abs_err={e:.3e} "
-                  f"(max |plain| {r[sel].abs().max().item():.3e})")
-    err7f = max(agree("sinc_delay_fwd y f32 [96, 8250]", y_k, y_p, 1e-5, 1e-5),
-                agree("sinc_delay_fwd s f32", s_k, s_p, 1e-5, 1e-5))
-    dd_k = sk.sinc_grad_d_kernel(x, d, g, window)
-    dd_p = sk.sinc_grad_d_reference(x, d, g, window)
-    err7d = agree("sinc_delay_grad_d dd f32", dd_k, dd_p, 2e-4, 1e-3)
-    dx_k = sk.sinc_grad_x_kernel(d, g, s_p, window)
-    dx_p = sk.sinc_grad_x_reference(d, g, s_p, window)
-    err7x = agree("sinc_delay_grad_x dxpad f32", dx_k, dx_p, 2e-4, 1e-3)
+    window = K7_WINDOW
+    draws = k7_draws(gen)
+    err7f, err7d, err7x = [k7_checks(sk, label, *inputs, window) for label, inputs in draws][0]
+    x, g, d = draws[0][1]                       # timed on the phase's own draw
+    s_p = sk.sinc_fwd_reference(x, d, window)[1]
     rows_bytes = 4 * R * Tv
     taps_flops = 6 * 41 * R * Tv          # per tap: z, the quotient, the weight, two sums
     timed("sinc_delay_fwd", lambda: sk.sinc_fwd_kernel(x, d, window),
@@ -969,7 +1049,7 @@ def phase_vest_kernels() -> dict:
     timed("sinc_delay_grad_x", lambda: sk.sinc_grad_x_kernel(d, g, s_p, window),
           lambda: sk.sinc_grad_x_reference(d, g, s_p, window), err7x,
           bound(3 * rows_bytes + 4 * R * (Tv + 40), taps_flops, torch.float32))
-    del x, g, d, hit, far, y_k, s_k, y_p, s_p, dd_k, dd_p, dx_k, dx_p
+    del draws, x, g, d, s_p
 
     # K3b at the vest encoder's T = 25 frames and K4 at its 400 rows, rate 0.1.
     seed, site, eps = 1618033988, 9, 1e-5
@@ -1144,65 +1224,130 @@ def attention_routes(gen, batch: int, frames: int, seed: int, site: int) -> None
     torch.cuda.empty_cache()
 
 
+CONV_STAGES = ("conv_pack_kernel", "conv_fwd_wgmma_kernel", "conv_dpre_kernel",
+               "conv_dx_wgmma_kernel", "conv_dw_wgmma_kernel", "conv_gelu_dw_reduce_kernel")
+
+
+def conv_stage_times(x, w, pre, g, runs: int = 20) -> dict:
+    """K8's bfloat16 stages, each launched alone, CUDA events (median of ``runs``): the pack,
+    the forward GEMM, the dpre pass, and dx and dW (with their reduce) each as the backward
+    with only that gradient less the dpre pass; then each stage kernel's device time in one
+    whole forward + backward (``torch.profiler`` over 5 of each, each kernel's time over the
+    launches the profile recorded)."""
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import conv
+
+    frames = conv._pack(x)
+    wr = conv.relay_weight(w)
+    out, pre_k = torch.empty_like(pre), torch.empty_like(pre)
+    times = {"pack": cuda_ms(lambda: conv._pack(x), runs),
+             "GEMM": cuda_ms(lambda: conv._fwd_frames(frames, wr, out, pre_k), runs),
+             "dpre": cuda_ms(lambda: conv._dpre_frames(pre, g), runs)}
+    for name, need in (("dx", (True, False)), ("dW + reduce", (False, True))):
+        times[name] = cuda_ms(lambda: conv.conv_gelu_bwd_kernel(frames, w, pre, g, *need),
+                              runs) - times["dpre"]
+    cuda = torch.autograd.DeviceType.CUDA
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            conv.conv_gelu_fwd_kernel(x, w)
+            conv.conv_gelu_bwd_kernel(frames, w, pre, g)
+        torch.cuda.synchronize()
+    device = {e.key: e.self_device_time_total / 1e3 / e.count for e in prof.key_averages()
+              if e.device_type == cuda}
+    for stage in CONV_STAGES:
+        ms = next((v for k, v in device.items() if stage in k), None)
+        times[f"{stage} (profiler)"] = ms
+    return times
+
+
 def phase_conv_kernel() -> dict:
     """Phase 14: K8 against its plain version at conv_1's shapes (``[96, 512, 12799]`` ->
-    6399 frames in bfloat16; float32 at B = 8, where the plain float32 conv is the
-    comparison's cost): out and pre, then dx and dW from the plain ``pre`` and a random
+    6399 frames and ``[96, 512, 12800]`` -> 6399 in bfloat16, a ragged
+    ``[3, 256, 301]`` -> 128 channels too; float32 at B = 8, where the plain float32 conv is
+    the comparison's cost): out and pre, then dx and dW from the plain ``pre`` and a random
     cotangent; bfloat16 within one ulp (1e-2), dW, a sum over 614304 rows, relative to its
-    largest value. Timed beside its bound and cuDNN's ``conv1d`` followed by ``gelu`` (two
-    calls; their autograd backward for the backward). Returns the bfloat16 records."""
+    largest value. In bfloat16 the pack pass (the frame view) and the padded channels-last
+    dpre equal their plain versions bit for bit. Timed beside its bound and cuDNN's
+    ``conv1d`` followed by ``gelu`` (two calls; their autograd backward for the backward),
+    each bfloat16 stage alone beside it. Returns the bfloat16 records at T = 12799."""
     import torch.nn.functional as F
 
     from wav2vec_heart_sounds_tpu_torch.ops.kernels import conv
 
     gen = torch.Generator(device="cuda").manual_seed(41)
     records = {}
-    for dtype, B in ((torch.bfloat16, TRAIN_BATCH), (torch.float32, 8)):
+    cases = ((torch.bfloat16, TRAIN_BATCH, CONV_C, CONV_C, CONV_T),
+             (torch.bfloat16, TRAIN_BATCH, CONV_C, CONV_C, CONV_T + 1),
+             (torch.bfloat16, 3, 256, 128, 301), (torch.float32, 8, CONV_C, CONV_C, CONV_T))
+    for dtype, B, cin, cout, T in cases:
         bf16 = dtype == torch.bfloat16
         dt = "bf16" if bf16 else "f32"
         tol = (1e-2, 1e-2) if bf16 else (2e-5, 1e-5)
         grad = (1e-2, 1e-2) if bf16 else (1e-4, 1e-4)
-        x = torch.randn(B, CONV_C, CONV_T, device="cuda", generator=gen).to(dtype)
-        w = (torch.randn(CONV_C, CONV_C, 3, device="cuda", generator=gen)
-             / (3 * CONV_C) ** 0.5).to(dtype)
-        shape = f"[{B}, {CONV_C}, {CONV_T}]"
-        out_k, pre_k = conv.conv_gelu_fwd_kernel(x, w)
+        x = torch.randn(B, cin, T, device="cuda", generator=gen).to(dtype)
+        w = (torch.randn(cout, cin, 3, device="cuda", generator=gen) / (3 * cin) ** 0.5).to(dtype)
+        shape = f"[{B}, {cin}, {T}] -> {cout}"
+        out_k, pre_k, frames = conv.conv_gelu_fwd_kernel(x, w, keep_frames=True)
         out_p, pre_p = conv.conv_gelu_fwd_reference(x, w)
         err_f = max(agree(f"conv_gelu_fwd out {dt} {shape}", out_k, out_p, *tol),
-                    agree(f"conv_gelu_fwd pre {dt}", pre_k, pre_p, *tol))
+                    agree(f"conv_gelu_fwd pre {dt} {shape}", pre_k, pre_p, *tol))
         del out_k, pre_k
         g = torch.randn(out_p.shape, device="cuda", generator=gen).to(dtype)
-        dx_k, dw_k = conv.conv_gelu_bwd_kernel(x, w, pre_p, g)
+        if bf16:
+            identical(f"conv_gelu pack (frame view) {shape}", frames.xf,
+                      conv.pack_frames_reference(x))
+            identical(f"conv_gelu dpre (padded, channels last) {shape}",
+                      conv._dpre_frames(pre_p, g), conv.dpre_frames_reference(pre_p, g))
+        dx_k, dw_k = conv.conv_gelu_bwd_kernel(frames if bf16 else x, w, pre_p, g)
         dx_p, dw_p = conv.conv_gelu_bwd_reference(x, w, pre_p, g)
         top = dw_p.float().abs().max().item()
-        err_b = max(agree(f"conv_gelu_bwd dx {dt}", dx_k, dx_p, *grad),
+        err_b = max(agree(f"conv_gelu_bwd dx {dt} {shape}", dx_k, dx_p, *grad),
                     agree(f"conv_gelu_bwd dw {dt} (atol {grad[0]:g} of max |dw| {top:.3e})",
                           dw_k, dw_p, grad[0] * top, grad[1]))
         del dx_k, dw_k, dx_p, dw_p
+        if B < 8 or (bf16 and T != CONV_T):
+            del x, w, out_p, pre_p, g, frames
+            continue
+        saved = frames if bf16 else x           # what the training step's backward reads
         size = torch.finfo(dtype).bits // 8
-        frames = B * conv.out_length(CONV_T)
-        x_bytes, w_bytes, out_bytes = x.numel() * size, w.numel() * size, frames * CONV_C * size
-        flops = 2 * frames * CONV_C * 3 * CONV_C
-        fwd_b = bound(x_bytes + w_bytes + 2 * out_bytes, flops, dtype)
-        bwd_b = bound(2 * x_bytes + 2 * w_bytes + 2 * out_bytes, 2 * flops, dtype)
+        frames_n = B * conv.out_length(T)
+        x_bytes, w_bytes, out_bytes = x.numel() * size, w.numel() * size, frames_n * cout * size
+        flops = 2 * frames_n * cout * 3 * cin
+        fwd_b = {**bound(x_bytes + w_bytes + 2 * out_bytes, flops, dtype), "flops": flops}
+        bwd_b = {**bound(2 * x_bytes + 2 * w_bytes + 2 * out_bytes, 2 * flops, dtype),
+                 "flops": 2 * flops}
         leaves = [x.detach().requires_grad_(), w.detach().requires_grad_()]
         lib_out = F.gelu(F.conv1d(*leaves, stride=2))
         for name, kernel, plain, library, b, err in (
                 ("conv_gelu_fwd", lambda: conv.conv_gelu_fwd_kernel(x, w),
                  lambda: conv.conv_gelu_fwd_reference(x, w),
                  lambda: F.gelu(F.conv1d(x, w, stride=2)), fwd_b, err_f),
-                ("conv_gelu_bwd", lambda: conv.conv_gelu_bwd_kernel(x, w, pre_p, g),
+                ("conv_gelu_bwd", lambda: conv.conv_gelu_bwd_kernel(saved, w, pre_p, g),
                  lambda: conv.conv_gelu_bwd_reference(x, w, pre_p, g),
                  lambda: torch.autograd.grad(lib_out, leaves, g, retain_graph=True), bwd_b,
                  err_b)):
             ms, plain_ms, lib_ms = cuda_ms(kernel), cuda_ms(plain), cuda_ms(library)
-            print(f"[conv] {name} (K8) {dt} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                  f"ms, library (cuDNN conv1d + gelu, two calls) {lib_ms:.4f} ms, bound "
-                  f"{b['bound_ms']:.4f} ms by {b['bound_by']} (CUDA events, median of 20)")
+            rate = b["flops"] / ms / 1e9
+            print(f"[conv] {name} (K8) {dt} {shape}: kernel {ms:.4f} ms ({rate:.1f} TFLOP/s), "
+                  f"plain {plain_ms:.4f} ms, library (cuDNN conv1d + gelu, two calls) "
+                  f"{lib_ms:.4f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']} (CUDA "
+                  f"events, median of 20)")
+            b = {k: v for k, v in b.items() if k != "flops"}
             if bf16:
                 records[name] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, **b,
                                  "library_ms": lib_ms}
-        del x, w, out_p, pre_p, g, leaves, lib_out
+        if bf16:
+            stage_bounds = {"pack": bound(2 * x_bytes, 0, dtype),
+                            "GEMM": bound(x_bytes + w_bytes + 2 * out_bytes, flops, dtype),
+                            "dpre": bound(3 * out_bytes, 0, dtype),
+                            "dx": bound(out_bytes + w_bytes + x_bytes, flops, dtype),
+                            "dW + reduce": bound(out_bytes + x_bytes + w_bytes, flops, dtype)}
+            times = conv_stage_times(x, w, pre_p, g)
+            for stage, ms in times.items():
+                b = stage_bounds.get(stage)
+                extra = f", bound {b['bound_ms']:.4f} ms by {b['bound_by']}" if b else ""
+                text = "not found" if ms is None else f"{ms:.4f} ms"
+                print(f"[conv] K8 bf16 {shape} stage {stage}: {text}{extra}")
+        del x, w, out_p, pre_p, g, leaves, lib_out, frames, saved
         torch.cuda.empty_cache()
     return records
 

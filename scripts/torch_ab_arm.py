@@ -1,34 +1,51 @@
 #!/usr/bin/env python3
 """One arm of a parent/change A/B on one CUDA card, run on a tree of the repository.
 
-    python3 scripts/torch_ab_arm.py <tree>
+    python3 scripts/torch_ab_arm.py <tree> [phase ...]
 
 ``<tree>`` is a checkout of either commit (for the parent, a ``git archive`` unpacked into
 a directory that ``.gitignore`` lists); run the arms in the order parent, change, change,
-parent, one process each, in one card call. Each arm runs, from the tree's own
-``chip_smoke.py``: phase 9 (K6, K7 and the vest's K3b and K4 against their plain versions,
-with their times), phase 7 (CinC training windows/s on the three routes) and phase 16a
-(fusion training windows/s); and, with the code below, the same on both trees: the vest's
-two training arms on one model (bench.py's vest config), lazy host augmentation and the
-augmentation on the card (the host head of ``vest_dataset(device_augment=True)``,
-``augment_multi_pcg_batch`` as the trainer's batch transform), timed in turns, median of 3
-epochs each. Prints the card's name and power limit first.
+parent, one process each, in one card call. The phases, all of them without names:
+
+* ``sinc``: K7 on the three draws of this script's ``chip_smoke.k7_draws`` (phase 9's
+  inputs and two other seed-21 streams), the tree's kernel and plain version each against the
+  tree's plain version evaluated in float64, inside and beyond the taps, and the largest
+  condition factor beyond them, with the checks at their bars reported, not fatal (the code
+  is this script's, so both trees are measured alike);
+* ``vest-kernels``: the tree's phase 9 (K6, K7 and the vest's K3b and K4 against their
+  plain versions, with their times);
+* ``vest-arms``: the vest's two training arms on one model (bench.py's vest config), lazy host
+  augmentation and the augmentation on the card (the host head of
+  ``vest_dataset(device_augment=True)``, ``augment_multi_pcg_batch`` as the trainer's batch
+  transform), timed in turns, median of 3 epochs each (this script's code on both trees);
+* ``megakernel``: the tree's phase 5 K4 part (K4 against its plain version, its times beside
+  the decomposed route);
+* ``conv``: the tree's phase 14 (K8 against its plain version at conv_1's shapes, its times
+  beside cuDNN ``conv1d`` + ``gelu``);
+* ``training``: the tree's phase 7 (CinC training windows/s on the three routes);
+* ``fusion``: the tree's phase 16a (fusion training windows/s).
+
+Prints the card's name and power limit first.
 """
+import importlib.util
 import subprocess
 import sys
-import time
 from functools import partial
 from pathlib import Path
 
 import numpy as np
 
+PHASES = ("sinc", "vest-kernels", "vest-arms", "megakernel", "conv", "training", "fusion")
 tree = Path(sys.argv[1]).resolve()
+phases = sys.argv[2:] or list(PHASES)
+if not set(phases) <= set(PHASES):
+    raise SystemExit(f"unknown phases {sorted(set(phases) - set(PHASES))}; known: {PHASES}")
 sys.path.insert(0, str(tree))
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 
-print(f"== A/B arm {tree.name}", flush=True)
+print(f"== A/B arm {tree.name}: {' '.join(phases)}", flush=True)
 card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                       capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 print(card, flush=True)
@@ -36,7 +53,21 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 cs.kernel_wrappers()
 cs.phase_build()
-cs.phase_vest_kernels()
+
+
+def sinc_float64():
+    """K7's float64 errors on the tree's kernel and plain version, with this script's own
+    ``chip_smoke`` (its draws and ``k7_checks``), its failed checks reported."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_of_this_script", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    own = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(own)
+    own.check = lambda ok, msg: print(f"[ab-sinc] {tree.name}: "
+                                      f"{'within the bar' if ok else 'MISSES: ' + msg}")
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import sinc_delay as sk
+
+    for label, inputs in own.k7_draws():
+        own.k7_checks(sk, f"{tree.name} {label}", *inputs, own.K7_WINDOW)
 
 
 def vest_arms():
@@ -77,6 +108,9 @@ def vest_arms():
               f"{', '.join(f'{s * 1e3:.1f}' for s in r)} ms)", flush=True)
 
 
-vest_arms()
-cs.phase_training(card)
-cs.phase_fusion_training(card)
+RUN = {"sinc": sinc_float64, "vest-kernels": cs.phase_vest_kernels, "vest-arms": vest_arms,
+       "megakernel": cs.phase_megakernel, "conv": cs.phase_conv_kernel,
+       "training": lambda: cs.phase_training(card),
+       "fusion": lambda: cs.phase_fusion_training(card)}
+for phase in phases:
+    RUN[phase]()

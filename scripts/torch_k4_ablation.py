@@ -8,8 +8,8 @@ the dropout mask's Philox draw, the GELU, the two 16-byte stores, or the whole p
 pass (the product and the staging of its tile only). Each copy is compiled with the
 port's nvcc flags into ``build/k4_ablation/<name>/`` and loaded with ctypes. The forward
 then runs at the CinC training shape (``[19104, 768] x [3072, 768]``, bf16, rate 0.1), and
-``torch.profiler`` reads the device time of the (A) kernel. The copies run in turns, twice
-(forward order, then reversed). The copies compute wrong values and serve only for
+``torch.profiler`` reads the device time of the (A) kernel (over the launches it recorded).
+The copies run in turns, twice (forward order, then reversed). The copies compute wrong values and serve only for
 timing; ``chip_smoke.py`` and ``scripts/torch_kernel_check.py`` check the real kernel.
 Prints the card's name and power limit first.
 """
@@ -119,8 +119,8 @@ def main() -> None:
             for _ in range(runs):
                 forward(fn)
             torch.cuda.synchronize()
-        return sum(e.self_device_time_total for e in prof.key_averages()
-                   if "ffn_up_wgmma_kernel" in e.key) / 1e3 / runs
+        return sum(e.self_device_time_total / e.count for e in prof.key_averages()
+                   if "ffn_up_wgmma_kernel" in e.key) / 1e3
 
     fns = {}
     for name, lib in libs.items():

@@ -3,21 +3,26 @@
 long-sequence attention (K6) kernels on one CUDA card: build them, run each once against its
 plain version, and time them.
 
-    python3 scripts/torch_kernel_check.py [--attention | --ffn | --flash-kv]
+    python3 scripts/torch_kernel_check.py [--attention | --conv | --ffn | --flash-kv]
 
 A minute of card time where ``chip_smoke.py`` takes several: for the first call after a
 kernel changes. Prints the ptxas register and spill lines of the sources and the count of
-tensor-core instructions (``HMMA`` for ``mma.sync``, ``HGMMA`` for ``wgmma``, from
-``cuobjdump -sass``) in each attention and FFN kernel;
+tensor-core and TMA instructions (``HMMA`` for ``mma.sync``, ``HGMMA`` for ``wgmma``,
+``UTMALDG`` for a TMA tile load, from ``cuobjdump -sass``) in each attention, conv and FFN
+kernel;
 the attention masks decoded bit for bit against ``philox.keep_mask`` in bf16 and f32; K3a,
 K3b on the contiguous packed tensor and K3b on the head view of a ``[B, T, 3H, d]``
 projection equal bit for bit, and the backward equal to itself run twice, at
 ``[96, 12, 199, 64]``, ``[64, 12, 51, 64]`` and ``[16, 12, 25, 64]`` (bf16 and f32, rate
 0.1 and 0, t = T and one t < T), each against the plain version; their times at the
 training shape beside ``scaled_dot_product_attention`` (CUDA events, median of 20). Without
-``--attention`` also K8 against the plain version at small odd shapes and at conv_1's
-(``[8, 512, 12799]`` f32, ``[96, 512, 12799]`` bf16) with host-clock times beside cuDNN
-``conv1d`` + ``gelu``, and K4. ``--ffn`` builds and checks K4 alone: forward and backward
+``--attention`` also K8 against the plain version at small shapes (T odd and even,
+Cin != Cout, ragged frame tiles; the bf16 frame view and padded dpre bit for bit) and K4.
+``--conv`` builds and checks K8 alone: those small shapes, then ``chip_smoke.py``'s phase 14
+(conv_1's ``[96, 512, 12799]`` and ``[96, 512, 12800]`` in bf16, ``[8, 512, 12799]`` in
+f32, the times beside cuDNN ``conv1d`` + ``gelu`` and each bf16 stage's); each of K8's
+``*_wgmma_kernel``s must show HGMMA and UTMALDG. ``--ffn`` builds and checks K4 alone:
+forward and backward
 against the plain version at 19104, 3264, 400 and 127 rows in bf16 and f32 (rate 0.1, the
 masks through the zero patterns of ``h`` and ``dhid``), the bf16 times at 19104 rows beside
 the decomposed route, and the device time of each stage kernel (``torch.profiler``) with
@@ -64,17 +69,6 @@ def report(name, got, ref, atol, rtol):
         failures.append(name)
     print(f"{name}: max_abs_err={err:.3e} (max |plain| {ref.abs().max().item():.3e}) "
           f"{'ok' if good else 'FAILED'}")
-
-
-def host_ms(fn, runs: int = 5) -> float:
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(runs):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / runs * 1e3
 
 
 def cuda_ms(fn, runs: int = 20) -> float:
@@ -163,9 +157,10 @@ def check_attention(gen):
             torch.cuda.empty_cache()
 
 
-def tensor_core_counts(name: str) -> list[tuple[str, int, int]]:
-    """(kernel, HMMA instructions, HGMMA instructions) in the built library of
-    ``csrc/<name>.cu``: ``mma.sync`` compiles to HMMA, ``wgmma`` to HGMMA."""
+def tensor_core_counts(name: str) -> list[tuple[str, int, int, int]]:
+    """(kernel, HMMA, HGMMA, UTMALDG instructions) in the built library of
+    ``csrc/<name>.cu``: ``mma.sync`` compiles to HMMA, ``wgmma`` to HGMMA, a TMA tile load
+    to UTMALDG."""
     cuobjdump = Path(build.find_nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass", str(build._target(name))],
                           capture_output=True, text=True, check=True).stdout
@@ -173,42 +168,59 @@ def tensor_core_counts(name: str) -> list[tuple[str, int, int]]:
     for line in sass.splitlines():
         if "Function :" in line:
             kernel = line.split("Function :", 1)[1].strip()
-            rows.append([kernel, 0, 0])
+            rows.append([kernel, 0, 0, 0])
         elif kernel is not None:
             op = line.split("*/", 1)[-1].split()
             if op and op[0].startswith("HGMMA"):
                 rows[-1][2] += 1
             elif op and op[0].startswith("HMMA"):
                 rows[-1][1] += 1
-    return [(k, n, m) for k, n, m in rows]
+            elif op and op[0].startswith("UTMALDG"):
+                rows[-1][3] += 1
+    return [tuple(r) for r in rows]
 
 
 def check_conv(gen):
+    """K8 at small shapes: T odd and even, Cin != Cout, frame counts off the 128-frame tiles
+    (the forward's last tile, dx's pairs, dW's 64-frame steps), B = 1; bf16 and f32 at
+    phase 14's bars, the bf16 frame view and padded dpre bit for bit."""
     cases = ((torch.float32, (2, 128, 256, 301)), (torch.bfloat16, (2, 128, 256, 301)),
-             (torch.float32, (3, 256, 128, 520)), (torch.float32, (8, 512, 512, 12799)),
-             (torch.bfloat16, (96, 512, 512, 12799)))
+             (torch.float32, (3, 256, 128, 520)), (torch.bfloat16, (3, 256, 128, 520)),
+             (torch.bfloat16, (2, 128, 256, 259)), (torch.bfloat16, (2, 256, 128, 260)),
+             (torch.bfloat16, (1, 128, 128, 3)), (torch.bfloat16, (5, 384, 128, 1001)))
     for dtype, (B, cin, cout, T) in cases:
         bf16 = dtype == torch.bfloat16
         tag = f"{dtype} [{B}, {cin}, {T}] -> {cout}"
         x = torch.randn(B, cin, T, device="cuda", generator=gen).to(dtype)
         w = (torch.randn(cout, cin, 3, device="cuda", generator=gen) / (3 * cin) ** 0.5).to(dtype)
-        out, pre = C.conv_gelu_fwd_kernel(x, w)
+        out, pre, saved = C.conv_gelu_fwd_kernel(x, w, keep_frames=True)
+        torch.cuda.synchronize()
         ref_out, ref_pre = C.conv_gelu_fwd_reference(x, w)
         tol = (1e-2, 1e-2) if bf16 else (2e-5, 1e-5)
         report(f"K8 out {tag}", out, ref_out, *tol)
         report(f"K8 pre {tag}", pre, ref_pre, *tol)
         g = torch.randn(ref_out.shape, device="cuda", generator=gen).to(dtype)
-        dx, dw = C.conv_gelu_bwd_kernel(x, w, ref_pre, g)
+        if bf16:
+            for name, got, want in (
+                    ("frame view", saved.xf, C.pack_frames_reference(x)),
+                    ("padded dpre", C._dpre_frames(ref_pre, g),
+                     C.dpre_frames_reference(ref_pre, g))):
+                same = torch.equal(got, want)
+                if not same:
+                    failures.append(f"K8 {name} {tag}")
+                print(f"K8 {name} bit for bit, {tag}: {same} "
+                      f"({int((got != want).sum())} of {got.numel()} differ)")
         ref_dx, ref_dw = C.conv_gelu_bwd_reference(x, w, ref_pre, g)
         top = ref_dw.float().abs().max().item()
-        report(f"K8 dx {tag}", dx, ref_dx, *((1e-2, 1e-2) if bf16 else (1e-4, 1e-4)))
-        report(f"K8 dw {tag}", dw, ref_dw, *((1e-2 * top, 1e-2) if bf16 else (1e-4 * top, 1e-4)))
-        if B >= 8:
-            for name, fn in (("forward", lambda: C.conv_gelu_fwd_kernel(x, w)),
-                             ("backward", lambda: C.conv_gelu_bwd_kernel(x, w, ref_pre, g)),
-                             ("cuDNN conv1d + gelu", lambda: F.gelu(F.conv1d(x, w, stride=2)))):
-                print(f"  {name} {tag}: {host_ms(fn):.3f} ms (host clock, mean of 5)")
-        del x, w, out, pre, ref_out, ref_pre, g, dx, dw, ref_dx, ref_dw
+        for src in ((saved, x) if bf16 else (x,)):
+            dx, dw = C.conv_gelu_bwd_kernel(src, w, ref_pre, g)
+            torch.cuda.synchronize()
+            how = "frame view" if src is saved else "x"
+            report(f"K8 dx {tag} from {how}", dx, ref_dx,
+                   *((1e-2, 1e-2) if bf16 else (1e-4, 1e-4)))
+            report(f"K8 dw {tag} from {how}", dw, ref_dw,
+                   *((1e-2 * top, 1e-2) if bf16 else (1e-4 * top, 1e-4)))
+        del x, w, out, pre, saved, ref_out, ref_pre, g, dx, dw, ref_dx, ref_dw
         torch.cuda.empty_cache()
 
 
@@ -312,8 +324,8 @@ def check_flash_kv(gen):
             torch.cuda.synchronize()
         for e in prof.key_averages():
             if e.device_type == cuda and "flash_kv" in e.key:
-                print(f"  {e.key}: {e.self_device_time_total / 1e3 / 5:.4f} ms a call "
-                      f"(torch.profiler, mean of 5)")
+                print(f"  {e.key}: {e.self_device_time_total / 1e3 / e.count:.4f} ms a call "
+                      f"(torch.profiler, mean of {e.count})")
         del q, k, v, g, o, lse, o_p, lse_p, got, again, leaves, heads, lib
         torch.cuda.empty_cache()
 
@@ -325,6 +337,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     sources = (SOURCES[:2] if "--attention" in sys.argv
                else FFN_SOURCES if "--ffn" in sys.argv
+               else ("conv_gelu",) if "--conv" in sys.argv
                else ("flash_kv",) if "--flash-kv" in sys.argv else SOURCES)
     t0 = time.perf_counter()
     build.load_libraries(*sources)
@@ -334,20 +347,26 @@ def main() -> None:
             if "Function properties" in line or "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     for name in sources:
-        if name in ("attention_qkv_fwd", "attention_qkv_bwd", "ffn_mega", "flash_kv"):
-            for kernel, hmma, hgmma in tensor_core_counts(name):
-                print(f"  {name}: {kernel}: {hmma} HMMA, {hgmma} HGMMA")
+        if name in ("attention_qkv_fwd", "attention_qkv_bwd", "ffn_mega", "flash_kv", "conv_gelu"):
+            for kernel, hmma, hgmma, tma in tensor_core_counts(name):
+                print(f"  {name}: {kernel}: {hmma} HMMA, {hgmma} HGMMA, {tma} UTMALDG")
                 if name == "flash_kv" and any(p in kernel for p in FLASH_KV_PRODUCTS) and \
                         not hmma + hgmma:
                     failures.append(f"{kernel} has no tensor-core instruction")
+                if name == "conv_gelu" and "wgmma_kernel" in kernel and not (hgmma and tma):
+                    failures.append(f"{kernel} has no HGMMA or no UTMALDG")
     gen = torch.Generator(device="cuda").manual_seed(0)
     if "--ffn" in sys.argv:
         check_ffn(gen)
     elif "--flash-kv" in sys.argv:
         check_flash_kv(gen)
+    elif "--conv" in sys.argv:
+        check_conv(gen)
+        if not failures:
+            chip_smoke.phase_conv_kernel()
     else:
         check_attention(gen)
-    if not {"--attention", "--ffn", "--flash-kv"} & set(sys.argv):
+    if not {"--attention", "--ffn", "--flash-kv", "--conv"} & set(sys.argv):
         check_conv(gen)
         check_ffn(gen)
     print("SOME_FAILED: " + ", ".join(failures) if failures else "ALL_OK")

@@ -105,6 +105,31 @@ def test_delays_beyond_the_taps_match_float64():
         np.testing.assert_allclose(got, ref, atol=2e-4 * np.abs(ref).max(), rtol=1e-3)
 
 
+@pytest.mark.parametrize("seed", [5, 6])
+def test_plain_forward_beyond_the_taps_is_float64_rounded_once(seed):
+    """Delays beyond the taps (|round(d)| > 20, up to the beamformer's 41.25 samples, with
+    integers), unit-normal rows, as the card's K7 checks draw them. There the weights
+    alternate in sign and their sum cancels (condition factor ~100-300), and the elements
+    that missed the card's 1e-5 / 1e-5 bar were small |y|. The plain forward (float64 weights
+    and sums beyond the taps, one rounding) must give y and s within one float32 ulp of the
+    same function evaluated in float64 (float64 copies of x and d, the same taps) at every
+    such sample, the smallest |y| included."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(4, 2000)).astype(np.float32))
+    d = rng.uniform(20.5, 41.25, size=x.shape).astype(np.float32)
+    hit = rng.random(d.shape) < 0.05
+    d[hit] = rng.integers(21, 42, size=int(hit.sum())).astype(np.float32)
+    d = torch.from_numpy(d)
+    y, s = sinc_delay.sinc_fwd_reference(x, d, WINDOW)
+    y64, s64 = sinc_delay.sinc_fwd_reference(x.double(), d.double(), WINDOW)
+    assert y.dtype == s.dtype == torch.float32 and y64.dtype == torch.float64
+    small = y64.abs() < 1.0
+    assert small.sum() > 100                                  # the elements that missed
+    for got, ref in ((y, y64), (s, s64)):
+        ulp = np.spacing(ref.abs().float().numpy())
+        assert (np.abs(got.double().numpy() - ref.numpy()) <= ulp).all()
+
+
 def test_entry_points_and_fold():
     """Forward ``(y, s)``, ``grad_d`` and ``grad_x`` + fold, one by one, vs the JAX kernels'
     pieces (``_norm_sum`` for s)."""

@@ -8,8 +8,10 @@
 // out_len = (Tin - 3) / 2 + 1:
 //   forward:  y[b, o, t] = sum_{c, j} w[o, c, j] x[b, c, 2t + j], products of the input
 //             dtype summed in float32; pre = round_T(y), out = round_T(gelu(y)) with the
-//             erf GELU (gelu.cuh's rational erf, the JAX kernel's _gelu_exact) in every dtype.
-//   backward: dpre = round_T(g * gelu'(pre)) (the gradient taken at the rounded pre);
+//             erf GELU (gelu.cuh's rational erf, the JAX kernel's _gelu_exact) in every dtype
+//             (in bfloat16 its divisions as products, a few float ulp below bf16 rounding).
+//   backward: dpre = round_T(g * gelu'(pre)) (the gradient taken at the rounded pre; in
+//             bfloat16 in the plain version's order of operations, the same bits);
 //             dx[b, c, s] = sum_{o, j: s = 2t + j} w[o, c, j] dpre[b, o, t] and
 //             dw[o, c, j] = sum_{b, t} dpre[b, o, t] x[b, c, 2t + j], float32 sums, dw from
 //             per-block float32 partials reduced in a second pass (no atomics). Input rows
@@ -21,30 +23,49 @@
 // 0.98 ms at 989 TFLOP/s, against 2.5 GB of x, out and pre (0.75 ms at 3.35 TB/s):
 // operations. The backward (dx and dw) is twice the products, 1.95 ms. On the TPU the frame
 // view [B, T/2, 2C] is a free VMEM reindexing of channels-last blocks with an 8-row halo
-// from conv_time_plan's padding; here the layout is channels-first with exact, odd lengths
-// (a row of x starts at any 2-byte offset), so the design is three GEMMs over mma.sync
-// m16n8k16 bf16 tiles (mma_tile.cuh; float32 is the same tiling in FMAs) whose "data"
-// operand is gathered through registers into shared memory, with every block edge guarded:
+// from conv_time_plan's padding; here the layout is channels-first with exact, odd lengths:
+// a row of x (25598 bytes) or of out (12798) starts at any 2-byte offset, and a tensor map
+// needs every row stride to be a multiple of 16 bytes (and, as measured on the card, every
+// box to start at a 16-byte column: a one-element shift along the contiguous axis cannot be
+// loaded). So the bfloat16 bodies make the JAX kernel's frame view once and run three Hopper
+// GEMMs on it (wgmma_tile.cuh: TMA with the 128-byte swizzle into a 4-slot mbarrier ring, one
+// producer warp, two ping-pong consumer groups of two warpgroups on wgmma m64n128k16, 128 x
+// 128 tiles, one block an SM), each tap's shift a shift of the rows a k step reads:
+//   * pack: xf [B, out_len + 1, 2 Cin], row u = (x[:, 2u], x[:, 2u + 1]), zero past T (row
+//     out_len holds x[2 out_len], the last frame's tap-2 input), transposed through shared
+//     memory and written in 16-byte runs. The backward reads xf, not x (no second pack).
+//   * forward: M = Cout, N = the frames of one batch (tiles of 128, the one past out_len
+//     skipped), K = 3 Cin in the weight re-laid as wr [Cout, 3 Cin] (k = tap Cin + c): the k
+//     steps of the first 2 Cin read xf at row n, the last Cin at row n + 1. Both operands
+//     K-major. The epilogue stages the tile through shared memory twice (pre, then the erf
+//     GELU of the float32 sums, its divisions as products: only the 8 warps of a group run
+//     it, and the IEEE divisions' branches kept it from overlapping the other group's
+//     products), and each warp writes a row's 128 frames as 64 contiguous bytes a store (out
+//     and pre rows start at any 2-byte offset).
+//   * dpre: one elementwise pass, g and pre -> dpre_t [B, P, Cout], channels last, the frame
+//     axis padded with zeros to P = out_len + 1 rounded up to 64 (transposed through shared
+//     memory).
+//   * dx: M = 64 channels, N = 128 pairs u of one batch (rows 2u and 2u + 1), K = Cout, both
+//     operands K-major (wx, the weight re-laid per 64 channels as [w0^T; w1^T; w2^T], and
+//     dpre_t). Warpgroup 0 sums the even rows: tap 0 at frame u and tap 2 at frame u - 1 (row
+//     u - 1 of dpre_t: the previous batch's zero pad, or a zero fill before the first row);
+//     warpgroup 1 the odd rows: tap 1 at u (it idles in the tap-2 k steps). So one tile
+//     holds both rows of each pair and writes each channel's 256 outputs as one run. Row
+//     2 out_len gets only the tap-2 term and row 2 out_len + 1 zero, from the pad.
+//   * dW: M = Cout, N = 3 Cin, K = the padded frames of a range of (batch, 64-frame) steps:
+//     A = dpre_t M-major (transpose-A), B = xf N-major (transpose-B), tap 2 at row t + 1; the
+//     pad rows of dpre_t are zero, so frames past out_len add nothing. Float32 partials
+//     [P, Cout, 3 Cin] over P ranges, summed in a fixed order by a last pass (no atomics).
+// Products in bf16 with float32 sums; pre rounded to bf16, the GELU and its gradient from
+// the float32 sums and from the rounded pre. The float32 bodies keep the earlier design:
+// three GEMMs over the mma_tile.cuh tiling in FMAs whose data operand is gathered through
+// registers (scalar loads, every block edge guarded), so float32 checks stay tight:
 //   * forward: M = Cout (128), N = frames (128), K = (c, j) in steps of 16 channels x 3
-//     taps. The weight tile is a cp.async copy of w's contiguous [o, 3c + j] rows; the
-//     frame tile is built from the 257 input samples the 128 frames read, each channel's
-//     even samples written to its tap-0 and (one frame earlier) tap-2 rows, its odd samples
-//     to its tap-1 row (an in-shared-memory im2col, ldmatrix.trans reads it). The epilogue
-//     writes pre and out.
-//   * dpre: one elementwise pass (g, pre -> dpre), so the two products read it once each
-//     instead of recomputing the erf per tile.
-//   * dx: M = Cin (128), N = 64 output pairs u (rows 2u and 2u + 1), K = Cout in steps of
-//     32, two accumulators: even rows take w0^T dpre[u] + w2^T dpre[u - 1], odd rows
-//     w1^T dpre[u]. The weight arrives re-laid as wt [3][Cin][Cout] (a 1.5 MB copy by the
-//     caller); dpre is staged twice, at u and shifted by one frame.
-//   * dw: M = Cout (128), N = Cin of one tap (128), K = the rows (b, t) of one of P ranges
-//     in steps of 32, written as float32 partials [P, Cout, 3 Cin]; a last pass sums the P
-//     partials in a fixed order into dw [Cout, Cin, 3] in the weight's dtype.
-// The data tiles are gathered with scalar loads (odd lengths break 16-byte alignment) into
-// registers one k step ahead, two bf16 values to a register, so their latency hides behind
-// the previous step's products; the weight tiles are double-buffered cp.async copies; in
-// bf16 every kernel fits 128 registers, so two blocks share an SM. TMA/wgmma, vector loads
-// and channels-last staging are the later steps.
+//     taps; the frame tile is an in-shared-memory im2col of the 257 samples 128 frames read.
+//   * dx: M = Cin (128), N = 64 output pairs u, K = Cout in steps of 32, two accumulators
+//     (even rows w0^T dpre[u] + w2^T dpre[u - 1], odd rows w1^T dpre[u]); wt [3][Cin][Cout].
+//   * dw: M = Cout (128), N = Cin of one tap (128), K = the rows (b, t) of one of P ranges,
+//     float32 partials [P, Cout, 3 Cin] summed by the same last pass.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,6 +75,7 @@
 
 #include "gelu.cuh"
 #include "mma_tile.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
@@ -66,6 +88,8 @@ using w2v::Tiling;
 using w2v::to_float;
 using w2v::warp_tile;
 
+// ---- float32 bodies (mma_tile.cuh; the templates serve T = float, the reduce both) ---------
+
 constexpr int kFwdChannels = 16;                 // input channels per forward k step
 
 template <typename T>
@@ -75,15 +99,13 @@ using DxTile = Tiling<T, 128, 64, 32, 32, 32, true, 1>;
 template <typename T>
 using DwTile = Tiling<T, 128, 128, 32, 64, 32, false, 1>;
 
-// A pair of values of T in one register (bf16) or two (float32): the forward's prefetch.
+// A pair of values of T: the forward's prefetch.
 template <typename T> struct PairOf;
 template <> struct PairOf<float> { using type = float2; };
-template <> struct PairOf<__nv_bfloat16> { using type = __nv_bfloat162; };
 
-// Two blocks per SM in bf16 (registers capped at 128 a thread), one in float32, whose
-// FMA tiles need more.
+// One block an SM: the float32 FMA tiles need the registers.
 template <typename T>
-constexpr int kMinBlocks = sizeof(T) == 2 ? 2 : 1;
+constexpr int kMinBlocks = 1;
 
 template <class G>
 __device__ __forceinline__ void zero(float (&acc)[G::MT][G::NT][4]) {
@@ -404,6 +426,262 @@ __global__ void conv_gelu_dw_reduce_kernel(const float* __restrict__ parts, T* _
   }
 }
 
+// ---- bfloat16 bodies: the frame view and three GEMMs on wgmma (wgmma_tile.cuh) ------------
+
+using bf16 = __nv_bfloat16;
+using w2v::kGemmBK;
+using w2v::kGemmBM;
+using w2v::kGemmBN;
+using Acc = float[w2v::kGemmAcc];
+using KMajor = w2v::WgmmaTiling<false>;         // forward (wr, xf) and dx (wx, dpre_t)
+using MNMajor = w2v::WgmmaTiling<true, true>;   // dW: dpre_t M-major, xf N-major
+constexpr int kLd = w2v::kStageLd;
+constexpr int kTr = 64;                         // a transpose block: 64 channels x 64 frames
+constexpr int kPackFrames = 64;                 // frames of a pack block
+constexpr int kTrThreads = 256;
+
+__device__ __forceinline__ uint32_t bits(bf16 v) { return __bfloat16_as_ushort(v); }
+
+// xf[b, u, j Cin + c] = x[b, c, 2u + j] (0 past T) for u < frames = out_len + 1. A block
+// takes kPackFrames frames x 64 channels: each warp reads channel rows (a warp's two loads
+// cover 128 contiguous bytes), the pairs (x[2u], x[2u + 1]) go through shared memory as one
+// 32-bit word each, and each thread writes 8 channels of a frame's even and odd halves as
+// two 16-byte stores.
+__global__ void __launch_bounds__(kTrThreads)
+conv_pack_kernel(const bf16* __restrict__ x, bf16* __restrict__ xf, int cin, int tin,
+                 int frames) {
+  __shared__ uint32_t tile[kTr][kPackFrames + 1];   // [c][u]
+  const int u0 = blockIdx.x * kPackFrames, c0 = blockIdx.y * kTr, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < kTr; r += kTrThreads / 32) {
+    const bf16* row = x + (static_cast<size_t>(b) * cin + c0 + r) * tin;
+#pragma unroll
+    for (int q = lane; q < kPackFrames; q += 32) {
+      const int s = 2 * (u0 + q);
+      const uint32_t lo = s < tin ? bits(row[s]) : 0u, hi = s + 1 < tin ? bits(row[s + 1]) : 0u;
+      tile[r][q] = lo | hi << 16;
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kPackFrames * kTr / 8; i += kTrThreads) {
+    const int cg = i % (kTr / 8), q = i / (kTr / 8);
+    if (u0 + q >= frames) break;
+    uint32_t w[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) w[e] = tile[8 * cg + e][q];
+    const uint4 even = make_uint4(__byte_perm(w[0], w[1], 0x5410), __byte_perm(w[2], w[3], 0x5410),
+                                  __byte_perm(w[4], w[5], 0x5410), __byte_perm(w[6], w[7], 0x5410));
+    const uint4 odd = make_uint4(__byte_perm(w[0], w[1], 0x7632), __byte_perm(w[2], w[3], 0x7632),
+                                 __byte_perm(w[4], w[5], 0x7632), __byte_perm(w[6], w[7], 0x7632));
+    bf16* dst = xf + (static_cast<size_t>(b) * frames + u0 + q) * 2 * cin + c0 + 8 * cg;
+    *reinterpret_cast<uint4*>(dst) = even;
+    *reinterpret_cast<uint4*>(dst + cin) = odd;
+  }
+}
+
+// dpre_t[b, t, o] = round(g[b, o, t] gelu'(pre[b, o, t])) for t < out_len, 0 up to the
+// padded frame count: the gradient taken at the rounded pre (in the plain version's order of
+// operations: the same bits), channels last, through shared memory as the pack (each thread
+// writes 8 outputs o of one frame as a 16-byte store).
+__global__ void __launch_bounds__(kTrThreads)
+conv_dpre_kernel(const bf16* __restrict__ g, const bf16* __restrict__ pre,
+                 bf16* __restrict__ dpre_t, int cout, int out_len, int frames_pad) {
+  // frames_pad is a multiple of kTr: every block's 64 frames are stored.
+  __shared__ bf16 tile[kTr][kTr + 2];            // [o][t]
+  const int t0 = blockIdx.x * kTr, o0 = blockIdx.y * kTr, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < kTr; r += kTrThreads / 32) {
+    const size_t row = (static_cast<size_t>(b) * cout + o0 + r) * out_len;
+#pragma unroll
+    for (int q = lane; q < kTr; q += 32) {
+      const int t = t0 + q;
+      const float d = t < out_len ? __fmul_rn(__bfloat162float(g[row + t]),
+                                              w2v::gelu_erf_grad_rn(__bfloat162float(pre[row + t])))
+                                  : 0.f;
+      tile[r][q] = __float2bfloat16(d);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kTr * kTr / 8; i += kTrThreads) {
+    const int og = i % (kTr / 8), q = i / (kTr / 8);
+    uint32_t w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      w[e] = bits(tile[8 * og + 2 * e][q]) | bits(tile[8 * og + 2 * e + 1][q]) << 16;
+    *reinterpret_cast<uint4*>(dpre_t + (static_cast<size_t>(b) * frames_pad + t0 + q) * cout + o0 +
+                              8 * og) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// f(sum) of the calling warpgroup's 64 rows, rounded to bf16, into its group's staging tile
+// [128][kLd] (4-byte stores: the 8 rows x 4 pairs of a warp's store hit 32 banks).
+template <class F>
+__device__ __forceinline__ void stage(bf16* tile, const Acc& acc, F f) {
+  const int lane = threadIdx.x & 31;
+  const int r = (w2v::group_thread() / 128) * 64 + ((threadIdx.x / 32) & 3) * 16 + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < w2v::kGemmBN / 8; ++j) {
+    const int c = 8 * j + 2 * (lane & 3);
+    *reinterpret_cast<__nv_bfloat162*>(tile + r * kLd + c) =
+        __floats2bfloat162_rn(f(acc[4 * j]), f(acc[4 * j + 1]));
+    *reinterpret_cast<__nv_bfloat162*>(tile + (r + 8) * kLd + c) =
+        __floats2bfloat162_rn(f(acc[4 * j + 2]), f(acc[4 * j + 3]));
+  }
+}
+
+// The staged tile [kRows][kTileLd]'s row r, columns 0 .. cols - 1, to dst + r * ld +
+// column: warp w of the group takes rows w, w + 8, ..., its lanes 32 consecutive columns a
+// store (64 contiguous bytes).
+template <int kRows, int kCols, int kTileLd>
+__device__ __forceinline__ void write_rows(const bf16* tile, bf16* __restrict__ dst, size_t ld,
+                                           int cols) {
+  const int warp = w2v::group_thread() / 32, lane = threadIdx.x & 31;
+#pragma unroll 4
+  for (int r = warp; r < kRows; r += w2v::kGemmGroup / 32)
+#pragma unroll
+    for (int c = lane; c < kCols; c += 32)
+      if (c < cols) dst[r * ld + c] = tile[r * kTileLd + c];
+}
+
+// Forward tiles: per batch ceil(out_len / 128) frame tiles, each taken by the Cout / 128 row
+// tiles in turn (row tiles fastest: the blocks that share a frame tile run together and
+// read it once from device memory).
+struct FwdSchedule {
+  int m_tiles, f_tiles, tiles, k_tiles, k_pair, frames;   // k_pair: k steps of taps 0, 1
+  __device__ __forceinline__ int steps(int) const { return k_tiles; }
+  __device__ __forceinline__ bool mma(int, int, int) const { return true; }
+  __device__ __forceinline__ int m0(int t) const { return t % m_tiles * kGemmBM; }
+  __device__ __forceinline__ int t0(int t) const { return t / m_tiles % f_tiles * kGemmBN; }
+  __device__ __forceinline__ int batch(int t) const { return t / m_tiles / f_tiles; }
+  __device__ __forceinline__ int2 a(int t, int kt) const { return make_int2(kt * kGemmBK, m0(t)); }
+  __device__ __forceinline__ int2 b(int t, int kt) const {
+    const int row = batch(t) * frames + t0(t);           // xf row of the tile's first frame
+    return kt < k_pair ? make_int2(kt * kGemmBK, row) : make_int2((kt - k_pair) * kGemmBK, row + 1);
+  }
+};
+
+// out, pre [B, Cout, out_len] = gelu(y), y from the maps of wr [Cout, 3 Cin] and
+// xf [B (out_len + 1), 2 Cin] (boxes of 128 rows).
+__global__ void __launch_bounds__(w2v::kGemmThreads, 1)
+conv_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mw,
+                      const __grid_constant__ CUtensorMap mx, bf16* __restrict__ out,
+                      bf16* __restrict__ pre, int cout, int out_len, const FwdSchedule sched) {
+  extern __shared__ unsigned char smem_raw[];
+  const w2v::GemmSmem<KMajor> sm(smem_raw);
+  w2v::gemm_run(sm, &mw, &mx, sched, [&](const Acc& acc, int g, int t) {
+    const int t0 = sched.t0(t), cols = min(kGemmBN, out_len - t0);
+    const size_t first = (static_cast<size_t>(sched.batch(t)) * cout + sched.m0(t)) * out_len + t0;
+    bf16* tile = sm.staging(g);
+    w2v::group_sync(g);                          // the group's previous tile is written
+    stage(tile, acc, [](float y) { return y; });
+    w2v::group_sync(g);
+    write_rows<kGemmBM, kGemmBN, kLd>(tile, pre + first, out_len, cols);
+    w2v::group_sync(g);
+    stage(tile, acc, [](float y) { return w2v::gelu_erf<true>(y); });
+    w2v::group_sync(g);
+    write_rows<kGemmBM, kGemmBN, kLd>(tile, out + first, out_len, cols);
+  });
+}
+
+// dx tiles: per batch ceil((out_len + 1) / 128) tiles of 128 pairs u, each taken by the
+// Cin / 64 channel tiles in turn (fastest). A tile's two warpgroups share its 64 channels:
+// warpgroup 0 sums the even rows 2u (tap 0 at frame u, tap 2 at u - 1), warpgroup 1 the odd
+// rows 2u + 1 (tap 1 at u). Its k steps alternate a step of taps 0 and 1 (A: the tile's
+// rows of w0^T over those of w1^T, B: dpre_t at frames u) and a step of tap 2 (A: its rows
+// of w2^T, B: frames u - 1), in which warpgroup 1 idles. The weight arrives as wx
+// [Cin / 64][3][64][Cout], so each A box is 128 consecutive rows.
+struct DxSchedule {
+  int m_tiles, u_tiles, tiles, k_o, frames_pad;          // k_o: k steps of one tap
+  __device__ __forceinline__ int steps(int) const { return 2 * k_o; }
+  __device__ __forceinline__ bool mma(int, int kt, int wg) const { return wg == 0 || !(kt & 1); }
+  __device__ __forceinline__ int m_tile(int t) const { return t % m_tiles; }
+  __device__ __forceinline__ int u0(int t) const { return t / m_tiles % u_tiles * kGemmBN; }
+  __device__ __forceinline__ int batch(int t) const { return t / m_tiles / u_tiles; }
+  __device__ __forceinline__ int2 a(int t, int kt) const {
+    return make_int2(kt / 2 * kGemmBK, m_tile(t) * 3 * 64 + (kt & 1) * 2 * 64);
+  }
+  __device__ __forceinline__ int2 b(int t, int kt) const {
+    return make_int2(kt / 2 * kGemmBK, batch(t) * frames_pad + u0(t) - (kt & 1));
+  }
+};
+
+constexpr int kDxLd = 2 * kGemmBN + 8;          // a dx staging row: 256 outputs and a pad
+static_assert(64 * kDxLd * 2 <= KMajor::STAGING_BYTES, "dx staging tile");
+
+// dx [B, Cin, T] from the maps of wx and dpre_t [B P, Cout] (boxes of 128 rows): each
+// warpgroup stages its rows' sums interleaved (row 2u + wg at column 2 (u - u0) + wg), and
+// the tile's 64 channels are written as runs of 256 outputs, each below T.
+__global__ void __launch_bounds__(w2v::kGemmThreads, 1)
+conv_dx_wgmma_kernel(const __grid_constant__ CUtensorMap mw,
+                     const __grid_constant__ CUtensorMap md, bf16* __restrict__ dx, int cin,
+                     int tin, const DxSchedule sched) {
+  extern __shared__ unsigned char smem_raw[];
+  const w2v::GemmSmem<KMajor> sm(smem_raw);
+  w2v::gemm_run(sm, &mw, &md, sched, [&](const Acc& acc, int g, int t) {
+    const int s0 = 2 * sched.u0(t), lane = threadIdx.x & 31, wg = w2v::group_thread() / 128;
+    const size_t first =
+        (static_cast<size_t>(sched.batch(t)) * cin + sched.m_tile(t) * 64) * tin + s0;
+    bf16* tile = sm.staging(g);
+    w2v::group_sync(g);
+    const int r = ((threadIdx.x / 32) & 3) * 16 + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < w2v::kGemmBN / 8; ++j) {
+      const int c = 2 * (8 * j + 2 * (lane & 3)) + wg;
+      tile[r * kDxLd + c] = __float2bfloat16(acc[4 * j]);
+      tile[r * kDxLd + c + 2] = __float2bfloat16(acc[4 * j + 1]);
+      tile[(r + 8) * kDxLd + c] = __float2bfloat16(acc[4 * j + 2]);
+      tile[(r + 8) * kDxLd + c + 2] = __float2bfloat16(acc[4 * j + 3]);
+    }
+    w2v::group_sync(g);
+    write_rows<64, 2 * kGemmBN, kDxLd>(tile, dx + first, tin, tin - s0);
+  });
+}
+
+// dW tiles: P ranges of the B P / 64 (batch, 64-frame) k steps, each range taken by the
+// (Cout / 128) x (3 Cin / 128) output tiles (row tiles fastest); the last range may be
+// shorter.
+struct DwSchedule {
+  int m_tiles, n_tiles, tiles, chunk, total, spb;        // spb: k steps a batch
+  int cin, frames, frames_pad;
+  __device__ __forceinline__ int part(int t) const { return t / (m_tiles * n_tiles); }
+  __device__ __forceinline__ int steps(int t) const { return min(chunk, total - part(t) * chunk); }
+  __device__ __forceinline__ bool mma(int, int, int) const { return true; }
+  __device__ __forceinline__ int m0(int t) const { return t % m_tiles * kGemmBM; }
+  __device__ __forceinline__ int n0(int t) const { return t / m_tiles % n_tiles * kGemmBN; }
+  __device__ __forceinline__ int2 a(int t, int kt) const {
+    const int s = part(t) * chunk + kt;
+    return make_int2(m0(t), s / spb * frames_pad + s % spb * kGemmBK);
+  }
+  __device__ __forceinline__ int2 b(int t, int kt) const {
+    const int s = part(t) * chunk + kt, n = n0(t);
+    const int row = s / spb * frames + s % spb * kGemmBK;
+    return n < 2 * cin ? make_int2(n, row) : make_int2(n - 2 * cin, row + 1);
+  }
+};
+
+// Float32 partials parts[p, o, k] of dW_r = dpre^T xf over range p, from the maps of dpre_t
+// and xf (boxes of 64 rows), written from the accumulators (8-byte stores).
+__global__ void __launch_bounds__(w2v::kGemmThreads, 1)
+conv_dw_wgmma_kernel(const __grid_constant__ CUtensorMap md,
+                     const __grid_constant__ CUtensorMap mx, float* __restrict__ parts, int cout,
+                     const DwSchedule sched) {
+  extern __shared__ unsigned char smem_raw[];
+  const w2v::GemmSmem<MNMajor> sm(smem_raw);
+  w2v::gemm_run(sm, &md, &mx, sched, [&](const Acc& acc, int, int t) {
+    const int lane = threadIdx.x & 31;
+    const int r = sched.m0(t) + (w2v::group_thread() / 128) * 64 + ((threadIdx.x / 32) & 3) * 16 +
+                  (lane >> 2);
+    float* row = parts + (static_cast<size_t>(sched.part(t)) * cout + r) * 3 * sched.cin +
+                 sched.n0(t) + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < w2v::kGemmBN / 8; ++j) {
+      *reinterpret_cast<float2*>(row + 8 * j) = make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(row + 8 * static_cast<size_t>(3 * sched.cin) + 8 * j) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  });
+}
+
 template <typename K>
 cudaError_t set_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -416,40 +694,60 @@ int blocks_for(long long n) {
   return static_cast<int>(b < 4096 ? b : 4096);
 }
 
-template <typename T>
-int fwd(const T* x, const T* w, T* out, T* pre, int batch, int cin, int tin, int cout,
-        int out_len, cudaStream_t st) {
-  using G = FwdTile<T>;
-  auto kernel = conv_gelu_fwd_kernel<T>;
-  cudaError_t err = set_smem(kernel, fwd_smem<T>());
+int sm_count() {
+  int device = 0, sms = 132;
+  if (cudaGetDevice(&device) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  return sms;
+}
+
+// The persistent grid of a wgmma kernel: one block an SM, no more blocks than tiles.
+int persistent(int tiles) { return tiles < sm_count() ? tiles : sm_count(); }
+
+int fwd_f32(const float* x, const float* w, float* out, float* pre, int batch, int cin, int tin,
+            int cout, int out_len, cudaStream_t st) {
+  using G = FwdTile<float>;
+  auto kernel = conv_gelu_fwd_kernel<float>;
+  cudaError_t err = set_smem(kernel, fwd_smem<float>());
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3((out_len + G::BN - 1) / G::BN, cout / G::BM, batch), kThreads, fwd_smem<T>(),
+  kernel<<<dim3((out_len + G::BN - 1) / G::BN, cout / G::BM, batch), kThreads, fwd_smem<float>(),
            st>>>(x, w, out, pre, cin, tin, cout, out_len);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int bwd(const T* x, const T* wt, const T* pre, const T* g, T* dpre, T* dx, float* parts, T* dw,
-        int batch, int cin, int tin, int cout, int out_len, int n_parts, bool need_dx,
-        bool need_dw, cudaStream_t st) {
+int reduce_dw(const float* parts, void* dw, int n_parts, int cin, int cout, bool bf16_out,
+              cudaStream_t st) {
+  const int blocks = blocks_for(static_cast<long long>(cout) * cin * 3);
+  if (bf16_out)
+    conv_gelu_dw_reduce_kernel<bf16><<<blocks, kElemThreads, 0, st>>>(
+        parts, static_cast<bf16*>(dw), n_parts, cin, cout);
+  else
+    conv_gelu_dw_reduce_kernel<float><<<blocks, kElemThreads, 0, st>>>(
+        parts, static_cast<float*>(dw), n_parts, cin, cout);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int bwd_f32(const float* x, const float* wt, const float* pre, const float* g, float* dpre,
+            float* dx, float* parts, float* dw, int batch, int cin, int tin, int cout,
+            int out_len, int n_parts, bool need_dx, bool need_dw, cudaStream_t st) {
   const long long n = static_cast<long long>(batch) * cout * out_len;
-  conv_gelu_dpre_kernel<T><<<blocks_for(n), kElemThreads, 0, st>>>(g, pre, dpre, n);
+  conv_gelu_dpre_kernel<float><<<blocks_for(n), kElemThreads, 0, st>>>(g, pre, dpre, n);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (need_dx) {
-    using G = DxTile<T>;
-    auto kernel = conv_gelu_dx_kernel<T>;
-    err = set_smem(kernel, dx_smem<T>());
+    using G = DxTile<float>;
+    auto kernel = conv_gelu_dx_kernel<float>;
+    err = set_smem(kernel, dx_smem<float>());
     if (err != cudaSuccess) return static_cast<int>(err);
     const int pairs = (tin + 1) / 2;
-    kernel<<<dim3((pairs + G::BN - 1) / G::BN, cin / G::BM, batch), kThreads, dx_smem<T>(),
+    kernel<<<dim3((pairs + G::BN - 1) / G::BN, cin / G::BM, batch), kThreads, dx_smem<float>(),
              st>>>(dpre, wt, dx, cin, tin, cout, out_len);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (need_dw) {
-    using G = DwTile<T>;
-    auto kernel = conv_gelu_dw_kernel<T>;
+    using G = DwTile<float>;
+    auto kernel = conv_gelu_dw_kernel<float>;
     err = set_smem(kernel, G::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     const long long total = static_cast<long long>(batch) * out_len;
@@ -458,9 +756,75 @@ int bwd(const T* x, const T* wt, const T* pre, const T* g, T* dpre, T* dx, float
         dpre, x, parts, batch, cin, tin, cout, out_len, chunk);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    conv_gelu_dw_reduce_kernel<T><<<blocks_for(static_cast<long long>(cout) * cin * 3),
-                                    kElemThreads, 0, st>>>(parts, dw, n_parts, cin, cout);
+    return reduce_dw(parts, dw, n_parts, cin, cout, false, st);
+  }
+  return static_cast<int>(err);
+}
+
+int pack_bf16(const bf16* x, bf16* xf, int batch, int cin, int tin, int out_len,
+              cudaStream_t st) {
+  const int frames = out_len + 1;
+  conv_pack_kernel<<<dim3((frames + kPackFrames - 1) / kPackFrames, cin / kTr, batch),
+                     kTrThreads, 0, st>>>(x, xf, cin, tin, frames);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int fwd_bf16(const bf16* xf, const bf16* wr, bf16* out, bf16* pre, int batch, int cin, int cout,
+             int out_len, cudaStream_t st) {
+  const int frames = out_len + 1;
+  CUtensorMap mw, mx;
+  if (!w2v::tensor_map(&mw, wr, cout, 3 * cin, kGemmBM) ||
+      !w2v::tensor_map(&mx, xf, batch * frames, 2 * cin, kGemmBN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  FwdSchedule sched{cout / kGemmBM, (out_len + kGemmBN - 1) / kGemmBN, 0, 3 * cin / kGemmBK,
+                    2 * cin / kGemmBK, frames};
+  sched.tiles = sched.m_tiles * sched.f_tiles * batch;
+  const cudaError_t err = set_smem(conv_fwd_wgmma_kernel, KMajor::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  conv_fwd_wgmma_kernel<<<persistent(sched.tiles), w2v::kGemmThreads, KMajor::SMEM, st>>>(
+      mw, mx, out, pre, cout, out_len, sched);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int bwd_bf16(const bf16* xf, const bf16* wx, const bf16* pre, const bf16* g, bf16* dpre_t,
+             bf16* dx, float* parts, bf16* dw, int batch, int cin, int tin, int cout, int out_len,
+             int frames_pad, int n_parts, bool need_dx, bool need_dw, cudaStream_t st) {
+  const int frames = out_len + 1;
+  conv_dpre_kernel<<<dim3(frames_pad / kTr, cout / kTr, batch), kTrThreads, 0, st>>>(
+      g, pre, dpre_t, cout, out_len, frames_pad);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (need_dx) {
+    CUtensorMap mw, md;
+    if (!w2v::tensor_map(&mw, wx, 3 * cin, cout, kGemmBM) ||
+        !w2v::tensor_map(&md, dpre_t, batch * frames_pad, cout, kGemmBN))
+      return static_cast<int>(cudaErrorInvalidValue);
+    DxSchedule sched{cin / 64, (frames + kGemmBN - 1) / kGemmBN, 0, cout / kGemmBK, frames_pad};
+    sched.tiles = sched.m_tiles * sched.u_tiles * batch;
+    err = set_smem(conv_dx_wgmma_kernel, KMajor::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    conv_dx_wgmma_kernel<<<persistent(sched.tiles), w2v::kGemmThreads, KMajor::SMEM, st>>>(
+        mw, md, dx, cin, tin, sched);
     err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (need_dw) {
+    CUtensorMap md, mx;                          // boxes of 64 k rows x 64 columns
+    if (!w2v::tensor_map(&md, dpre_t, batch * frames_pad, cout, kGemmBK) ||
+        !w2v::tensor_map(&mx, xf, batch * frames, 2 * cin, kGemmBK))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int spb = frames_pad / kGemmBK, total = batch * spb;
+    const int chunk = (total + n_parts - 1) / n_parts, parts_used = (total + chunk - 1) / chunk;
+    DwSchedule sched{cout / kGemmBM, 3 * cin / kGemmBN, 0, chunk, total, spb, cin, frames,
+                     frames_pad};
+    sched.tiles = parts_used * sched.m_tiles * sched.n_tiles;
+    err = set_smem(conv_dw_wgmma_kernel, MNMajor::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    conv_dw_wgmma_kernel<<<persistent(sched.tiles), w2v::kGemmThreads, MNMajor::SMEM, st>>>(
+        md, mx, parts, cout, sched);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return reduce_dw(parts, dw, parts_used, cin, cout, true, st);
   }
   return static_cast<int>(err);
 }
@@ -472,57 +836,70 @@ bool bad_shape(int batch, int cin, int tin, int cout, int out_len) {
 
 }  // namespace
 
-// C entry points, bound with ctypes. dtype: 0 = float32, 1 = bfloat16 for x, w, wt, out,
-// pre, g, dpre, dx and dw; parts is float32 scratch [n_parts, Cout, 3 Cin]. Cin and Cout
-// must be multiples of 128 and out_len = (Tin - 3) / 2 + 1. Each returns the cudaError_t of
-// its launches (0 = launched); the caller raises on anything else.
+// C entry points, bound with ctypes. Cin and Cout must be multiples of 128 and
+// out_len = (Tin - 3) / 2 + 1. Each returns the cudaError_t of its launches (0 = launched);
+// the caller raises on anything else.
 
-// Forward: x [B, Cin, Tin], w [Cout, Cin, 3] -> out, pre [B, Cout, out_len].
-extern "C" int conv_gelu_fwd(const void* x, const void* w, void* out, void* pre, int batch,
-                             int cin, int tin, int cout, int out_len, int dtype, void* stream) {
+// Float32: x [B, Cin, Tin], w [Cout, Cin, 3] -> out, pre [B, Cout, out_len].
+extern "C" int conv_gelu_fwd_f32(const void* x, const void* w, void* out, void* pre, int batch,
+                                 int cin, int tin, int cout, int out_len, void* stream) {
   if (bad_shape(batch, cin, tin, cout, out_len)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return fwd<float>(static_cast<const float*>(x), static_cast<const float*>(w),
-                        static_cast<float*>(out), static_cast<float*>(pre), batch, cin, tin,
-                        cout, out_len, st);
-    case 1:
-      return fwd<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(x),
-                                static_cast<const __nv_bfloat16*>(w),
-                                static_cast<__nv_bfloat16*>(out), static_cast<__nv_bfloat16*>(pre),
-                                batch, cin, tin, cout, out_len, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return fwd_f32(static_cast<const float*>(x), static_cast<const float*>(w),
+                 static_cast<float*>(out), static_cast<float*>(pre), batch, cin, tin, cout,
+                 out_len, static_cast<cudaStream_t>(stream));
 }
 
-// Backward: from x, wt = w re-laid as [3, Cin, Cout], pre and the cotangent g of out, the
-// kernels write dpre [B, Cout, out_len] (scratch), dx [B, Cin, Tin] (need_dx) and
-// dw [Cout, Cin, 3] (need_dw, through parts).
-extern "C" int conv_gelu_bwd(const void* x, const void* wt, const void* pre, const void* g,
-                             void* dpre, void* dx, void* parts, void* dw, int batch, int cin,
-                             int tin, int cout, int out_len, int n_parts, int need_dx,
-                             int need_dw, int dtype, void* stream) {
+// Float32 backward: from x, wt = w re-laid as [3, Cin, Cout], pre and the cotangent g of out,
+// the kernels write dpre [B, Cout, out_len] (scratch), dx [B, Cin, Tin] (need_dx) and
+// dw [Cout, Cin, 3] (need_dw, through the float32 partials [n_parts, Cout, 3 Cin]).
+extern "C" int conv_gelu_bwd_f32(const void* x, const void* wt, const void* pre, const void* g,
+                                 void* dpre, void* dx, void* parts, void* dw, int batch, int cin,
+                                 int tin, int cout, int out_len, int n_parts, int need_dx,
+                                 int need_dw, void* stream) {
   if (bad_shape(batch, cin, tin, cout, out_len) || n_parts <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* pp = static_cast<float*>(parts);
-  switch (dtype) {
-    case 0:
-      return bwd<float>(static_cast<const float*>(x), static_cast<const float*>(wt),
-                        static_cast<const float*>(pre), static_cast<const float*>(g),
-                        static_cast<float*>(dpre), static_cast<float*>(dx), pp,
-                        static_cast<float*>(dw), batch, cin, tin, cout, out_len, n_parts,
-                        need_dx != 0, need_dw != 0, st);
-    case 1:
-      return bwd<__nv_bfloat16>(
-          static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wt),
-          static_cast<const __nv_bfloat16*>(pre), static_cast<const __nv_bfloat16*>(g),
-          static_cast<__nv_bfloat16*>(dpre), static_cast<__nv_bfloat16*>(dx), pp,
-          static_cast<__nv_bfloat16*>(dw), batch, cin, tin, cout, out_len, n_parts,
-          need_dx != 0, need_dw != 0, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return bwd_f32(static_cast<const float*>(x), static_cast<const float*>(wt),
+                 static_cast<const float*>(pre), static_cast<const float*>(g),
+                 static_cast<float*>(dpre), static_cast<float*>(dx), static_cast<float*>(parts),
+                 static_cast<float*>(dw), batch, cin, tin, cout, out_len, n_parts, need_dx != 0,
+                 need_dw != 0, static_cast<cudaStream_t>(stream));
+}
+
+// bfloat16, every pointer 16-byte aligned. The frame view: x [B, Cin, Tin] ->
+// xf [B, out_len + 1, 2 Cin].
+extern "C" int conv_gelu_pack_bf16(const void* x, void* xf, int batch, int cin, int tin,
+                                   int out_len, void* stream) {
+  if (bad_shape(batch, cin, tin, 128, out_len)) return static_cast<int>(cudaErrorInvalidValue);
+  return pack_bf16(static_cast<const bf16*>(x), static_cast<bf16*>(xf), batch, cin, tin, out_len,
+                   static_cast<cudaStream_t>(stream));
+}
+
+// Forward from the frame view and wr = w re-laid as [Cout, 3 Cin] (k = tap Cin + c):
+// out, pre [B, Cout, out_len].
+extern "C" int conv_gelu_fwd_bf16(const void* xf, const void* wr, void* out, void* pre, int batch,
+                                  int cin, int tin, int cout, int out_len, void* stream) {
+  if (bad_shape(batch, cin, tin, cout, out_len)) return static_cast<int>(cudaErrorInvalidValue);
+  return fwd_bf16(static_cast<const bf16*>(xf), static_cast<const bf16*>(wr),
+                  static_cast<bf16*>(out), static_cast<bf16*>(pre), batch, cin, cout, out_len,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// Backward from the frame view, wx (w re-laid as [Cin / 64][3][64][Cout]: row
+// 192 m + 64 j + i is tap j of channel 64 m + i), pre and g: dpre_t [B, frames_pad, Cout]
+// (scratch; frames_pad = out_len + 1 rounded up to 64), dx [B, Cin, Tin] (need_dx) and
+// dw [Cout, Cin, 3] (need_dw, through float32 partials [n_parts, Cout, 3 Cin]; the ranges are
+// ceil(B frames_pad / 64 / n_parts) k steps each, so fewer may be used). need_dx = need_dw = 0
+// runs the dpre pass alone.
+extern "C" int conv_gelu_bwd_bf16(const void* xf, const void* wx, const void* pre, const void* g,
+                                  void* dpre_t, void* dx, void* parts, void* dw, int batch,
+                                  int cin, int tin, int cout, int out_len, int frames_pad,
+                                  int n_parts, int need_dx, int need_dw, void* stream) {
+  if (bad_shape(batch, cin, tin, cout, out_len) || n_parts <= 0 || frames_pad % 64 ||
+      frames_pad < out_len + 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return bwd_bf16(static_cast<const bf16*>(xf), static_cast<const bf16*>(wx),
+                  static_cast<const bf16*>(pre), static_cast<const bf16*>(g),
+                  static_cast<bf16*>(dpre_t), static_cast<bf16*>(dx), static_cast<float*>(parts),
+                  static_cast<bf16*>(dw), batch, cin, tin, cout, out_len, frames_pad, n_parts,
+                  need_dx != 0, need_dw != 0, static_cast<cudaStream_t>(stream));
 }

@@ -32,21 +32,49 @@ constexpr float kInvSqrt2Pi = 0.3989422804014327f;
 constexpr float kTanhK0 = 0.7978845608028654f;   // sqrt(2 / pi)
 constexpr float kTanhK1 = 0.044715f;
 
+// kQuick: the two divisions of the form as products (x times the float 1 / sqrt(2), the
+// reciprocal by __fdividef, a few float ulp off): no branch per element, for a result
+// rounded to bfloat16 in an epilogue that few warps run (K8's bfloat16 forward).
+template <bool kQuick = false>
 __device__ __forceinline__ float erf_rational(float x) {
   const float sign = static_cast<float>((x > 0.f) - (x < 0.f));   // jnp.sign: sign(0) = 0
   const float a = fabsf(x);
-  const float t = 1.f / (1.f + 0.3275911f * a);
+  const float d = 1.f + 0.3275911f * a;
+  const float t = kQuick ? __fdividef(1.f, d) : 1.f / d;
   const float poly = t * (0.254829592f + t * (-0.284496736f + t * (1.421413741f
                      + t * (-1.453152027f + t * 1.061405429f))));
   return sign * (1.f - poly * expf(-a * a));
 }
 
+template <bool kQuick = false>
 __device__ __forceinline__ float gelu_erf(float x) {
-  return 0.5f * x * (1.f + erf_rational(x / kSqrt2));
+  return 0.5f * x * (1.f + erf_rational<kQuick>(kQuick ? x * (1.f / kSqrt2) : x / kSqrt2));
 }
 
 __device__ __forceinline__ float gelu_erf_grad(float x) {
   return 0.5f * (1.f + erf_rational(x / kSqrt2)) + x * expf(-0.5f * x * x) * kInvSqrt2Pi;
+}
+
+// gelu_erf_grad in the plain version's order of operations (ops/gelu.py) as PyTorch runs it
+// on the card: each operation rounded on its own (no contraction), x / sqrt(2) as the product
+// with the float32 reciprocal (PyTorch's division by a Python scalar). Bit for bit the plain
+// version's value, for kernels whose output is checked bit for bit.
+__device__ __forceinline__ float erf_rational_rn(float x) {
+  const float sign = static_cast<float>((x > 0.f) - (x < 0.f));
+  const float a = fabsf(x);
+  const float t = __fdiv_rn(1.f, __fadd_rn(1.f, __fmul_rn(0.3275911f, a)));
+  float poly = __fadd_rn(-1.453152027f, __fmul_rn(t, 1.061405429f));
+  poly = __fadd_rn(1.421413741f, __fmul_rn(t, poly));
+  poly = __fadd_rn(-0.284496736f, __fmul_rn(t, poly));
+  poly = __fmul_rn(t, __fadd_rn(0.254829592f, __fmul_rn(t, poly)));
+  return __fmul_rn(sign, __fsub_rn(1.f, __fmul_rn(poly, expf(__fmul_rn(-a, a)))));
+}
+
+__device__ __forceinline__ float gelu_erf_grad_rn(float x) {
+  constexpr float kInvSqrt2 = 1.f / kSqrt2;
+  const float cdf = __fmul_rn(0.5f, __fadd_rn(1.f, erf_rational_rn(__fmul_rn(x, kInvSqrt2))));
+  const float pdf = __fmul_rn(__fmul_rn(x, expf(__fmul_rn(__fmul_rn(-0.5f, x), x))), kInvSqrt2Pi);
+  return __fadd_rn(cdf, pdf);
 }
 
 __device__ __forceinline__ float gelu_tanh(float x) {

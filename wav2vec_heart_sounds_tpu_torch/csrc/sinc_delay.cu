@@ -26,11 +26,18 @@
 // ill-conditioned near it (float32 against float64: up to 7 in y for d in [20.5, 41.25]).
 // There the kernel uses the e form, the same function without the factor: weights e_k,
 // normaliser sum_k e_k, derivative de_k / dd = e_k / (c_k - d); |c_k - d| >= 0.5, so nothing
-// vanishes. The plain version (ops/kernels/sinc_delay.py) computes the same two forms.
+// vanishes. The e_k still alternate in sign and their sum cancels (sum |e_k xpad| /
+// |sum e_k| reaches ~290 on unit inputs), so float32 weights and sums leave y ~7e-4 from
+// its float64 value there, and the order of the operations decides the last bits. So the
+// e-form weights (e_k, e_k w_k, e_k w_k / z) are float64, every sum (y's two, grad_d's four)
+// is float64 in tap order, and each result is rounded to float32 once, with contraction
+// forbidden (__dmul_rn, __dadd_rn): beyond the taps y and s equal the plain version's
+// (ops/kernels/sinc_delay.py, the same operations) bit for bit. Inside the taps the weights
+// stay float32 products (sinpif against the plain version's reduced sin: ~2e-6 apart).
 //
 // What bounds it on this card: at the vest shapes (R = 96 rows of T = 8250) a pass moves
 // 3-4 arrays of 3.2 MB (a few microseconds at 3.35 TB/s) and computes 41 taps per sample:
-// a division and a few FMAs each, no per-tap sine. The design:
+// a division and a few FMAs each (float64 beyond the taps), no per-tap sine. The design:
 //   * one thread per output sample, 256 per block, grid (sample tiles, rows);
 //   * each block stages its x tile plus the K - 1 samples of halo in shared memory (the
 //     reflect padding is done there, by index, so no padded copy exists in device memory);
@@ -50,6 +57,7 @@ constexpr int kMaxTaps = 64;
 constexpr int kThreads = 256;                  // output samples per block
 constexpr int kTile = kThreads + kMaxTaps - 1; // staged samples: the tile and its halo
 constexpr float kPi = 3.14159265358979f;
+constexpr double kPi64 = 3.141592653589793;
 
 __constant__ float c_window[kMaxTaps];
 
@@ -67,17 +75,34 @@ __device__ __forceinline__ bool far_form(float dt, int half) {
   return fabsf(rintf(dt)) > static_cast<float>(half);
 }
 
-// A tap's value before its window weight, for z = c - d: sinc(z) (sd = sin(pi d)), or in
-// the e form (-1)^(c + 1) / (pi z).
-__device__ __forceinline__ float tap(int c, float z, float sd, bool far) {
-  if (far) return ((c & 1) ? 1.f : -1.f) / (kPi * z);
+// A tap's value before its window weight inside the taps, for z = c - d: sinc(z)
+// (sd = sin(pi d)), and its d/dd, -sinc'(z) with the |z| < 1e-6 branch.
+__device__ __forceinline__ float tap(int c, float z, float sd) {
   return z == 0.f ? 1.f : sin_shift(c, sd) / (kPi * z);
 }
 
-// d/dd of that value v: -sinc'(z) with the |z| < 1e-6 branch, or in the e form v / z.
-__device__ __forceinline__ float dtap(int c, float z, float v, float cd, bool far) {
-  if (far) return v / z;
+__device__ __forceinline__ float dtap(int c, float z, float v, float cd) {
   return fabsf(z) < 1e-6f ? 0.f : -(cos_shift(c, cd) - v) / z;
+}
+
+// The e form beyond the taps, in float64: e_c = (-1)^(c + 1) / (pi (c - d)) (before the
+// window weight), z = c - d exact.
+__device__ __forceinline__ double far_z(int c, float dt) {
+  return __dsub_rn(static_cast<double>(c), static_cast<double>(dt));
+}
+__device__ __forceinline__ double far_tap(int c, double z) {
+  return __ddiv_rn((c & 1) ? 1.0 : -1.0, __dmul_rn(kPi64, z));
+}
+
+// The weighted tap u_k in float64: e_k w_k beyond the taps, else the float32 sinc(z) w_k.
+__device__ __forceinline__ double weight(int c, float dt, float sd, float w, bool far) {
+  if (far) return __dmul_rn(far_tap(c, far_z(c, dt)), static_cast<double>(w));
+  return static_cast<double>(tap(c, static_cast<float>(c) - dt, sd) * w);
+}
+
+// sum += a * b in float64, the product rounded first, as the plain version's two operations.
+__device__ __forceinline__ double add_product(double sum, double a, double b) {
+  return __dadd_rn(sum, __dmul_rn(a, b));
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -97,15 +122,14 @@ sinc_delay_fwd_kernel(const float* __restrict__ x, const float* __restrict__ d,
   const float dt = d[base + t];
   const float sd = sinpif(dt);
   const bool far = far_form(dt, half);
-  float acc = 0.f, norm = 0.f;
+  double acc = 0.0, norm = 0.0;
   for (int k = 0; k < K; ++k) {
-    const int c = k - half;
-    const float u = tap(c, static_cast<float>(c) - dt, sd, far) * c_window[k];
-    norm += u;
-    acc = fmaf(u, xs[threadIdx.x + k], acc);
+    const double u = weight(k - half, dt, sd, c_window[k], far);
+    norm = __dadd_rn(norm, u);
+    acc = add_product(acc, u, xs[threadIdx.x + k]);
   }
-  y[base + t] = acc / norm;
-  s[base + t] = norm;
+  y[base + t] = __double2float_rn(__ddiv_rn(acc, norm));
+  s[base + t] = __double2float_rn(norm);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -125,21 +149,31 @@ sinc_delay_grad_d_kernel(const float* __restrict__ x, const float* __restrict__ 
   const float dt = d[base + t];
   const float sd = sinpif(dt), cd = cospif(dt);
   const bool far = far_form(dt, half);
-  float acc = 0.f, norm = 0.f, moment = 0.f, dnorm = 0.f;
+  double acc = 0.0, norm = 0.0, moment = 0.0, dnorm = 0.0;
   for (int k = 0; k < K; ++k) {
     const int c = k - half;
-    const float z = static_cast<float>(c) - dt;
     const float w = c_window[k];
-    const float v = tap(c, z, sd, far);
-    const float u = v * w, du = dtap(c, z, v, cd, far) * w;
-    const float xk = xs[threadIdx.x + k];
-    acc = fmaf(u, xk, acc);
-    norm += u;
-    moment = fmaf(du, xk, moment);
-    dnorm += du;
+    double u, du;
+    if (far) {
+      const double z = far_z(c, dt), e = far_tap(c, z);
+      u = __dmul_rn(e, static_cast<double>(w));
+      du = __dmul_rn(__ddiv_rn(e, z), static_cast<double>(w));
+    } else {
+      const float z = static_cast<float>(c) - dt;
+      const float v = tap(c, z, sd);
+      u = static_cast<double>(v * w);
+      du = static_cast<double>(dtap(c, z, v, cd) * w);
+    }
+    const double xk = xs[threadIdx.x + k];
+    acc = add_product(acc, u, xk);
+    norm = __dadd_rn(norm, u);
+    moment = add_product(moment, du, xk);
+    dnorm = __dadd_rn(dnorm, du);
   }
-  const float yt = acc / norm;
-  dd[base + t] = g[base + t] / norm * (moment - yt * dnorm);
+  const double yt = __ddiv_rn(acc, norm);
+  dd[base + t] = __double2float_rn(__dmul_rn(
+      __ddiv_rn(static_cast<double>(g[base + t]), norm),
+      __dsub_rn(moment, __dmul_rn(yt, dnorm))));
 }
 
 // dxpad over the padded axis P = T + K - 1: sample t = p - k feeds position p through tap
@@ -169,8 +203,8 @@ sinc_delay_grad_x_kernel(const float* __restrict__ d, const float* __restrict__ 
   for (int k = 0; k < K; ++k) {
     const int i = threadIdx.x + (K - 1) - k;    // staged index of t = p - k
     const int c = k - half;
-    const float u = tap(c, static_cast<float>(c) - ds[i], sds[i], far_form(ds[i], half)) *
-                    c_window[k];
+    const float u = __double2float_rn(weight(c, ds[i], sds[i], c_window[k],
+                                             far_form(ds[i], half)));
     acc = fmaf(gs[i], u, acc);
   }
   dxpad[static_cast<size_t>(blockIdx.y) * P + p] = acc;

@@ -1,9 +1,13 @@
-// Hopper GEMM machinery shared by the bfloat16 bodies of ffn_mega.cu: TMA tile loads into
-// an mbarrier ring, one producer warp, two consumer groups on wgmma that take turns
-// (ping-pong), and the host side that encodes the tensor maps.
+// Hopper GEMM machinery shared by the bfloat16 bodies of ffn_mega.cu and conv_gelu.cu: TMA
+// tile loads into an mbarrier ring, one producer warp, two consumer groups on wgmma that take
+// turns (ping-pong), and the host side that encodes the tensor maps.
 //
-// The product is A B^T in 128 x 128 output tiles, A [rows, K] row-major and B either [N, K]
-// (K-major, nn.Linear's [out, in]) or [K, N] (N-major, read with wgmma's transpose-B bit).
+// The product is A B^T in 128 x 128 output tiles, A [rows, K] row-major (K-major) or [K, rows]
+// (M-major, read with wgmma's transpose-A bit) and B either [N, K] (K-major, nn.Linear's
+// [out, in]) or [K, N] (N-major, read with wgmma's transpose-B bit). Which tiles a block
+// walks, how many k steps each takes and where each k step's boxes start come from a
+// schedule (GemmGrid below is the plain row-major product); a convolution's schedule reads
+// one operand at shifted rows per k step.
 // K runs in steps of 64 bf16 = 128 bytes, the width of the 128-byte swizzle that the tensor
 // maps apply and the wgmma descriptors name. One block an SM walks over the tiles
 // (persistent: tile t = blockIdx.x + i gridDim.x, columns fastest). Warp 16 is the
@@ -51,11 +55,13 @@ __device__ __forceinline__ int run_col() { return (threadIdx.x % 16) * 8; }
 // Shared memory of a block: the ring of (A, B) tile pairs, 1024-byte aligned for the
 // swizzle; per consumer group a bf16 staging tile [128][kStageLd] and 8 KB of float32
 // scratch; then the full and empty barrier of each slot and the turn barrier. kTransB: B is
-// N-major.
-template <bool kTransB_>
+// N-major; kTransA: A is M-major (boxes of 64 k rows x 64 rows of the product, one a
+// warpgroup).
+template <bool kTransB_, bool kTransA_ = false>
 struct WgmmaTiling {
   static constexpr int STAGES = kGemmStages;
   static constexpr bool kTransB = kTransB_;
+  static constexpr bool kTransA = kTransA_;
   static constexpr int A_BYTES = kGemmBM * kGemmBK * 2;
   static constexpr int STAGE_BYTES = A_BYTES + kGemmBN * kGemmBK * 2;
   static constexpr int RING_BYTES = STAGES * STAGE_BYTES;
@@ -180,15 +186,15 @@ __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 }
 
 // Shared-memory matrix descriptor, 128-byte swizzle. K-major tiles (rows of 128 bytes):
-// lbo 16 (unused), sbo 1024 (8 rows); a k step of 16 adds 32 bytes to the start. N-major
-// tiles (boxes of 64 k rows x 64 columns): lbo is the stride between 64-column boxes, sbo
-// 1024 (8 k rows); a k step of 16 adds 16 rows = 2048 bytes.
+// lbo 16 (unused), sbo 1024 (8 rows); a k step of 16 adds 32 bytes to the start. M- or
+// N-major tiles (boxes of 64 k rows x 64 columns): lbo is the stride between 64-column
+// boxes, sbo 1024 (8 k rows); a k step of 16 adds 16 rows = 2048 bytes.
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
          static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
 }
 
-template <int kTransB>
+template <int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -197,7 +203,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -209,7 +215,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(kTransB));
+      : "l"(da), "l"(db), "r"(1), "n"(kTransA), "n"(kTransB));
 }
 
 // The block's shared memory (see WgmmaTiling).
@@ -239,57 +245,94 @@ __device__ __forceinline__ void group_sync(int g) {
   asm volatile("bar.sync %0, 256;\n" ::"r"(1 + g) : "memory");
 }
 
+// A schedule says which tiles there are, how many k steps (of kGemmBK) each takes, where
+// each k step's boxes start, and which warpgroups multiply in it: a(t, kt) and b(t, kt) give
+// (column, row) of A's and B's first box in their tensor maps (an M- or N-major operand's
+// second 64-column box starts 64 columns on); mma(t, kt, wg) is false where warpgroup wg
+// (rows 64 wg .. 64 wg + 63 of the tile) skips the step's products. GemmGrid is the plain
+// product A B^T of [rows, K] and [cols, K] (or [K, cols]): tile t is row tile t / col_tiles
+// and column tile t % col_tiles, every tile takes all of K in both warpgroups.
+template <bool kTransB>
+struct GemmGrid {
+  int col_tiles, tiles, k_tiles;
+  __device__ __forceinline__ GemmGrid(int rows, int cols, int k)
+      : col_tiles(cols / kGemmBN), tiles((rows + kGemmBM - 1) / kGemmBM * col_tiles),
+        k_tiles(k / kGemmBK) {}
+  __device__ __forceinline__ int steps(int) const { return k_tiles; }
+  __device__ __forceinline__ bool mma(int, int, int) const { return true; }
+  __device__ __forceinline__ int m0(int t) const { return (t / col_tiles) * kGemmBM; }
+  __device__ __forceinline__ int n0(int t) const { return (t % col_tiles) * kGemmBN; }
+  __device__ __forceinline__ int2 a(int t, int kt) const { return make_int2(kt * kGemmBK, m0(t)); }
+  __device__ __forceinline__ int2 b(int t, int kt) const {
+    return kTransB ? make_int2(n0(t), kt * kGemmBK) : make_int2(kt * kGemmBK, n0(t));
+  }
+};
+
 // The producer lane: every k step of the block's tiles through the ring, in order.
-template <class G>
+template <class G, class S>
 __device__ __forceinline__ void gemm_produce(const GemmSmem<G>& sm, const CUtensorMap* ma,
-                                             const CUtensorMap* mb, int tiles, int col_tiles,
-                                             int k_tiles) {
+                                             const CUtensorMap* mb, const S& sched) {
   int pos = 0;
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int m0 = (t / col_tiles) * kGemmBM, n0 = (t % col_tiles) * kGemmBN;
+  for (int t = blockIdx.x; t < sched.tiles; t += gridDim.x) {
+    const int k_tiles = sched.steps(t);
     for (int kt = 0; kt < k_tiles; ++kt, ++pos) {
       const int s = pos % G::STAGES;
       mbar_wait(sm.empty(s), ((pos / G::STAGES) & 1) ^ 1);   // passes at once in round 0
       mbar_expect_tx(sm.full(s), G::STAGE_BYTES);
-      tma_load(sm.a(s), ma, sm.full(s), kt * kGemmBK, m0);
+      const int2 a = sched.a(t, kt), b = sched.b(t, kt);
+      if constexpr (G::kTransA) {
+#pragma unroll
+        for (int c = 0; c < kGemmBM / 64; ++c)
+          tma_load(sm.a(s) + c * (kGemmBK * 128), ma, sm.full(s), a.x + 64 * c, a.y);
+      } else {
+        tma_load(sm.a(s), ma, sm.full(s), a.x, a.y);
+      }
       if constexpr (G::kTransB) {
 #pragma unroll
         for (int c = 0; c < kGemmBN / 64; ++c)
-          tma_load(sm.b(s) + c * (kGemmBK * 128), mb, sm.full(s), n0 + 64 * c, kt * kGemmBK);
+          tma_load(sm.b(s) + c * (kGemmBK * 128), mb, sm.full(s), b.x + 64 * c, b.y);
       } else {
-        tma_load(sm.b(s), mb, sm.full(s), kt * kGemmBK, n0);
+        tma_load(sm.b(s), mb, sm.full(s), b.x, b.y);
       }
     }
   }
 }
 
-// acc = the calling warpgroup's 64 rows of the block's tile i (its k steps start at ring
-// position i k_tiles), every product retired and every slot released on return. wgmma's
-// accumulator layout: warp w of the warpgroup holds rows 16 w + lane / 4 and + 8; register
-// 4 j + e holds column 8 j + 2 (lane % 4) + (e & 1), the second row for e >= 2.
-template <class G>
+// acc = the calling warpgroup's 64 rows of a tile whose k_tiles k steps start at ring
+// position pos0, summed over the steps kt where mma(kt), every product retired and every slot
+// released on return. wgmma's accumulator layout: warp w of the warpgroup holds rows
+// 16 w + lane / 4 and + 8; register 4 j + e holds column 8 j + 2 (lane % 4) + (e & 1), the
+// second row for e >= 2.
+template <class G, class Mma>
 __device__ __forceinline__ void gemm_consume(float (&acc)[kGemmAcc], const GemmSmem<G>& sm,
-                                             int i, int k_tiles) {
+                                             int pos0, int k_tiles, Mma&& mma) {
   const bool leader = (threadIdx.x & 31) == 0;
-  const uint32_t a_rows = (group_thread() / 128) * 64 * 128;   // the warpgroup's rows of A
+  // The warpgroup's part of A, 8 KB either way: K-major, its 64 rows of 128 bytes; M-major,
+  // its box of 64 k rows x 64 columns.
+  const uint32_t a_rows = (group_thread() / 128) * 64 * 128;
 #pragma unroll
   for (int e = 0; e < kGemmAcc; ++e) acc[e] = 0.f;
-  const int pos0 = i * k_tiles;
   for (int kt = 0; kt < k_tiles; ++kt) {
     const int pos = pos0 + kt, s = pos % G::STAGES;
     mbar_wait(sm.full(s), (pos / G::STAGES) & 1);
-    const uint32_t sa = smem_u32(sm.a(s)) + a_rows, sb = smem_u32(sm.b(s));
-    fence_acc(acc);
-    wgmma_fence();
+    if (mma(kt)) {
+      const uint32_t sa = smem_u32(sm.a(s)) + a_rows, sb = smem_u32(sm.b(s));
+      fence_acc(acc);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kGemmBK / 16; ++kk) {
-      const uint64_t db = G::kTransB ? desc_sw128(sb + kk * 2048, kGemmBK * 128, 1024)
-                                     : desc_sw128(sb + kk * 32, 16, 1024);
-      wgmma_m64n128k16<G::kTransB ? 1 : 0>(acc, desc_sw128(sa + kk * 32, 16, 1024), db);
+      for (int kk = 0; kk < kGemmBK / 16; ++kk) {
+        const uint64_t da = G::kTransA ? desc_sw128(sa + kk * 2048, kGemmBK * 128, 1024)
+                                       : desc_sw128(sa + kk * 32, 16, 1024);
+        const uint64_t db = G::kTransB ? desc_sw128(sb + kk * 2048, kGemmBK * 128, 1024)
+                                       : desc_sw128(sb + kk * 32, 16, 1024);
+        wgmma_m64n128k16<G::kTransA ? 1 : 0, G::kTransB ? 1 : 0>(acc, da, db);
+      }
+      wgmma_commit();
+      fence_acc(acc);
+      wgmma_wait<1>();                           // the previous k step's products retired
+    } else {
+      wgmma_wait<0>();                           // so are this warpgroup's last ones
     }
-    wgmma_commit();
-    fence_acc(acc);
-    wgmma_wait<1>();                             // the previous k step's products retired
     fence_acc(acc);
     if (kt > 0 && leader) mbar_arrive(sm.empty((pos - 1) % G::STAGES));
   }
@@ -298,14 +341,12 @@ __device__ __forceinline__ void gemm_consume(float (&acc)[kGemmAcc], const GemmS
   if (leader) mbar_arrive(sm.empty((pos0 + k_tiles - 1) % G::STAGES));
 }
 
-// The whole product. All threads of the block call it; after each tile, the consumer
-// group that computed it calls epi(acc, g, m0, n0, row tile) with its warpgroups' sums.
-template <class G, class Epi>
-__device__ __forceinline__ void gemm_tiles(const GemmSmem<G>& sm, const CUtensorMap* ma,
-                                           const CUtensorMap* mb, int rows, int cols, int k,
-                                           Epi&& epi) {
-  const int col_tiles = cols / kGemmBN, tiles = (rows + kGemmBM - 1) / kGemmBM * col_tiles;
-  const int k_tiles = k / kGemmBK;
+// The whole product over a schedule (every tile takes at least one k step). All threads of
+// the block call it; after each tile t, the consumer group that computed it calls
+// epi(acc, g, t) with its warpgroups' sums.
+template <class G, class S, class Epi>
+__device__ __forceinline__ void gemm_run(const GemmSmem<G>& sm, const CUtensorMap* ma,
+                                         const CUtensorMap* mb, const S& sched, Epi&& epi) {
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < G::STAGES; ++s) {
@@ -317,18 +358,35 @@ __device__ __forceinline__ void gemm_tiles(const GemmSmem<G>& sm, const CUtensor
   }
   __syncthreads();
   if (threadIdx.x >= kGemmConsumers) {
-    if (threadIdx.x == kGemmConsumers) gemm_produce(sm, ma, mb, tiles, col_tiles, k_tiles);
+    if (threadIdx.x == kGemmConsumers) gemm_produce(sm, ma, mb, sched);
     return;
   }
-  const int g = threadIdx.x / kGemmGroup, block = blockIdx.x, grid = gridDim.x;
+  const int g = threadIdx.x / kGemmGroup, wg = group_thread() / 128;
+  const int block = blockIdx.x, grid = gridDim.x;
+  // Ring position of the group's next tile: the k steps of every earlier tile of the block.
+  int pos = g == 0 || block >= sched.tiles ? 0 : sched.steps(block);
   float acc[kGemmAcc];
-  for (int i = g; block + i * grid < tiles; i += 2) {
-    const int t = block + i * grid;
+  for (int i = g; block + i * grid < sched.tiles; i += 2) {
+    const int t = block + i * grid, next = t + grid;
+    const int k_tiles = sched.steps(t);
     if (i > 0) mbar_wait(sm.turn(), (i - 1) & 1);   // tile i - 1's mainloop has finished
-    gemm_consume(acc, sm, i, k_tiles);
+    gemm_consume(acc, sm, pos, k_tiles, [&](int kt) { return sched.mma(t, kt, wg); });
     if ((threadIdx.x & 31) == 0) mbar_arrive(sm.turn());
-    epi(acc, g, (t / col_tiles) * kGemmBM, (t % col_tiles) * kGemmBN, t / col_tiles);
+    epi(acc, g, t);
+    pos += k_tiles + (next < sched.tiles ? sched.steps(next) : 0);   // and the other group's
   }
+}
+
+// The plain product A B^T: after each tile, the consumer group that computed it calls
+// epi(acc, g, m0, n0, row tile) with its warpgroups' sums.
+template <class G, class Epi>
+__device__ __forceinline__ void gemm_tiles(const GemmSmem<G>& sm, const CUtensorMap* ma,
+                                           const CUtensorMap* mb, int rows, int cols, int k,
+                                           Epi&& epi) {
+  const GemmGrid<G::kTransB> sched(rows, cols, k);
+  gemm_run(sm, ma, mb, sched, [&](const float (&acc)[kGemmAcc], int g, int t) {
+    epi(acc, g, sched.m0(t), sched.n0(t), t / sched.col_tiles);
+  });
 }
 
 // The persistent grid: one block an SM, no more blocks than tiles.

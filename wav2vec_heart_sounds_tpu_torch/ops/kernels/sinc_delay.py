@@ -16,8 +16,16 @@ beamformer allows delays up to 41.25 samples against 20 taps on each side) every
 ``u[t, k]`` carries the factor ``sin(pi d)``: ``s`` vanishes at integer delays (0 / 0) and
 the float32 form is ill-conditioned near them. There the weights are taken without that
 factor, ``e_k = (-1)^(c_k + 1) w_k / (pi (c_k - d))`` with derivative ``e_k / (c_k - d)``:
-the same ``y`` and gradients, well conditioned. ``sin(pi z)`` comes from one ``sin(pi d)``
-per sample (``sin(pi (c - d)) = -(-1)^c sin(pi d)``), as in ``csrc/sinc_delay.cu``.
+the same ``y`` and gradients, without the 0 / 0. Their sum still alternates in sign and
+cancels (``sum |e_k xpad| / |sum e_k|`` reaches ~290 on unit inputs), so in float32 the last
+bits of ``y`` depend on the order of the operations; there the weights are taken in float64
+(``e_k``, ``e_k w_k``, and the derivative) from the float32 ``x`` and ``d``. Every sum (``y``'s
+two, ``grad_d``'s four) is taken in float64 in tap order, and the results rounded to the
+input dtype once. The kernel does the same operations with contraction forbidden, so beyond
+the taps its ``y`` and ``s`` equal these bit for bit. ``sin(pi z)`` comes from one
+``sin(pi d)`` per sample (``sin(pi (c - d)) = -(-1)^c sin(pi d)``), as in
+``csrc/sinc_delay.cu``. On float64 inputs everything is float64: the reference the card's
+checks measure both sides against.
 
 Three entry points, each with a plain version of the same signature: the forward
 (``(y, s)``), ``grad_d`` and ``grad_x`` (``dxpad [R, T + K - 1]``). :func:`delay_channel`
@@ -64,68 +72,67 @@ def _sinpi_cospi(d: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return sign * torch.sin(r), sign * torch.cos(r)
 
 
-def _tap_values(delays: torch.Tensor, K: int, derivative: bool = False):
-    """Per tap: ``(k, v_k, dv_k / dd)``, the tap's value before its window weight in the
-    form of each sample (see the module docstring): ``sinc(z)`` and ``-sinc'(z)`` (0 for
-    ``|z| < 1e-6``), or the factor-free ``e`` and ``e / z``; ``dv`` is None without
-    ``derivative``."""
-    half = K // 2
+def _tap_weights(delays: torch.Tensor, window, derivative: bool = False):
+    """Per tap: ``(k, u_k, du_k / dd)`` in float64, the weighted tap in the form of each
+    sample (see the module docstring). Inside the taps ``sinc(z) w_k`` and ``-sinc'(z) w_k``
+    (0 for ``|z| < 1e-6``), each a product in ``delays.dtype``; beyond them the factor-free
+    ``e_k w_k`` and ``e_k w_k / z``, in float64. ``du`` is None without ``derivative``."""
+    taps = _taps(window)
+    half = len(taps) // 2
     far = torch.round(delays).abs() > half
     sd, cd = _sinpi_cospi(delays)
-    for k in range(K):
+    d64 = delays.double()
+    for k, w in enumerate(taps):
         c = k - half
         z = float(c) - delays
         hit = z == 0
         zs = torch.where(hit, 1.0, z)
         odd = c % 2 == 1
-        e = (1.0 if odd else -1.0) / (math.pi * zs)
+        z64 = float(c) - d64                          # exact; |z64| >= 0.5 where far
+        e = (1.0 if odd else -1.0) / (math.pi * z64)
         sinc = torch.where(hit, 1.0, (sd if odd else -sd) / (math.pi * zs))
-        v = torch.where(far, e, sinc)
-        dv = None
+        u = torch.where(far, e * w, (sinc * w).double())
+        du = None
         if derivative:
             small = z.abs() < 1e-6
             dsinc = torch.where(small, 0.0, -((-cd if odd else cd) - sinc)
                                 / torch.where(small, 1.0, z))
-            dv = torch.where(far, e / zs, dsinc)
-        yield k, v, dv
+            du = torch.where(far, e / z64 * w, (dsinc * w).double())
+        yield k, u, du
 
 
 def sinc_fwd_reference(x, delays, window) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain forward over ``[R, T]`` float32 rows: ``(y, s)``."""
-    taps = _taps(window)
-    K, T = len(taps), x.shape[1]
-    xpad = _reflect_pad(x, K // 2)
-    acc, norm = torch.zeros_like(delays), torch.zeros_like(delays)
-    for k, v, _ in _tap_values(delays, K):
-        u = v * taps[k]
+    """Plain forward over ``[R, T]`` rows: ``(y, s)`` in ``x.dtype`` from float64 sums."""
+    K, T = len(window), x.shape[1]
+    xpad = _reflect_pad(x, K // 2).double()
+    acc, norm = (torch.zeros_like(delays, dtype=torch.float64) for _ in range(2))
+    for k, u, _ in _tap_weights(delays, window):
         norm = norm + u
         acc = acc + u * xpad[:, k:k + T]
-    return acc / norm, norm
+    return (acc / norm).to(x.dtype), norm.to(x.dtype)
 
 
 def sinc_grad_d_reference(x, delays, g, window) -> torch.Tensor:
-    """Plain gradient over the delays: ``g / s * sum_k u' (xpad[t + k] - y)``."""
-    taps = _taps(window)
-    K, T = len(taps), x.shape[1]
-    xpad = _reflect_pad(x, K // 2)
-    acc, norm, moment, dnorm = (torch.zeros_like(delays) for _ in range(4))
-    for k, v, dv in _tap_values(delays, K, derivative=True):
-        u, du = v * taps[k], dv * taps[k]
+    """Plain gradient over the delays: ``g / s * sum_k u' (xpad[t + k] - y)``, float64 sums."""
+    K, T = len(window), x.shape[1]
+    xpad = _reflect_pad(x, K // 2).double()
+    acc, norm, moment, dnorm = (torch.zeros_like(delays, dtype=torch.float64)
+                                for _ in range(4))
+    for k, u, du in _tap_weights(delays, window, derivative=True):
         xk = xpad[:, k:k + T]
         acc, norm = acc + u * xk, norm + u
         moment, dnorm = moment + du * xk, dnorm + du
-    return g / norm * (moment - acc / norm * dnorm)
+    return (g.double() / norm * (moment - acc / norm * dnorm)).to(g.dtype)
 
 
 def sinc_grad_x_reference(delays, g, s, window) -> torch.Tensor:
     """Plain gradient over the padded input: ``dxpad [R, T + K - 1]``, sample ``t`` feeding
-    position ``t + k`` with ``g[t] / s[t] * u[t, k]``."""
-    taps = _taps(window)
-    K, (R, T) = len(taps), delays.shape
+    position ``t + k`` with ``g[t] / s[t] * u[t, k]`` (``u`` rounded to the input dtype)."""
+    K, (R, T) = len(window), delays.shape
     gs = g / s
     dxpad = torch.zeros((R, T + K - 1), dtype=delays.dtype, device=delays.device)
-    for k, v, _ in _tap_values(delays, K):
-        dxpad[:, k:k + T] += gs * (v * taps[k])
+    for k, u, _ in _tap_weights(delays, window):
+        dxpad[:, k:k + T] += gs * u.to(delays.dtype)
     return dxpad
 
 
