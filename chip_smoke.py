@@ -22,10 +22,16 @@ Phases, each of which exits non-zero on failure:
    bit (the attention's decoded in bfloat16 and float32), every output and gradient at a
    stated tolerance; K3b on the head view of a ``[B, T, 3H, d]`` projection (the encoder's
    layout) equal bit for bit to the contiguous packed tensor, its backward equal to a
-   second run of itself, timed on both layouts; CUDA-event timings (median of 20)
-   beside each kernel's bound and, where one PyTorch call computes the same function, that
-   call's time; then K4 (``csrc/ffn_mega.cu``, the FFN sublayer) the same way at 19104,
-   3264 (fusion), 400 (vest) and 127 (ragged) rows, both masks checked bit for bit through
+   second run of itself, timed on both layouts; K1 and K2 also at the vest's ``[400, 768]``
+   and an odd length on a view one element past 16 bytes (K1), fusion's ``[3264, 768]``, a
+   ragged ``[127, 768]`` and ``[1, 768]`` and 384 columns (K2), masks, K1's output and K2's
+   s bit for bit, and K2's refusal of a view that does not start on 16 bytes; CUDA-event
+   timings around each call (median of 20) beside each kernel's bound (bytes, or operations:
+   products, exponentials, or the integer instructions of the Philox masks counted in the
+   built SASS) and, where one PyTorch call computes the same function, that call's time;
+   beside them the device time of each kernel and library call (``device_ms``: 20 calls
+   queued behind a spin kernel); then K4 (``csrc/ffn_mega.cu``, the FFN sublayer) the same
+   way at 19104, 3264 (fusion), 400 (vest) and 127 (ragged) rows, both masks checked bit for bit through
    the zero patterns of the backward's ``h`` and ``dhid``, timed beside the decomposed route
    (cuBLAS products + K5 + K2), with the device time of each bf16 stage (``torch.profiler``)
    and each product's TFLOP/s;
@@ -149,6 +155,27 @@ def cuda_ms(fn, runs: int = 20, warmup: int = 3) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def device_ms(fn, runs: int = 20, batches: int = 3) -> float:
+    """Device milliseconds of one ``fn()``: CUDA events around ``runs`` calls queued behind a
+    ~10 ms spin kernel (``torch.cuda._sleep``), so the card runs them back to back while the
+    host is still launching; the median over ``batches``. Unlike ``cuda_ms``, the host's time
+    to launch one call (a Python wrapper's tens of microseconds) is not in it."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(batches):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        for _ in range(runs):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / runs)
     return float(np.median(times))
 
 
@@ -506,15 +533,72 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
 # Exponentials: 16 results per clock per SM from the special-function units (CUDA's
 # arithmetic-throughput table, compute capability 9.0) x 132 SMs x the 1.98 GHz boost clock.
 EXP_PER_S = 16 * 132 * 1.98e9
+# 32-bit integer instructions (Philox's multiplies, XORs and adds): 64 a clock per SM (the
+# same table) x 132 SMs x the card's maximum SM clock as nvidia-smi reports it.
+INT_PER_CLOCK_SM, SMS = 64, 132
 
 
-def bound(bytes_moved: float, flops: float, dtype, exps: float = 0.0) -> dict:
+@functools.cache
+def int_ops_per_s() -> float:
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout.split()[0]
+    return INT_PER_CLOCK_SM * SMS * float(mhz) * 1e6
+
+
+# SASS opcodes of one Philox4x32-10 call: its multiplies (hi and lo halves), three-way XORs
+# and key-schedule adds; and the high-half multiplies, 20 a call (2 in each of 10 rounds).
+PHILOX_OPCODES = ("IMAD", "LOP3", "IADD3")
+HIGH_MULTIPLIES = ("IMAD.HI", "IMAD.WIDE")
+
+
+def library_sass(library: str) -> dict[str, list[str]]:
+    """Kernel name -> its SASS instructions (opcode first, predicates dropped) in the built
+    library of ``csrc/<library>.cu``, from ``cuobjdump -sass``."""
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import build
+
+    cuobjdump = Path(build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build._target(library))],
+                          capture_output=True, text=True, check=True).stdout
+    kernels, ops = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            ops = kernels.setdefault(line.split("Function :", 1)[1].strip(), [])
+        elif ops is not None and "*/" in line:
+            words = [w for w in line.split("*/", 1)[1].split() if not w.startswith("@")]
+            if words and words[0][0].isupper():
+                ops.append(" ".join(words).rstrip(" ;"))
+    return kernels
+
+
+@functools.cache
+def philox_instructions() -> int:
+    """Integer instructions of one ``philox_group`` call, from the SASS of the built
+    ``philox_fill_kernel`` (one call an element): the instructions of ``PHILOX_OPCODES``
+    over the calls the kernel's code holds (its high-half multiplies over 20), its loop's
+    index and address arithmetic included (a few of them)."""
+    ops = [line.split()[0] for name, lines in library_sass("dropout").items()
+           if "philox_fill_kernel" in name for line in lines]
+    calls = round(sum(op.startswith(HIGH_MULTIPLIES) for op in ops) / 20)
+    count = sum(op.split(".")[0] in PHILOX_OPCODES for op in ops)
+    check(calls > 0 and count > 0, f"no Philox call found in philox_fill_kernel's SASS: {ops}")
+    return round(count / calls)
+
+
+def philox_ops(elements: int, rate: float) -> float:
+    """Integer instructions of the masks of ``elements`` elements: one Philox call per four,
+    none at rate 0 (the kernels skip Philox there)."""
+    return 0.0 if rate == 0 else -(-elements // 4) * philox_instructions()
+
+
+def bound(bytes_moved: float, flops: float, dtype, exps: float = 0.0,
+          int_ops: float = 0.0) -> dict:
     """The least time the card could take: bytes over the memory rate, or operations over
     the peak rate for ``dtype`` (a torch dtype, or ``"tf32"`` for float32 products on the
-    tensor cores), or exponentials over the special-function rate, whichever is larger
-    (H100 SXM data-sheet rates)."""
+    tensor cores), exponentials over the special-function rate, or integer instructions over
+    the INT32 issue rate, whichever is larger (H100 SXM data-sheet rates)."""
     mem_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    op_ms = max(flops / PEAK_FLOPS[dtype], exps / EXP_PER_S) * 1e3
+    op_ms = max(flops / PEAK_FLOPS[dtype], exps / EXP_PER_S,
+                int_ops / int_ops_per_s() if int_ops else 0.0) * 1e3
     return {"bound_ms": max(mem_ms, op_ms), "bound_by": "bytes" if mem_ms >= op_ms else "operations"}
 
 
@@ -563,16 +647,22 @@ def phase_training_kernels() -> dict:
         rows_d, rows_f = ROWS * HIDDEN * size, ROWS * FFN * size
         attn_fwd, attn_bwd = attention_work(TRAIN_BATCH, dtype)
 
-        def timed(name, kernel, plain, err, nbytes, flops=0, library=None):
+        def timed(name, kernel, plain, err, nbytes, flops=0, library=None, int_ops=0.0):
+            # CUDA events around each call, as every phase times; beside them the device time
+            # of the kernel and of the library call (device_ms: no host launch work in it).
             ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
             lib_ms = cuda_ms(library) if library is not None else None
-            b = bound(nbytes, flops, dtype)
+            dev_ms = device_ms(kernel)
+            lib_dev_ms = device_ms(library) if library is not None else None
+            b = bound(nbytes, flops, dtype, int_ops=int_ops)
             lib = f", library call {lib_ms:.4f} ms" if lib_ms is not None else ""
+            lib_dev = f", library call {lib_dev_ms:.4f} ms" if lib_dev_ms is not None else ""
             print(f"[train-kernel] {name} {dt}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-                  f"{lib}, bound {b['bound_ms']:.4f} ms by {b['bound_by']} (CUDA events, "
-                  f"median of 20)")
+                  f"{lib} (CUDA events, median of 20); device time kernel {dev_ms:.4f} ms"
+                  f"{lib_dev} (device_ms); bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
             rec[name] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, **b,
-                         "library_ms": lib_ms}
+                         "library_ms": lib_ms, "device_ms": dev_ms,
+                         "library_device_ms": lib_dev_ms}
 
         # K1 dropout, [96*199, 768]
         x = randn(ROWS, HIDDEN)
@@ -583,7 +673,8 @@ def phase_training_kernels() -> dict:
                     dropout.dropout_reference(x, seed, site, RATE), 0.0, 0.0)
         timed("dropout", lambda: dropout.dropout_kernel(x, seed, site, RATE),
               lambda: dropout.dropout_reference(x, seed, site, RATE), err, 2 * rows_d,
-              library=lambda: F.dropout(x, RATE, training=True))
+              library=lambda: F.dropout(x, RATE, training=True),
+              int_ops=philox_ops(x.numel(), RATE))
 
         # K2 dropout + add + LayerNorm, [96*199, 768]
         h, g = randn(ROWS, HIDDEN), randn(ROWS, HIDDEN)
@@ -597,15 +688,21 @@ def phase_training_kernels() -> dict:
         out_p, s_p = resid.resid_fwd_reference(h, x, w, b, *args)
         agree(f"resid_fwd s {dt}", s_k, s_p, 0.0, 0.0)
         err = agree(f"resid_fwd out {dt}", out_k, out_p, *elem)
+        vectors = 2 * HIDDEN * 4                          # gamma and beta, float32
         timed("resid_fwd", lambda: resid.resid_fwd_kernel(h, x, w, b, *args),
-              lambda: resid.resid_fwd_reference(h, x, w, b, *args), err, 4 * rows_d)
+              lambda: resid.resid_fwd_reference(h, x, w, b, *args), err, 4 * rows_d + vectors,
+              int_ops=philox_ops(h.numel(), RATE))
         got = resid.resid_bwd_kernel(g, s_p, w, *args)
         ref = resid.resid_bwd_reference(g, s_p, w, *args)
         err = max(agree(f"resid_bwd {name} {dt}", a, r, *tol) for name, a, r, tol in
                   zip(("dh", "dx", "dweight", "dbias"), got, ref, (grad, grad, colsum, colsum)))
+        # the partial rows (two of 768 floats a block), written once and read once
+        partials = 2 * 2 * resid.grid_blocks(ROWS, HIDDEN, dtype, g.device, True) * HIDDEN * 4
         timed("resid_bwd", lambda: resid.resid_bwd_kernel(g, s_p, w, *args),
-              lambda: resid.resid_bwd_reference(g, s_p, w, *args), err, 4 * rows_d)
+              lambda: resid.resid_bwd_reference(g, s_p, w, *args), err,
+              4 * rows_d + vectors // 2 + partials, int_ops=philox_ops(g.numel(), RATE))
         del h, g, out_k, s_k, out_p, s_p, got, ref
+        k1_k2_shapes(dtype, gen, seed, site, eps, elem, grad, colsum)
 
         # K5 FFN activation, [96*199, 3072]
         pre, g = randn(ROWS, FFN), randn(ROWS, FFN)
@@ -679,6 +776,66 @@ def phase_training_kernels() -> dict:
         if bf16:
             records = rec
     return records
+
+
+# K2's other shapes: fusion's rows (64 x 51), ragged row counts (127, and one row: fewer than a
+# tile of 8, no whole tile) and a width of 384 (the lanes of the last pass half idle in bf16).
+K2_SHAPES = ((FUSION_BATCH * FUSION_FRAMES, HIDDEN), (127, HIDDEN), (1, HIDDEN), (ROWS, 384))
+# K1's: the vest's LoRA inputs (16 x 25 rows), and an odd length on a view one element past
+# 16 bytes.
+K1_SHAPES = ((VEST_BATCH * VEST_FRAMES, HIDDEN), (100003,))
+
+
+def k1_k2_shapes(dtype, gen, seed: int, site: int, eps: float, elem, grad, colsum) -> None:
+    """K1 and K2 against their plain versions at ``K1_SHAPES`` and ``K2_SHAPES``, rate 0.1:
+    masks, K1's output and K2's s bit for bit, K2's other outputs at phase 5's bars; K2's
+    wrappers refuse a view one element past 16 bytes, K1 takes it."""
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import dropout, resid
+
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+
+    for shape in K1_SHAPES:
+        offset = len(shape) == 1
+        x = randn(shape[0] + offset)[offset:] if offset else randn(*shape)
+        ones = torch.ones_like(x)
+        where = f"{list(shape)}{', offset view' if offset else ''}"
+        out = dropout.dropout_kernel(x, seed, site, RATE)
+        identical(f"dropout mask {dt} {where}", dropout.dropout_kernel(ones, seed, site, RATE),
+                  dropout.dropout_reference(ones, seed, site, RATE))
+        identical(f"dropout {dt} {where}", out, dropout.dropout_reference(x, seed, site, RATE))
+    for rows, cols in K2_SHAPES:
+        x, h, g = randn(rows, cols), randn(rows, cols), randn(rows, cols)
+        w = 1.0 + 0.1 * torch.randn(cols, device="cuda", generator=gen)
+        b = 0.1 * torch.randn(cols, device="cuda", generator=gen)
+        args = (seed, site, RATE, eps)
+        where = f"{dt} [{rows}, {cols}]"
+        identical(f"resid mask {where} (s of h=1, x=0)",
+                  resid.resid_fwd_kernel(torch.ones_like(h), torch.zeros_like(x), w, b, *args)[1],
+                  resid.resid_fwd_reference(torch.ones_like(h), torch.zeros_like(x), w, b, *args)[1])
+        out_k, s_k = resid.resid_fwd_kernel(h, x, w, b, *args)
+        out_p, s_p = resid.resid_fwd_reference(h, x, w, b, *args)
+        identical(f"resid_fwd s {where}", s_k, s_p)
+        agree(f"resid_fwd out {where}", out_k, out_p, *elem)
+        got = resid.resid_bwd_kernel(g, s_p, w, *args)
+        ref = resid.resid_bwd_reference(g, s_p, w, *args)
+        for name, a, r, tol in zip(("dh", "dx", "dweight", "dbias"), got, ref,
+                                   (grad, grad, colsum, colsum)):
+            agree(f"resid_bwd {name} {where}", a, r, *tol)
+        keep = torch.ones_like(g)       # the backward's mask: dh of g = ones has its zeros
+        identical(f"resid_bwd zero pattern of dh {where}",
+                  resid.resid_bwd_kernel(keep, s_p, w, *args)[0] == 0,
+                  resid.resid_bwd_reference(keep, s_p, w, *args)[0] == 0)
+    view = randn(2 * HIDDEN + 1)[1:].view(2, HIDDEN)     # one element past 16 bytes
+    w, b = torch.ones(HIDDEN, device="cuda"), torch.zeros(HIDDEN, device="cuda")
+    before = resid.resid_fwd_kernel.launches
+    with contextlib.suppress(ValueError):          # the refusal this check asks for
+        resid.resid_fwd_kernel(view, view, w, b, seed, site, RATE, eps)
+        check(False, "resid_fwd_kernel took a view that does not start on 16 bytes")
+    check(resid.resid_fwd_kernel.launches == before, "resid_fwd_kernel launched on a bad view")
+    print(f"[train-kernel] resid_fwd_kernel {dt}: refuses a view one element past 16 bytes")
 
 
 # The row counts K4 runs at: CinC training (96 x 199 frames), fusion (64 x 51), the vest

@@ -20,8 +20,18 @@ parent, one process each, in one card call. The phases, all of them without name
   transform), timed in turns, median of 3 epochs each (this script's code on both trees);
 * ``megakernel``: the tree's phase 5 K4 part (K4 against its plain version, its times beside
   the decomposed route);
+* ``train-kernels``: the tree's phase 5 training-kernel part (K1, K2, K5 and K3b against their
+  plain versions at the training shapes, with their times);
+* ``k1k2``: K1, K2 (forward and backward) and ``F.dropout`` at ``[19104, 768]`` bf16, rate 0.1,
+  and K4's stages at the training shape (its backward's (C) is K2's row pass), by device time
+  (this script's ``chip_smoke.device_ms`` and ``print_k4_stages``, torch.profiler) and by
+  CUDA events around each call, on the tree's wrappers (the same signatures on both trees);
+* ``sass``: the memory instructions of the tree's built K1 and K2 kernels by kind (this
+  script's ``torch_kernel_check.access_counts``: 16-byte and 16-bit global accesses, bulk
+  copies);
 * ``conv``: the tree's phase 14 (K8 against its plain version at conv_1's shapes, its times
   beside cuDNN ``conv1d`` + ``gelu``);
+* ``serving``: the tree's phase 4 (serving windows/s);
 * ``training``: the tree's phase 7 (CinC training windows/s on the three routes);
 * ``fusion``: the tree's phase 16a (fusion training windows/s).
 
@@ -35,7 +45,8 @@ from pathlib import Path
 
 import numpy as np
 
-PHASES = ("sinc", "vest-kernels", "vest-arms", "megakernel", "conv", "training", "fusion")
+PHASES = ("sinc", "vest-kernels", "vest-arms", "megakernel", "train-kernels", "k1k2", "sass",
+          "conv", "serving", "training", "fusion")
 tree = Path(sys.argv[1]).resolve()
 phases = sys.argv[2:] or list(PHASES)
 if not set(phases) <= set(PHASES):
@@ -55,13 +66,53 @@ cs.kernel_wrappers()
 cs.phase_build()
 
 
-def sinc_float64():
-    """K7's float64 errors on the tree's kernel and plain version, with this script's own
-    ``chip_smoke`` (its draws and ``k7_checks``), its failed checks reported."""
+def own_chip_smoke():
+    """This script's own ``chip_smoke`` (its timing and checks), beside the tree's."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_of_this_script", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     own = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(own)
+    return own
+
+
+def k1k2_times():
+    """The tree's K1, K2 and K4 stages timed by this script's code (device time and events)."""
+    import torch.nn.functional as F
+
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import dropout, resid
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import megakernel as mk
+
+    own = own_chip_smoke()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    seed, site, rate, eps = 2718281828, 7, 0.1, 1e-5
+    x, h, g = (torch.randn(cs.ROWS, cs.HIDDEN, device="cuda", generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    w = 1.0 + 0.1 * torch.randn(cs.HIDDEN, device="cuda", generator=gen)
+    b = 0.1 * torch.randn(cs.HIDDEN, device="cuda", generator=gen)
+    s = resid.resid_fwd_reference(h, x, w, b, seed, site, rate, eps)[1]
+    for name, fn in (("K1 dropout", lambda: dropout.dropout_kernel(x, seed, site, rate)),
+                     ("F.dropout", lambda: F.dropout(x, rate, training=True)),
+                     ("K2 forward", lambda: resid.resid_fwd_kernel(h, x, w, b, seed, site, rate, eps)),
+                     ("K2 backward", lambda: resid.resid_bwd_kernel(g, s, w, seed, site, rate, eps))):
+        print(f"[ab-k1k2] {tree.name} {name} bf16 [{cs.ROWS}, {cs.HIDDEN}]: "
+              f"{own.device_ms(fn):.4f} ms device time (device_ms), "
+              f"{own.cuda_ms(fn):.4f} ms CUDA events around each call (median of 20)", flush=True)
+    w1 = (torch.randn(cs.FFN, cs.HIDDEN, device="cuda", generator=gen) * cs.HIDDEN ** -0.5)
+    w2 = (torch.randn(cs.HIDDEN, cs.FFN, device="cuda", generator=gen) * cs.FFN ** -0.5)
+    b1, b2 = (0.1 * torch.randn(n, device="cuda", generator=gen) for n in (cs.FFN, cs.HIDDEN))
+    w1, w2, b1, b2 = (t.to(torch.bfloat16) for t in (w1, w2, b1, b2))
+    fwd_in = (x, w1, b1, w2, b2, w, b, seed, 4, 5, rate, rate, eps)
+    _, s4, pre = mk.ffn_mega_fwd_kernel(*fwd_in)
+    bwd_in = (g, s4, pre, w2, w, seed, 4, 5, rate, rate, eps)
+    print(f"[ab-k1k2] {tree.name} K4 stages:", flush=True)
+    own.print_k4_stages(lambda: mk.ffn_mega_fwd_kernel(*fwd_in),
+                        lambda: mk.ffn_mega_bwd_kernel(*bwd_in), cs.ROWS, runs=20)
+
+
+def sinc_float64():
+    """K7's float64 errors on the tree's kernel and plain version, with this script's own
+    ``chip_smoke`` (its draws and ``k7_checks``), its failed checks reported."""
+    own = own_chip_smoke()
     own.check = lambda ok, msg: print(f"[ab-sinc] {tree.name}: "
                                       f"{'within the bar' if ok else 'MISSES: ' + msg}")
     from wav2vec_heart_sounds_tpu_torch.ops.kernels import sinc_delay as sk
@@ -108,8 +159,24 @@ def vest_arms():
               f"{', '.join(f'{s * 1e3:.1f}' for s in r)} ms)", flush=True)
 
 
-RUN = {"sinc": sinc_float64, "vest-kernels": cs.phase_vest_kernels, "vest-arms": vest_arms,
+def sass_counts():
+    """The tree's K1 and K2 kernels by kind of memory instruction, with this script's own
+    ``torch_kernel_check.access_counts`` (on the tree's built libraries)."""
+    spec = importlib.util.spec_from_file_location(
+        "kernel_check_of_this_script", Path(__file__).resolve().parent / "torch_kernel_check.py")
+    own = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(own)
+    own.chip_smoke = own_chip_smoke()      # its SASS reader, on the tree's built libraries
+    for name in ("dropout", "resid"):
+        for kernel, kinds in own.access_counts(name):
+            print(f"[ab-sass] {tree.name} {name}: {kernel}: "
+                  + ", ".join(f"{k} {v}" for k, v in sorted(kinds.items())), flush=True)
+
+
+RUN = {"sinc": sinc_float64, "sass": sass_counts, "k1k2": k1k2_times,
+       "train-kernels": cs.phase_training_kernels, "vest-kernels": cs.phase_vest_kernels, "vest-arms": vest_arms,
        "megakernel": cs.phase_megakernel, "conv": cs.phase_conv_kernel,
+       "serving": lambda: cs.phase_serving(card),
        "training": lambda: cs.phase_training(card),
        "fusion": lambda: cs.phase_fusion_training(card)}
 for phase in phases:

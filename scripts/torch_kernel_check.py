@@ -3,7 +3,7 @@
 long-sequence attention (K6) kernels on one CUDA card: build them, run each once against its
 plain version, and time them.
 
-    python3 scripts/torch_kernel_check.py [--attention | --conv | --ffn | --flash-kv]
+    python3 scripts/torch_kernel_check.py [--attention | --conv | --ffn | --flash-kv | --resid]
 
 A minute of card time where ``chip_smoke.py`` takes several: for the first call after a
 kernel changes. Prints the ptxas register and spill lines of the sources and the count of
@@ -31,11 +31,24 @@ against the plain version at the vest's ``[16, 8250, 4, 8]`` and at T = 300 and 
 bars o/lse 2e-5 / 1e-4, gradients 1e-4 / 1e-3), the backward equal bit for bit to a second
 run, the times beside ``scaled_dot_product_attention`` in float32 and the bound, and the
 device time of each backward kernel (``torch.profiler``); each K6 product kernel must show
-HMMA. The last line is ``ALL_OK`` or ``SOME_FAILED``.
+HMMA. ``--resid`` builds and checks K1 (``csrc/dropout.cu``), K2 (``csrc/resid.cu``) and K4
+(whose backward runs K2's row pass): the SASS of each K1 and K2 kernel by kind of memory
+access (16-byte ``LDG``/``STG``/``LDS``, 16-bit ``LDG``/``STG``, bulk copies ``UBLKCP``) and
+the integer instructions of one Philox call (``chip_smoke.philox_instructions``); K1 and K2
+against their plain versions at the training shape and at ``chip_smoke``'s extra shapes
+(``k1_k2_shapes``), and K4 as ``--ffn`` does; the bf16 times at ``[19104, 768]`` beside
+``F.dropout``; the ablation of K2's configurations (``csrc/resid.cu`` built again with other
+values of ``csrc/resid.cuh``'s ``W2V_RESID_*`` macros, ``RESID_BUILDS``: the ring in both
+passes or in neither, 2 / 3 slots, 16-row tiles, bulk stores, three blocks an SM), each
+checked against the plain version and timed (device time, ``chip_smoke.device_ms``) at rate
+0.1 and at rate 0 (no Philox), in turns, twice. The last line is ``ALL_OK``
+or ``SOME_FAILED``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import subprocess
 import sys
 import time
@@ -56,6 +69,22 @@ from wav2vec_heart_sounds_tpu_torch.ops.kernels import megakernel as mk  # noqa:
 
 SOURCES = ("attention_qkv_fwd", "attention_qkv_bwd", "conv_gelu", "ffn_mega")
 FFN_SOURCES = ("ffn_mega", "ffn_act", "resid")      # K4 and the decomposed route's K5 + K2
+RESID_SOURCES = ("dropout", "resid", "ffn_mega", "ffn_act")
+# Builds of csrc/resid.cu for the ablation: its W2V_RESID_* macros (csrc/resid.cuh) against
+# the defaults (R = 8 rows a tile, a 4-slot ring in the backward only, 16-byte stores, two
+# blocks an SM).
+_RING = "-DW2V_RESID_FWD_RING=1"
+RESID_BUILDS = {
+    "default": (),
+    "ring in both passes": (_RING,),
+    "no ring (16-byte loads alone)": ("-DW2V_RESID_BWD_RING=0",),
+    "ring in both, 2 slots": (_RING, "-DW2V_RESID_STAGES=2"),
+    "ring in both, 3 slots": (_RING, "-DW2V_RESID_STAGES=3"),
+    "ring in both, R=16, 2 slots": (_RING, "-DW2V_RESID_ROWS=16", "-DW2V_RESID_STAGES=2"),
+    "ring in both, bulk stores": (_RING, "-DW2V_RESID_BULK_STORE=1"),
+    "ring in both, 2 slots, 3 blocks an SM": (_RING, "-DW2V_RESID_STAGES=2",
+                                              "-DW2V_RESID_MIN_BLOCKS=3"),
+}
 # K6's kernels that hold its products (the delta pre-pass and the dq reduce have none).
 FLASH_KV_PRODUCTS = ("flash_kv_fwd_kernel", "flash_kv_bwd_kernel")
 failures = []
@@ -275,6 +304,164 @@ def check_ffn(gen):
             torch.cuda.empty_cache()
 
 
+def access_counts(name: str) -> list[tuple[str, dict]]:
+    """(kernel, {kind: count}) of the memory instructions in the built library of
+    ``csrc/<name>.cu``: 16-byte and 16-bit global loads and stores, 16-byte shared loads and
+    stores, and bulk copies (``UBLKCP``)."""
+    rows = []
+    for kernel, lines in chip_smoke.library_sass(name).items():
+        kinds = {}
+        for line in lines:
+            code = line.split()[0]
+            base = code.split(".")[0]
+            kind = ("UBLKCP" if base == "UBLKCP" else
+                    None if base not in ("LDG", "STG", "LDS", "STS") else
+                    f"{base}.128" if ".128" in code else
+                    f"{base}.16" if ".U16" in code or ".S16" in code else None)
+            if kind:
+                kinds[kind] = kinds.get(kind, 0) + 1
+        rows.append((kernel, kinds))
+    return rows
+
+
+def resid_builds() -> dict[str, object]:
+    """``csrc/resid.cu`` built once for each of ``RESID_BUILDS`` (one ``nvcc`` each, all
+    started together) into ``build/torch_kernels/ablation/``, loaded; a failed build is
+    recorded in ``failures``."""
+    out_dir = build.BUILD_DIR / "ablation"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for i, (label, defines) in enumerate(RESID_BUILDS.items()):
+        out = out_dir / f"libresid_{i}.so"
+        cmd = [build.find_nvcc(), *build.NVCC_FLAGS, *defines, "-o", str(out),
+               str(build.CSRC_DIR / "resid.cu")]
+        jobs[label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), out)
+    libs = {}
+    for label, (proc, out) in jobs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            failures.append(f"K2 build '{label}' failed:\n{log}")
+            continue
+        libs[label] = ctypes.CDLL(str(out))
+    return libs
+
+
+@contextlib.contextmanager
+def resid_library(lib):
+    """K2's wrappers (``ops/kernels/resid.py``) on another build of ``csrc/resid.cu``."""
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import resid as K2
+
+    saved = build.load_library("resid")
+
+    def swap(to):
+        build._libs["resid"] = to
+        build.entry.cache_clear()
+        K2.grid_blocks.cache_clear()
+
+    swap(lib)
+    try:
+        yield
+    finally:
+        swap(saved)
+
+
+def check_resid(gen):
+    """K1 and K2 against their plain versions, K4 (K2's row pass in its backward) as
+    ``check_ffn``, their times, and the ablation of K2's configurations."""
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import dropout as K1
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import resid as K2
+
+    for name in ("dropout", "resid"):
+        for kernel, kinds in access_counts(name):
+            print(f"  {name}: {kernel}: " + ", ".join(f"{k} {v}" for k, v in sorted(kinds.items())))
+            if "resid_" in kernel and not kinds.get("STG.128"):
+                failures.append(f"{kernel} has no 16-byte store")
+            if "resid_bwd_kernel" in kernel and not kinds.get("UBLKCP"):
+                failures.append(f"{kernel} has no bulk copy")
+    ops = [line.split()[0] for name, lines in chip_smoke.library_sass("dropout").items()
+           if "philox_fill_kernel" in name for line in lines]
+    mix = {op: ops.count(op) for op in sorted(set(ops))}
+    print(f"philox_fill_kernel SASS: {len(ops)} instructions: "
+          + ", ".join(f"{op} {n}" for op, n in mix.items()))
+    print(f"one Philox call: {chip_smoke.philox_instructions()} integer instructions "
+          f"({', '.join(chip_smoke.PHILOX_OPCODES)}) in philox_fill_kernel's SASS; INT32 rate "
+          f"{chip_smoke.int_ops_per_s() / 1e12:.3f} T/s")
+    libs = resid_builds()
+    seed, site, rate, eps = 2718281828, 7, 0.1, 1e-5
+    rows, cols = chip_smoke.ROWS, chip_smoke.HIDDEN
+    for dtype in (torch.bfloat16, torch.float32):
+        bf16 = dtype == torch.bfloat16
+        elem = (1e-2, 1e-2) if bf16 else (1e-5, 1e-5)
+        grad = (1e-2, 1e-2) if bf16 else (1e-4, 1e-4)
+        colsum = (1e-2, 1e-4)
+        x, h, g = (torch.randn(rows, cols, device="cuda", generator=gen).to(dtype)
+                   for _ in range(3))
+        w = 1.0 + 0.1 * torch.randn(cols, device="cuda", generator=gen)
+        b = 0.1 * torch.randn(cols, device="cuda", generator=gen)
+        args = (seed, site, rate, eps)
+        tag = f"{dtype} [{rows}, {cols}]"
+        same = torch.equal(K1.dropout_kernel(x, seed, site, rate),
+                           K1.dropout_reference(x, seed, site, rate))
+        print(f"K1 {tag} bit for bit: {same}")
+        if not same:
+            failures.append(f"K1 {tag}")
+        s_p = K2.resid_fwd_reference(h, x, w, b, *args)[1]
+        out_p = K2.resid_fwd_reference(h, x, w, b, *args)[0]
+        ref = K2.resid_bwd_reference(g, s_p, w, *args)
+        for label, lib in libs.items() if bf16 else ():
+            with resid_library(lib):
+                out_k, s_k = K2.resid_fwd_kernel(h, x, w, b, *args)
+                got = K2.resid_bwd_kernel(g, s_p, w, *args)
+                again = K2.resid_bwd_kernel(g, s_p, w, *args)
+            torch.cuda.synchronize()
+            if not torch.equal(s_k, s_p):
+                failures.append(f"K2 s {tag} build '{label}'")
+            report(f"K2 fwd out {tag} build '{label}', s bit for bit {torch.equal(s_k, s_p)}",
+                   out_k, out_p, *elem)
+            for name, a, r, tol in zip(("dh", "dx", "dweight", "dbias"), got, ref,
+                                       (grad, grad, colsum, colsum)):
+                report(f"K2 bwd {name} {tag} build '{label}'", a, r, *tol)
+            if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                failures.append(f"K2 bwd {tag} build '{label}': two runs differ")
+        chip_smoke.k1_k2_shapes(dtype, gen, seed, site, eps, elem, grad, colsum)
+        if bf16:
+            k1 = [chip_smoke.device_ms(lambda: K1.dropout_kernel(x, seed, site, r))
+                  for r in (rate, 0.0)]
+            print(f"  K1 {tag}: {k1[0]:.4f} ms, at rate 0 (no Philox) {k1[1]:.4f} ms "
+                  f"(device time, chip_smoke.device_ms)")
+            vest = torch.randn(chip_smoke.VEST_BATCH * chip_smoke.VEST_FRAMES, cols,
+                               device="cuda", generator=gen).to(dtype)
+            print(f"  K1 {dtype} {list(vest.shape)} (the vest's LoRA inputs): "
+                  f"{chip_smoke.device_ms(lambda: K1.dropout_kernel(vest, seed, site, rate)):.4f}"
+                  f" ms, bound {chip_smoke.bound(4 * vest.numel(), 0, dtype)['bound_ms']:.4f} ms "
+                  f"(device time, chip_smoke.device_ms)")
+            lib_ms = chip_smoke.device_ms(lambda: F.dropout(x, rate, training=True))
+            events = (cuda_ms(lambda: K1.dropout_kernel(x, seed, site, rate)),
+                      cuda_ms(lambda: F.dropout(x, rate, training=True)))
+            print(f"  F.dropout {tag}: {lib_ms:.4f} ms (device time); CUDA events around each "
+                  f"call: K1 {events[0]:.4f} ms, F.dropout {events[1]:.4f} ms (median of 20)")
+            zero = (seed, site, 0.0, eps)
+            labels = list(libs)
+            for turn in range(2):
+                for label in labels if turn == 0 else labels[::-1]:
+                    dev = chip_smoke.device_ms
+                    with resid_library(libs[label]):
+                        fwd = dev(lambda: K2.resid_fwd_kernel(h, x, w, b, *args))
+                        bwd = dev(lambda: K2.resid_bwd_kernel(g, s_p, w, *args))
+                        fwd0 = dev(lambda: K2.resid_fwd_kernel(h, x, w, b, *zero))
+                        bwd0 = dev(lambda: K2.resid_bwd_kernel(g, s_p, w, *zero))
+                        blocks = (K2.grid_blocks(rows, cols, dtype, x.device, False),
+                                  K2.grid_blocks(rows, cols, dtype, x.device, True))
+                    print(f"  K2 {tag} build '{label}', turn {turn}: fwd {fwd:.4f} ms, bwd "
+                          f"{bwd:.4f} ms; at rate 0 (no Philox) fwd {fwd0:.4f} ms, bwd "
+                          f"{bwd0:.4f} ms; grid {blocks[0]} / {blocks[1]} blocks (device time, "
+                          f"chip_smoke.device_ms; the backward's with the partials' sum)")
+        del x, h, g, s_p
+        torch.cuda.empty_cache()
+    check_ffn(gen)
+
+
 def check_flash_kv(gen):
     """K6 at chip_smoke's phase-9 bars, the vest shape and two ragged lengths."""
     for B, T in ((16, 8250), (2, 300), (2, 77)):
@@ -337,6 +524,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     sources = (SOURCES[:2] if "--attention" in sys.argv
                else FFN_SOURCES if "--ffn" in sys.argv
+               else RESID_SOURCES if "--resid" in sys.argv
                else ("conv_gelu",) if "--conv" in sys.argv
                else ("flash_kv",) if "--flash-kv" in sys.argv else SOURCES)
     t0 = time.perf_counter()
@@ -358,6 +546,8 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     if "--ffn" in sys.argv:
         check_ffn(gen)
+    elif "--resid" in sys.argv:
+        check_resid(gen)
     elif "--flash-kv" in sys.argv:
         check_flash_kv(gen)
     elif "--conv" in sys.argv:
@@ -366,7 +556,7 @@ def main() -> None:
             chip_smoke.phase_conv_kernel()
     else:
         check_attention(gen)
-    if not {"--attention", "--ffn", "--flash-kv", "--conv"} & set(sys.argv):
+    if not {"--attention", "--ffn", "--flash-kv", "--conv", "--resid"} & set(sys.argv):
         check_conv(gen)
         check_ffn(gen)
     print("SOME_FAILED: " + ", ".join(failures) if failures else "ALL_OK")

@@ -7,10 +7,17 @@ contract:
 * Philox4x32-10 against Random123's known-answer vectors, a mask that is a function of
   the element index alone, and a keep rate within 3 sigma of ``1 - rate``;
 * the GELU helpers against the JAX package's (``ops/pallas/conv.py``), float32;
+* the GELU forms on the CPU kept off MKL's vector math (whose first call in a process can
+  return one thread's chunk at ~13-bit accuracy), and the erf form within the rational erf's
+  stated error of the exact GELU in float64;
 * dropout at rate 0 against the Pallas kernel in interpret mode, and at rate 0.1 with the
   port's mask injected into the JAX composition ``where(keep, x / (1 - r), 0)``, values
-  and ``jax.vjp`` gradients; forward and backward apply the same mask.
+  and ``jax.vjp`` gradients, also at odd lengths and on a view one element past 16 bytes;
+  forward and backward apply the same mask;
+* K2's alignment check, which refuses a view that does not start on 16 bytes.
 """
+
+import math
 
 import numpy as np
 import jax
@@ -82,6 +89,36 @@ def test_gelu_erf_is_within_rational_error_of_exact():
                                rtol=0)
 
 
+FORMS = ("gelu_erf", "gelu_erf_grad", "gelu_tanh", "gelu_tanh_grad")
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_gelu_forms_on_the_cpu_stay_off_mkl_vector_math(form, monkeypatch):
+    """torch.exp and torch.tanh on CPU tensors go to MKL, whose first call in a process can
+    compute one OpenMP thread's chunk at ~13-bit accuracy; the plain forms must not call them
+    there (a CPU result that depends on the intra-op chunking)."""
+    x = torch.linspace(-6, 6, 40001)                 # above the intra-op grain: chunked
+    want = getattr(gelu, form)(x)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CPU GELU form called MKL's vector exp or tanh")
+
+    monkeypatch.setattr(torch, "exp", refuse)
+    monkeypatch.setattr(torch, "tanh", refuse)
+    torch.testing.assert_close(getattr(gelu, form)(x), want, rtol=0, atol=0)
+
+
+def test_gelu_erf_is_within_rational_error_of_float64():
+    """The float32 erf GELU against 0.5 x (1 + erf(x / sqrt 2)) in float64: within the
+    rational erf's stated 1.5e-7 (times 0.5 |x|) plus four float32 roundings at x's scale."""
+    x = np.linspace(-6, 6, 20001).astype(np.float32)
+    xd = x.astype(np.float64)
+    exact = 0.5 * xd * (1.0 + np.vectorize(math.erf)(xd / math.sqrt(2.0)))
+    got = gelu.gelu_erf(torch.from_numpy(x)).numpy().astype(np.float64)
+    bar = 0.5 * np.abs(xd) * 1.5e-7 + 4 * 2.0 ** -24 * np.maximum(1.0, np.abs(xd))
+    assert np.all(np.abs(got - exact) <= bar), float(np.max(np.abs(got - exact) - bar))
+
+
 def _x(shape=(37, 24), seed=0):
     return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
 
@@ -111,6 +148,39 @@ def test_dropout_with_injected_mask_matches_jax_composition(shape):
     # forward and backward dropped the same elements
     np.testing.assert_array_equal(out.detach().numpy() != 0, keep)
     np.testing.assert_array_equal(xt.grad.numpy() != 0, keep)
+
+
+@pytest.mark.parametrize("n,offset", [(101, 0), (1001, 1), (4099, 3)])
+def test_dropout_odd_lengths_and_offset_views_match_jax_composition(n, offset):
+    """Odd lengths, on views 0, 1 and 3 elements past 16 bytes: the mask is the element's index
+    in the view, whatever its storage."""
+    base = _x((n + offset,), seed=n)
+    x, g = base[offset:], _x((n,), seed=n + 1)
+    keep = philox.keep_mask(77, 3, (n,), RATE).numpy()
+    ref, vjp = jax.vjp(lambda a: jnp.where(keep, a / (1.0 - RATE), 0.0), jnp.asarray(x))
+    xt = torch.from_numpy(base).requires_grad_()
+    view = xt[offset:]
+    assert view.data_ptr() % 16 == 4 * offset % 16
+    out = port.dropout(view, 77, 3, RATE)
+    out.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=1e-5)
+    np.testing.assert_allclose(xt.grad.numpy()[offset:], np.asarray(vjp(jnp.asarray(g))[0]),
+                               atol=1e-5)
+    torch.testing.assert_close(out.detach(), port.dropout_reference(view.detach().clone(), 77, 3,
+                                                                    RATE), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_alignment_check_refuses_an_offset_view(dtype):
+    """K2's wrappers refuse a view one element past 16 bytes (its rows move by bulk copies);
+    K1 takes any contiguous tensor (above)."""
+    flat = torch.zeros(2 * 768 + 16, dtype=dtype)
+    start = -flat.data_ptr() % port.VECTOR_BYTES // flat.element_size()
+    aligned = flat[start:start + 2 * 768].view(2, 768)
+    offset = flat[start + 1:start + 1 + 2 * 768].view(2, 768)
+    port.check_aligned("resid_fwd_kernel", aligned)
+    with pytest.raises(ValueError, match="16 bytes"):
+        port.check_aligned("resid_fwd_kernel", aligned, offset)
 
 
 def test_dropout_bf16_rounds_once():

@@ -1,9 +1,13 @@
 """Residual tail ``LayerNorm(x + dropout(h))`` (K2): the port's plain versions vs the JAX package.
 
-At rate 0 against the Pallas kernel in interpret mode (forward and VJP, f32 atol 1e-5);
-at rate 0.1 with the port's Philox mask injected into the JAX composition
+At rate 0 against the Pallas kernel in interpret mode (forward and VJP, f32 atol 1e-5),
+also at the widths the kernels' lanes treat apart (128, 384 and 768 columns: whole, half
+and idle last passes) with ragged row counts (1, 127, and one that is not a multiple of a
+tile); at rate 0.1 with the port's Philox mask injected into the JAX composition
 (``reference_dropout_add_layernorm``'s formula with ``where(keep, ...)``), values and
-``jax.vjp`` gradients. The CUDA kernels are held to these plain versions by
+``jax.vjp`` gradients. The backward kernel's partition of rows into tiles and tiles into
+blocks covers every row once, and its per-block partial sums, added in the wrapper's order,
+are the plain column sums. The CUDA kernels are held to these plain versions by
 ``chip_smoke.py`` on the card.
 """
 
@@ -50,6 +54,72 @@ def test_rate0_matches_pallas_interpret(shape):
                        *map(jnp.asarray, (h, x, w, b)))
     out, grads = _port(h, x, w, b, g, 3, 7, 0.0)
     _compare(out, grads, ref, vjp(jnp.asarray(g)), 1e-5)
+
+
+# Rows a tile holds in the kernels (csrc/resid.cuh, kResidRows).
+ROWS_PER_TILE = 8
+
+
+@pytest.mark.parametrize("rows", [1, 127, 2 * ROWS_PER_TILE + 3])
+@pytest.mark.parametrize("cols", [128, 384, 768])
+def test_rate0_matches_pallas_interpret_at_kernel_widths(rows, cols):
+    h, x, w, b, g = _inputs((rows, cols), seed=rows + cols)
+    seed = jnp.asarray(0, jnp.int32)
+    ref, vjp = jax.vjp(lambda *a: jax_resid(*a, seed, 0.0, EPS, True),
+                       *map(jnp.asarray, (h, x, w, b)))
+    out, grads = _port(h, x, w, b, g, 3, 7, 0.0)
+    _compare(out, grads, ref, vjp(jnp.asarray(g)), 1e-5)
+
+
+def _block_of_rows(rows: int, blocks: int, rows_per_tile: int) -> torch.Tensor:
+    """The block of the persistent grid that takes each row: tile ``row // rows_per_tile``
+    goes to block ``tile % blocks``."""
+    return torch.arange(rows) // rows_per_tile % blocks
+
+
+def _block_partials(g, s, blocks: int, rows_per_tile: int) -> torch.Tensor:
+    """The backward kernel's float32 partials ``[2, blocks, cols]`` in plain PyTorch: for each
+    block the column sums of ``g * shat`` (dweight) and of ``g`` (dbias) over its rows."""
+    c = g.shape[-1]
+    sf, gf = s.reshape(-1, c).float(), g.reshape(-1, c).float()
+    mean = sf.mean(-1, keepdim=True)
+    var = ((sf * sf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    shat = (sf - mean) * torch.rsqrt(var + EPS)
+    owner = _block_of_rows(sf.shape[0], blocks, rows_per_tile)
+    parts = torch.zeros((2, blocks, c), dtype=torch.float32)
+    parts[0].index_add_(0, owner, gf * shat)
+    parts[1].index_add_(0, owner, gf)
+    return parts
+
+
+def _kernel_walk(rows: int, blocks: int, rows_per_tile: int) -> dict[int, list[int]]:
+    """The rows each block takes in ``csrc/resid.cuh``'s loops: tiles t = block, block +
+    blocks, ... below ceil(rows / R), rows t R .. min((t + 1) R, rows) - 1 of each."""
+    tiles = -(-rows // rows_per_tile)
+    return {b: [r for t in range(b, tiles, blocks)
+                for r in range(t * rows_per_tile, min((t + 1) * rows_per_tile, rows))]
+            for b in range(blocks)}
+
+
+@pytest.mark.parametrize("rows,blocks,rows_per_tile", [
+    (1, 132, 8), (127, 132, 8), (19, 2, 8), (1000, 264, 8), (1000, 7, 16), (3264, 264, 8)])
+def test_backward_partition_and_partials(rows, blocks, rows_per_tile):
+    walk = _kernel_walk(rows, blocks, rows_per_tile)
+    covered = sorted(r for taken in walk.values() for r in taken)
+    assert covered == list(range(rows))                       # every row once
+    owner = _block_of_rows(rows, blocks, rows_per_tile)
+    for b, taken in walk.items():
+        assert bool((owner[taken] == b).all())
+    h, x, w, b_, g = _inputs((rows, 256), seed=rows)
+    s = port.dropout_add_reference(torch.from_numpy(h), torch.from_numpy(x), 9, 4, RATE)
+    gt = torch.from_numpy(g)
+    parts = _block_partials(gt, s, blocks, rows_per_tile)
+    assert parts.shape == (2, blocks, 256) and parts.dtype == torch.float32
+    _, _, dweight, dbias = port.resid_bwd_reference(gt, s, torch.from_numpy(w), 9, 4, RATE, EPS)
+    got_w, got_b = parts.sum(dim=1)                          # the wrapper's order
+    # chip_smoke's colsum bar for float32 sums over rows in another order
+    torch.testing.assert_close(got_w, dweight, atol=1e-2, rtol=1e-4)
+    torch.testing.assert_close(got_b, dbias, atol=1e-2, rtol=1e-4)
 
 
 def _jax_composition(keep, rate):

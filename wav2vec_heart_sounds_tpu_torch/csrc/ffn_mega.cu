@@ -579,10 +579,9 @@ int bwd(const T* g, const T* s, const T* pre, const T* w2, const float* gamma, T
   auto dgrad = ffn_dgrad_kernel<T, kTanh>;
   cudaError_t err = set_smem(dgrad, Dg::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  w2v::resid_bwd_kernel<T, true><<<row_blocks, w2v::kResidThreads, 0, st>>>(
-      g, s, gamma, dhid, ds, dgamma_part, dbeta_part, db2_part, rows, d, eps, seed, site_hid,
-      thr_hid, scale_hid);
-  err = cudaGetLastError();
+  err = w2v::ResidBwd<T, true>::launch(d, row_blocks, st, g, s, gamma, dhid, ds, dgamma_part,
+                                       dbeta_part, db2_part, rows, d, eps, seed, site_hid,
+                                       thr_hid, scale_hid);
   if (err != cudaSuccess) return static_cast<int>(err);
   dgrad<<<dim3(f / Dg::BN, (rows + Dg::BM - 1) / Dg::BM), kThreads, Dg::SMEM, st>>>(
       dhid, w2, pre, dpre, h, db1_part, rows, d, f, seed, site_act, thr_act, scale_act);
@@ -611,8 +610,8 @@ int fwd_bf16(const bf16* x, const bf16* w1, const bf16* b1, const bf16* w2, cons
       mh, mw2, b2, x, s, rows, f, seed, site_hid, thr_hid, scale_hid);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int ln_blocks = (rows + w2v::kResidWarps - 1) / w2v::kResidWarps;
-  w2v::ln_rows_kernel<<<ln_blocks < 65535 ? ln_blocks : 65535, w2v::kResidThreads, 0, st>>>(
+  const int ln_blocks = (rows + w2v::kLnWarps - 1) / w2v::kLnWarps;
+  w2v::ln_rows_kernel<<<ln_blocks < 65535 ? ln_blocks : 65535, w2v::kLnThreads, 0, st>>>(
       s, gamma, beta, y, rows, d, eps);
   return static_cast<int>(cudaGetLastError());
 }
@@ -628,10 +627,9 @@ int bwd_bf16(const bf16* g, const bf16* s, const bf16* pre, const bf16* w2, cons
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = set_smem(ffn_dgrad_wgmma_kernel, NMajor::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  w2v::resid_bwd_kernel<bf16, true><<<row_blocks, w2v::kResidThreads, 0, st>>>(
-      g, s, gamma, dhid, ds, dgamma_part, dbeta_part, db2_part, rows, d, eps, seed, site_hid,
-      thr_hid, scale_hid);
-  err = cudaGetLastError();
+  err = w2v::ResidBwd<bf16, true>::launch(d, row_blocks, st, g, s, gamma, dhid, ds,
+                                          dgamma_part, dbeta_part, db2_part, rows, d, eps, seed,
+                                          site_hid, thr_hid, scale_hid);
   if (err != cudaSuccess) return static_cast<int>(err);
   ffn_dgrad_wgmma_kernel<<<w2v::gemm_grid(rows, f), w2v::kGemmThreads, NMajor::SMEM, st>>>(
       mdhid, mw2, pre, dpre, h, db1_part, rows, f, seed, site_act, thr_act, scale_act);
@@ -681,8 +679,19 @@ extern "C" int ffn_mega_fwd(const void* x, const void* w1, const void* b1, const
   }
 }
 
-// Backward: (C) then (D). `row_blocks` is (C)'s grid: the dgamma, dbeta and db2 partials
-// are [row_blocks, d]; the db1 partials are [ceil(rows / 128), f].
+// (C)'s persistent grid for `sms` SMs (resid.cuh's K2 backward row pass with the db2 sums),
+// which the caller passes to ffn_mega_bwd as `row_blocks` (negative on error).
+extern "C" int ffn_mega_row_blocks(int rows, int sms, int dtype) {
+  if (rows <= 0 || sms <= 0) return -1;
+  switch (dtype) {
+    case 0: return w2v::ResidBwd<float, true>::grid(rows, kDownCols, sms);
+    case 1: return w2v::ResidBwd<bf16, true>::grid(rows, kDownCols, sms);
+    default: return -1;
+  }
+}
+
+// Backward: (C) then (D). `row_blocks` is (C)'s grid (ffn_mega_row_blocks): the dgamma, dbeta
+// and db2 partials are [row_blocks, d]; the db1 partials are [ceil(rows / 128), f].
 extern "C" int ffn_mega_bwd(const void* g, const void* s, const void* pre, const void* w2,
                             const void* gamma, void* ds, void* dhid, void* dpre, void* h,
                             void* dgamma_part, void* dbeta_part, void* db2_part,

@@ -67,6 +67,23 @@ __device__ __forceinline__ uint32_t philox_keep_run(uint32_t seed, uint32_t site
   return N == 32 ? mask : mask & ((1u << N) - 1u);
 }
 
+// philox_keep_run for a `base` that is a multiple of 4 (a run that starts on a group): N / 4
+// calls and no shifts that depend on `base`.
+template <int N>
+__device__ __forceinline__ uint32_t philox_keep_aligned(uint32_t seed, uint32_t site,
+                                                        unsigned long long base, uint32_t thr) {
+  static_assert(N % 4 == 0 && N > 0 && N <= 32, "runs of 4 .. 32 elements");
+  uint32_t mask = 0;
+#pragma unroll
+  for (int s = 0; s < N / 4; ++s) {
+    const uint4 w = philox_group(seed, site, (base >> 2) + s);
+    mask |= (static_cast<uint32_t>(w.x >= thr) | static_cast<uint32_t>(w.y >= thr) << 1 |
+             static_cast<uint32_t>(w.z >= thr) << 2 | static_cast<uint32_t>(w.w >= thr) << 3)
+            << (4 * s);
+  }
+  return mask;
+}
+
 // The bits of one element.
 __device__ __forceinline__ uint32_t philox_bits(uint32_t seed, uint32_t site,
                                                 unsigned long long index) {

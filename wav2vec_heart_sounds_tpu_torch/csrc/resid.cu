@@ -9,39 +9,58 @@
 //
 // What bounds it on this card: bytes (forward reads h, x and writes out, s; backward reads
 // g, s and writes dh, dx: 4 x 29 MB per pass at [96*199, 768] bf16, ~35 us at HBM speed).
+// The design (resid.cuh): a persistent grid, 16-byte accesses per lane, the backward's rows
+// streamed by 1D bulk copies through a ring in shared memory, one partial row per block in
+// the backward.
 
 #include "resid.cuh"
 
-using w2v::kResidThreads;
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+// f(T{}) for the dtype code (0 = float32, 1 = bfloat16); nothing for another code.
+template <class F>
+void on_dtype(int dtype, F&& f) {
+  if (dtype == 0) f(float{});
+  if (dtype == 1) f(bf16{});
+}
+
+}  // namespace
 
 // C entry points, bound with ctypes. dtype: 0 = float32, 1 = bfloat16; gamma, beta and the
-// partials are float32. `blocks` is the grid (the partials have `blocks` rows). Each
-// returns the cudaError_t of its launch (0 = launched).
+// partials are float32. `blocks` is the grid (the backward's partials have `blocks` rows),
+// from resid_blocks for the same rows, cols and dtype. Every [rows, cols] pointer is
+// 16-byte aligned (the bulk copies and 16-byte accesses). Each returns the cudaError_t of its
+// launch (0 = launched).
+
+// The persistent grid for `sms` SMs (negative on error).
+extern "C" int resid_blocks(int rows, int cols, int sms, int dtype, int backward) {
+  if (w2v::resid_bad_shape(rows, cols, 1) || sms <= 0) return -1;
+  int blocks = -1;
+  on_dtype(dtype, [&](auto t) {
+    using T = decltype(t);
+    blocks = backward ? w2v::ResidBwd<T, false>::grid(rows, cols, sms)
+                      : w2v::ResidFwd<T>::grid(rows, cols, sms);
+  });
+  return blocks;
+}
+
 extern "C" int resid_fwd(const void* h, const void* x, const void* gamma, const void* beta,
                          void* out, void* s, int rows, int cols, float eps, uint32_t seed,
                          uint32_t site, uint32_t thr, float scale, int blocks, int dtype,
                          void* stream) {
   if (w2v::resid_bad_shape(rows, cols, blocks)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* ga = static_cast<const float*>(gamma);
-  const float* be = static_cast<const float*>(beta);
-  switch (dtype) {
-    case 0:
-      w2v::resid_fwd_kernel<float><<<blocks, kResidThreads, 0, st>>>(
-          static_cast<const float*>(h), static_cast<const float*>(x), ga, be,
-          static_cast<float*>(out), static_cast<float*>(s), rows, cols, eps, seed, site, thr,
-          scale);
-      break;
-    case 1:
-      w2v::resid_fwd_kernel<__nv_bfloat16><<<blocks, kResidThreads, 0, st>>>(
-          static_cast<const __nv_bfloat16*>(h), static_cast<const __nv_bfloat16*>(x), ga, be,
-          static_cast<__nv_bfloat16*>(out), static_cast<__nv_bfloat16*>(s), rows, cols, eps,
-          seed, site, thr, scale);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaErrorInvalidValue;
+  on_dtype(dtype, [&](auto t) {
+    using T = decltype(t);
+    err = w2v::ResidFwd<T>::launch(
+        cols, blocks, static_cast<cudaStream_t>(stream), static_cast<const T*>(h),
+        static_cast<const T*>(x), static_cast<const float*>(gamma),
+        static_cast<const float*>(beta), static_cast<T*>(out), static_cast<T*>(s), rows, cols,
+        eps, seed, site, thr, scale);
+  });
+  return static_cast<int>(err);
 }
 
 extern "C" int resid_bwd(const void* g, const void* s, const void* gamma, void* dh, void* dx,
@@ -49,25 +68,14 @@ extern "C" int resid_bwd(const void* g, const void* s, const void* gamma, void* 
                          uint32_t seed, uint32_t site, uint32_t thr, float scale, int blocks,
                          int dtype, void* stream) {
   if (w2v::resid_bad_shape(rows, cols, blocks)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* ga = static_cast<const float*>(gamma);
-  float* dgp = static_cast<float*>(dgamma_part);
-  float* dbp = static_cast<float*>(dbeta_part);
-  switch (dtype) {
-    case 0:
-      w2v::resid_bwd_kernel<float, false><<<blocks, kResidThreads, 0, st>>>(
-          static_cast<const float*>(g), static_cast<const float*>(s), ga,
-          static_cast<float*>(dh), static_cast<float*>(dx), dgp, dbp, nullptr, rows, cols, eps,
-          seed, site, thr, scale);
-      break;
-    case 1:
-      w2v::resid_bwd_kernel<__nv_bfloat16, false><<<blocks, kResidThreads, 0, st>>>(
-          static_cast<const __nv_bfloat16*>(g), static_cast<const __nv_bfloat16*>(s), ga,
-          static_cast<__nv_bfloat16*>(dh), static_cast<__nv_bfloat16*>(dx), dgp, dbp, nullptr,
-          rows, cols, eps, seed, site, thr, scale);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaErrorInvalidValue;
+  on_dtype(dtype, [&](auto t) {
+    using T = decltype(t);
+    err = w2v::ResidBwd<T, false>::launch(
+        cols, blocks, static_cast<cudaStream_t>(stream), static_cast<const T*>(g),
+        static_cast<const T*>(s), static_cast<const float*>(gamma), static_cast<T*>(dh),
+        static_cast<T*>(dx), static_cast<float*>(dgamma_part), static_cast<float*>(dbeta_part),
+        static_cast<float*>(nullptr), rows, cols, eps, seed, site, thr, scale);
+  });
+  return static_cast<int>(err);
 }

@@ -10,6 +10,13 @@ Port of ``wav2vec_heart_sounds_tpu/ops/pallas/conv.py:47-104``. The FFN activati
 
 Eval paths keep the exact erf of ``torch.nn.functional.gelu``. Inputs are taken in
 float32; outputs are float32.
+
+On the CPU the exponential and tanh are taken through :func:`_exp` and :func:`_tanh`, not
+``torch.exp`` / ``torch.tanh``: those go to MKL's vector math, whose first call in a process
+can return one OpenMP thread's chunk at ~13-bit accuracy when several threads enter it at
+once (the other chunks and every later call at full accuracy), so a plain result would
+depend on the intra-op chunking. CUDA tensors keep ``torch.exp`` / ``torch.tanh``, which
+``csrc/gelu.cuh``'s bit-exact forms follow.
 """
 
 from __future__ import annotations
@@ -22,6 +29,25 @@ SQRT2 = math.sqrt(2.0)
 INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 TANH_K0 = 0.7978845608028654      # sqrt(2 / pi)
 TANH_K1 = 0.044715
+LOG2E = 1.4426950408889634
+
+
+def _exp(x: torch.Tensor) -> torch.Tensor:
+    """``exp(x)`` in ``x.dtype``; on the CPU as ``exp2(x log2 e)`` in float64 (SLEEF's vector
+    exp2, no MKL), rounded once: exp correctly rounded but for float64 ties."""
+    if x.device.type != "cpu":
+        return torch.exp(x)
+    return torch.exp2(x.double() * LOG2E).to(x.dtype)
+
+
+def _tanh(x: torch.Tensor) -> torch.Tensor:
+    """``tanh(x)`` in ``x.dtype``; on the CPU as ``sign(x) (1 - e) / (1 + e)`` with
+    ``e = exp(-2 |x|)`` from :func:`_exp`'s float64 route, rounded once."""
+    if x.device.type != "cpu":
+        return torch.tanh(x)
+    xd = x.double()
+    e = torch.exp2(-2.0 * LOG2E * xd.abs())
+    return (torch.sign(xd) * (1.0 - e) / (1.0 + e)).to(x.dtype)
 
 
 def erf_rational(x: torch.Tensor) -> torch.Tensor:
@@ -30,7 +56,7 @@ def erf_rational(x: torch.Tensor) -> torch.Tensor:
     t = 1.0 / (1.0 + 0.3275911 * a)
     poly = t * (0.254829592 + t * (-0.284496736 + t * (1.421413741
                + t * (-1.453152027 + t * 1.061405429))))
-    return torch.sign(x) * (1.0 - poly * torch.exp(-a * a))
+    return torch.sign(x) * (1.0 - poly * _exp(-a * a))
 
 
 def gelu_erf(x: torch.Tensor) -> torch.Tensor:
@@ -40,18 +66,18 @@ def gelu_erf(x: torch.Tensor) -> torch.Tensor:
 
 def gelu_erf_grad(x: torch.Tensor) -> torch.Tensor:
     x = x.float()
-    return 0.5 * (1.0 + erf_rational(x / SQRT2)) + x * torch.exp(-0.5 * x * x) * INV_SQRT_2PI
+    return 0.5 * (1.0 + erf_rational(x / SQRT2)) + x * _exp(-0.5 * x * x) * INV_SQRT_2PI
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     x = x.float()
     u = TANH_K0 * (x + TANH_K1 * x * x * x)
-    return 0.5 * x * (1.0 + torch.tanh(u))
+    return 0.5 * x * (1.0 + _tanh(u))
 
 
 def gelu_tanh_grad(x: torch.Tensor) -> torch.Tensor:
     x = x.float()
     u = TANH_K0 * (x + TANH_K1 * x * x * x)
-    th = torch.tanh(u)
+    th = _tanh(u)
     du = TANH_K0 * (1.0 + 3.0 * TANH_K1 * x * x)
     return 0.5 * (1.0 + th) + 0.5 * x * (1.0 - th * th) * du

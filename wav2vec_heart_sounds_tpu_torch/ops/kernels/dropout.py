@@ -11,6 +11,7 @@ tensor goes to the kernel (``csrc/dropout.cu``) or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -20,6 +21,7 @@ from . import build
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I64, _U32, _F, _I = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint32, ctypes.c_float,
                           ctypes.c_int)
+VECTOR_BYTES = 16       # K2's bulk copies and accesses: 8 bf16 or 4 f32
 
 
 def dropout_reference(x: torch.Tensor, seed: int, site: int, rate: float) -> torch.Tensor:
@@ -37,6 +39,21 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise TypeError(f"{name} takes float32 or bfloat16, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} needs contiguous tensors")
+
+
+def check_aligned(name: str, *tensors: torch.Tensor) -> None:
+    """The check of the kernels that move whole rows by bulk copies and 16-byte accesses: each
+    tensor's first element on 16 bytes (as :func:`check_cuda` asks for contiguity)."""
+    for t in tensors:
+        if t.data_ptr() % VECTOR_BYTES:
+            raise ValueError(f"{name} needs tensors that start on {VECTOR_BYTES} bytes, got one "
+                             f"at {t.data_ptr() % VECTOR_BYTES} bytes past")
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device: the persistent grids' width."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def dropout_kernel(x: torch.Tensor, seed: int, site: int, rate: float) -> torch.Tensor:

@@ -24,16 +24,16 @@ only for CPU tensors; CUDA tensors go to the kernels or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from .. import philox
 from . import build
-from .dropout import DTYPE_CODES, check_cuda
+from .dropout import DTYPE_CODES, check_cuda, sm_count
 from .ffn import ffn_act_bwd_reference, ffn_act_fwd_reference
-from .resid import (PARTIAL_BLOCKS, dropout_add_reference, resid_bwd_reference,
-                    resid_fwd_reference)
+from .resid import dropout_add_reference, resid_bwd_reference, resid_fwd_reference
 
 _P, _U32, _F, _I = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float, ctypes.c_int
 HIDDEN = 768        # the row width the kernels take (wav2vec2-base's hidden size)
@@ -128,6 +128,17 @@ def ffn_mega_fwd_kernel(x, w1, b1, w2, b2, weight, bias, seed: int, s_act: int, 
     return y, s, pre
 
 
+@functools.cache
+def _row_blocks(rows: int, dtype: torch.dtype, device: torch.device) -> int:
+    """(C)'s persistent grid (K2's backward row pass, ``csrc/resid.cuh``) on ``device``: the
+    dgamma, dbeta and db2 partials have this many rows."""
+    fn = build.entry("ffn_mega", "ffn_mega_row_blocks", (_I, _I, _I))
+    blocks = fn(rows, sm_count(device), DTYPE_CODES[dtype])
+    if blocks <= 0:
+        raise RuntimeError(f"ffn_mega_row_blocks: no grid for {rows} rows of {dtype}")
+    return blocks
+
+
 def ffn_mega_bwd_kernel(g, s, pre, w2, weight, seed: int, s_act: int, s_hid: int,
                         rate_act: float, rate_hid: float, eps: float):
     """Launch the backward of ``csrc/ffn_mega.cu`` ((C) then (D)); counts calls in
@@ -139,7 +150,7 @@ def ffn_mega_bwd_kernel(g, s, pre, w2, weight, seed: int, s_act: int, s_hid: int
         raise ValueError("ffn_mega_bwd_kernel: g, s [N, 768], pre [N, F] and w2 [768, F]")
     _same("ffn_mega_bwd_kernel", g.dtype, g, s, pre, w2)
     check_cuda("ffn_mega_bwd_kernel", g, s, pre, w2, weight)
-    row_blocks = min(-(-rows // 4), PARTIAL_BLOCKS)
+    row_blocks = _row_blocks(rows, g.dtype, g.device)
     ds, dhid = torch.empty_like(g), torch.empty_like(g)
     dpre, h = torch.empty_like(pre), torch.empty_like(pre)
     parts = torch.empty((3, row_blocks, HIDDEN), dtype=torch.float32, device=g.device)

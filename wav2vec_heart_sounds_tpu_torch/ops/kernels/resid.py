@@ -6,21 +6,27 @@ regenerates the Philox mask of ``(seed, site)`` (:mod:`..philox`) instead of sto
 ``weight``/``bias`` are the float32 LayerNorm parameters. :func:`dropout_add_layernorm`
 takes the plain versions only for CPU tensors; CUDA tensors go to ``csrc/resid.cu`` or
 raise.
+
+The kernels run a persistent grid (:func:`grid_blocks`: one or two blocks an SM) over tiles
+of consecutive rows, tile t on block ``t % blocks``; the backward writes one float32 partial
+row of each column sum per block, which the wrapper adds in block order. Rows move by bulk
+copies and 16-byte accesses, so every ``[rows, cols]`` tensor starts on 16 bytes
+(:func:`.dropout.check_aligned`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .. import philox
 from . import build
-from .dropout import DTYPE_CODES, check_cuda
+from .dropout import DTYPE_CODES, VECTOR_BYTES, check_aligned, check_cuda, sm_count
 
 _P, _U32, _F, _I = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float, ctypes.c_int
 MAX_COLS = 768      # widest row the kernel takes (wav2vec2-base's hidden size)
-PARTIAL_BLOCKS = 1024
 
 
 def _stats(sf: torch.Tensor, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
@@ -63,6 +69,18 @@ def resid_bwd_reference(g, s, weight, seed: int, site: int, rate: float, eps: fl
     return dh, ds.to(g.dtype), (gf * shat).reshape(-1, c).sum(0), gf.reshape(-1, c).sum(0)
 
 
+@functools.cache
+def grid_blocks(rows: int, cols: int, dtype: torch.dtype, device: torch.device,
+                backward: bool) -> int:
+    """The kernels' persistent grid on ``device``: as many blocks as fit on its SMs (at most
+    two an SM, by the occupancy API in ``csrc/resid.cu``), at most one per tile."""
+    fn = build.entry("resid", "resid_blocks", (_I, _I, _I, _I, _I))
+    blocks = fn(rows, cols, sm_count(device), DTYPE_CODES[dtype], int(backward))
+    if blocks <= 0:
+        raise RuntimeError(f"resid_blocks: no grid for rows={rows}, cols={cols}, {dtype}")
+    return blocks
+
+
 def _check(name, rows_like: torch.Tensor, *vectors: torch.Tensor) -> tuple[int, int]:
     c = rows_like.shape[-1]
     if c % 128 or c > MAX_COLS:
@@ -77,13 +95,14 @@ def _check(name, rows_like: torch.Tensor, *vectors: torch.Tensor) -> tuple[int, 
 def resid_fwd_kernel(h, x, weight, bias, seed: int, site: int, rate: float, eps: float):
     """Launch the forward of ``csrc/resid.cu``; counts launches in ``.launches``."""
     check_cuda("resid_fwd_kernel", h, x)
+    check_aligned("resid_fwd_kernel", h, x)
     if x.dtype != h.dtype or x.shape != h.shape:
         raise ValueError("resid_fwd_kernel: h and x must share shape and dtype")
     rows, cols = _check("resid_fwd_kernel", h, weight, bias)
     out, s = torch.empty_like(h), torch.empty_like(h)
     fn = build.entry("resid", "resid_fwd",
                      (_P, _P, _P, _P, _P, _P, _I, _I, _F, _U32, _U32, _U32, _F, _I, _I, _P))
-    blocks = min(-(-rows // 4), 65535)
+    blocks = grid_blocks(rows, cols, h.dtype, h.device, False)
     build.check(fn(h.data_ptr(), x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
                    out.data_ptr(), s.data_ptr(), rows, cols, eps, seed, site,
                    philox.threshold(rate), philox.keep_scale(rate), blocks,
@@ -95,10 +114,11 @@ def resid_fwd_kernel(h, x, weight, bias, seed: int, site: int, rate: float, eps:
 def resid_bwd_kernel(g, s, weight, seed: int, site: int, rate: float, eps: float):
     """Launch the backward of ``csrc/resid.cu``; counts launches in ``.launches``."""
     check_cuda("resid_bwd_kernel", g, s)
+    check_aligned("resid_bwd_kernel", g, s)
     if s.dtype != g.dtype or s.shape != g.shape:
         raise ValueError("resid_bwd_kernel: g and s must share shape and dtype")
     rows, cols = _check("resid_bwd_kernel", g, weight)
-    blocks = min(-(-rows // 4), PARTIAL_BLOCKS)
+    blocks = grid_blocks(rows, cols, g.dtype, g.device, True)
     dh, dx = torch.empty_like(g), torch.empty_like(g)
     parts = torch.empty((2, blocks, cols), dtype=torch.float32, device=g.device)
     fn = build.entry("resid", "resid_bwd",
@@ -116,6 +136,12 @@ resid_fwd_kernel.launches = 0
 resid_bwd_kernel.launches = 0
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and starting on 16 bytes (a copy only where it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % VECTOR_BYTES == 0 else t.clone()
+
+
 class _ResidTail(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, x, weight, bias, seed, site, rate, eps):
@@ -123,7 +149,7 @@ class _ResidTail(torch.autograd.Function):
         if h.device.type == "cpu":
             out, s = resid_fwd_reference(h, x, weight, bias, *args)
         else:
-            out, s = resid_fwd_kernel(h.contiguous(), x.contiguous(), weight, bias, *args)
+            out, s = resid_fwd_kernel(_aligned(h), _aligned(x), weight, bias, *args)
         ctx.save_for_backward(s, weight)
         ctx.args = args
         return out
@@ -134,7 +160,7 @@ class _ResidTail(torch.autograd.Function):
         if g.device.type == "cpu":
             dh, dx, dw, db = resid_bwd_reference(g, s, weight, *ctx.args)
         else:
-            dh, dx, dw, db = resid_bwd_kernel(g.contiguous(), s, weight, *ctx.args)
+            dh, dx, dw, db = resid_bwd_kernel(_aligned(g), s, weight, *ctx.args)
         need = ctx.needs_input_grad            # frozen LayerNorm parameters (LoRA)
         return (dh, dx if need[1] else None, dw if need[2] else None, db if need[3] else None,
                 None, None, None, None)
