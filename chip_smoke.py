@@ -8,7 +8,7 @@ Phases, each of which exits non-zero on failure:
 1. build every CUDA kernel from ``csrc/`` (into ``build/torch_kernels/``), one ``nvcc``
    per source, all started together;
 2. the serving attention kernel against its plain PyTorch version on the card, at the
-   serving shapes, with CUDA-event timings (median of 20);
+   serving shapes, with CUDA-event timings (median of 20); then phase 17 (below);
 3. full width: a wav2vec2-base encoder (float32, 12 layers x 768) loaded from the synthetic
    HF-layout state dict ``tests/golden/fullsize_sd.py`` must reproduce the recorded HF
    torch outputs ``tests/golden/wav2vec2_fullsize_parity.npz``;
@@ -28,9 +28,14 @@ Phases, each of which exits non-zero on failure:
    s bit for bit, and K2's refusal of a view that does not start on 16 bytes; CUDA-event
    timings around each call (median of 20) beside each kernel's bound (bytes, or operations:
    products, exponentials, or the integer instructions of the Philox masks counted in the
-   built SASS) and, where one PyTorch call computes the same function, that call's time;
-   beside them the device time of each kernel and library call (``device_ms``: 20 calls
-   queued behind a spin kernel); then K4 (``csrc/ffn_mega.cu``, the FFN sublayer) the same
+   built SASS; K5's bytes count the backward's partial rows, and beside its bound it prints
+   every instruction the built kernel's main loop issues per element, counted in its SASS,
+   and their time at the issue rate) and,
+   where one PyTorch call computes the same function, that call's time; beside them the
+   device time of each kernel and library call (``device_ms``: 20 calls queued behind a spin
+   kernel); K5 also at a ragged row count, the tiny config's 64 columns and an odd length,
+   its masks bit for bit, its backward equal to a second run, its refusal of a view one
+   element past 16 bytes; then K4 (``csrc/ffn_mega.cu``, the FFN sublayer) the same
    way at 19104, 3264 (fusion), 400 (vest) and 127 (ragged) rows, both masks checked bit for bit through
    the zero patterns of the backward's ``h`` and ``dhid``, timed beside the decomposed route
    (cuBLAS products + K5 + K2), with the device time of each bf16 stage (``torch.profiler``)
@@ -55,9 +60,13 @@ Phases, each of which exits non-zero on failure:
    dense TF32 rate and the exponentials at the special-function rate) and K7
    (``csrc/sinc_delay.cu``, ``[96, 8250]`` rows, delays in [0, 41.25] with integers) on three
    draws (``k7_draws``: the phase's own stream and two other seed-21 streams, one of them a
-   stream on which the forward once missed its bar beyond the taps), each side's error against the
-   plain version in float64 printed inside and beyond the taps, each beside its bound; K3b
-   at the vest encoder's T = 25 and K4 at its 400 rows;
+   stream on which the forward once missed its bar beyond the taps) and on delays smooth in
+   time (``k7_smooth_inputs``), y and s beyond the taps bit for bit, each side's error
+   against the plain version in float64 printed inside and beyond the taps; K6 and K7 by
+   CUDA events and by device time (``device_ms``), each beside its bound (K7's: each form's
+   float64, conversion and special-function instructions counted in the SASS of a build in
+   that form, ``k7_form_counts``, times that form's share of the draw), K7 on the iid and the
+   smooth draw; K3b at the vest encoder's T = 25 and K4 at its 400 rows;
 10. one full-width float32 vest training step (B=2, 6 microphones, LoRA under the freeze
    mask, the waveform's gradient asked for too) kernels against all-plain versions;
 11. ``SupervisedTrainer.fit`` on bench.py's vest config (B=16, bfloat16, AdamW, lazy host
@@ -89,7 +98,14 @@ Phases, each of which exits non-zero on failure:
    wav2vec2-base branches, B = 64, 4 s windows at 4125 Hz on two channels, AdamW at 1e-4):
    exact launches per step and fusion training windows/s; then the CinC runner
    ``experiments.cinc.run(mode="pcg_ecg")`` on phase 8's synthetic PCG+ECG directory (host
-   chain): finite losses of its three trainings and a ``big_rnn:2:wav2vec`` record.
+   chain): finite losses of its three trainings and a ``big_rnn:2:wav2vec`` record;
+17. (run right after phase 2) the kernels at other configs' widths against their plain
+   versions (K3a and K3b at head dims 16, 32 and 128; K4 at hidden / FFN 32 / 64, 1024 / 4096
+   and 40 / 72; K2's widths 32, 1024 and 40 run in phase 5), then ``Wav2Vec2Config.tiny()``
+   (hidden 32, head dim 16, FFN 64) on the card, float32, dropout and SpecAugment on, on both
+   FFN routes: one eval forward and one training step against the same on the CPU from the
+   same state dict and step seed (the loss at 1e-4 relative, each gradient norm at 1e-3
+   relative), every kernel with its exact launches (K1, K2, K3b and K4 or K5).
 
 Prints the card's name and power limit, one JSON line describing the kernels (launches
 from the ``fit`` of the path that runs each kernel: phase 7's K4 route for the CinC
@@ -101,6 +117,7 @@ as its last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import importlib.util
 import json
@@ -190,10 +207,16 @@ def load_golden_module():
 def phase_build() -> None:
     from wav2vec_heart_sounds_tpu_torch.ops.kernels import build
 
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    build.load_libraries(*SOURCES)
+    with ThreadPoolExecutor(1) as pool:          # K7's counted variants beside them (k7_bound)
+        variants = pool.submit(variant_libraries, K7_FORM_BUILDS)
+        build.load_libraries(*SOURCES)
+        variants.result()
     seconds = time.perf_counter() - t0
-    print(f"[build] {len(SOURCES)} sources, one nvcc each in parallel: {seconds:.2f} s")
+    print(f"[build] {len(SOURCES)} sources and {len(K7_FORM_BUILDS)} variants of sinc_delay, "
+          f"one nvcc each in parallel: {seconds:.2f} s")
     for name in SOURCES:
         log = build.build_logs.get(name)
         print(f"[build] {name}: {'compiled' if log is not None else 'already built'}")
@@ -256,6 +279,7 @@ def phase_full_width() -> None:
     with torch.device("cuda"):
         model = Wav2Vec2Model(dtype=torch.float32)
     hf_port.load_hf_state_dict(model, golden_sd.make_state_dict()).eval()
+    reset_counts()
     for case, x in enumerate(golden_sd.make_inputs()):
         before = attention_qkv_fwd.launches
         with torch.inference_mode():
@@ -328,7 +352,7 @@ def phase_serving(card: str) -> int:
     score(model, batcher, FS_WIRE, FS, win_len, max_batches=1)           # warm-up
     torch.cuda.synchronize()
 
-    attention.attention_qkv_fwd.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     result = score(model, batcher, FS_WIRE, FS, win_len)
     torch.cuda.synchronize()
@@ -533,16 +557,18 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
 # Exponentials: 16 results per clock per SM from the special-function units (CUDA's
 # arithmetic-throughput table, compute capability 9.0) x 132 SMs x the 1.98 GHz boost clock.
 EXP_PER_S = 16 * 132 * 1.98e9
-# 32-bit integer instructions (Philox's multiplies, XORs and adds): 64 a clock per SM (the
-# same table) x 132 SMs x the card's maximum SM clock as nvidia-smi reports it.
-INT_PER_CLOCK_SM, SMS = 64, 132
+# Per clock per SM (the same table): 32-bit integer instructions (Philox's multiplies, XORs
+# and adds) 64; float64 adds, multiplies and FMAs 64; conversions to and from float64 (F2F)
+# 16; and the issue of 4 warp-instructions (one per scheduler). Each x 132 SMs x the card's
+# maximum SM clock as nvidia-smi reports it.
+INT_PER_CLOCK_SM, FP64_PER_CLOCK_SM, F2F_PER_CLOCK_SM, ISSUE_PER_CLOCK_SM, SMS = 64, 64, 16, 4, 132
 
 
 @functools.cache
-def int_ops_per_s() -> float:
+def sm_clock_hz() -> float:
     mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
                          capture_output=True, text=True, check=True).stdout.split()[0]
-    return INT_PER_CLOCK_SM * SMS * float(mhz) * 1e6
+    return float(mhz) * 1e6
 
 
 # SASS opcodes of one Philox4x32-10 call: its multiplies (hi and lo halves), three-way XORs
@@ -551,23 +577,108 @@ PHILOX_OPCODES = ("IMAD", "LOP3", "IADD3")
 HIGH_MULTIPLIES = ("IMAD.HI", "IMAD.WIDE")
 
 
+SASS_LINE = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.*)$")
+SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+BRANCH = re.compile(r"\bBRA(?:\.\S+)?\s+(?:`\(([^)]+)\)|(0x[0-9a-f]+))")
+
+
+@functools.cache
+def sass_listing(path: str) -> dict[str, list[tuple[int, str, int | None]]]:
+    """Kernel name -> its SASS instructions (address, instruction without its predicate,
+    the address a branch goes to or None) in the built library ``path``, from
+    ``cuobjdump -sass``."""
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import build
+
+    cuobjdump = Path(build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", path], capture_output=True, text=True,
+                          check=True).stdout
+    kernels, insts, labels, pending = {}, None, {}, []
+    for line in sass.splitlines():
+        if "Function :" in line:
+            insts = kernels.setdefault(line.split("Function :", 1)[1].strip(), [])
+            labels, pending = {}, []
+            continue
+        label = SASS_LABEL.match(line)
+        if label:
+            pending.append(label.group(1))
+            continue
+        found = SASS_LINE.match(line)
+        if insts is None or not found:
+            continue
+        words = [w for w in found.group(2).split("/*", 1)[0].split() if not w.startswith("@")]
+        if not words or not words[0][0].isupper():
+            continue
+        address = int(found.group(1), 16)
+        for name in pending:
+            labels[name] = address
+        pending = []
+        insts.append([address, " ".join(words).rstrip(" ;"), found.group(2)])
+    for insts in kernels.values():                 # branch targets, by label or address
+        for inst in insts:
+            target = BRANCH.search(inst[2])
+            inst[2] = (None if target is None else labels.get(target.group(1)) if target.group(1)
+                       else int(target.group(2), 16))
+    return {name: [tuple(inst) for inst in insts] for name, insts in kernels.items()}
+
+
 def library_sass(library: str) -> dict[str, list[str]]:
     """Kernel name -> its SASS instructions (opcode first, predicates dropped) in the built
     library of ``csrc/<library>.cu``, from ``cuobjdump -sass``."""
     from wav2vec_heart_sounds_tpu_torch.ops.kernels import build
 
-    cuobjdump = Path(build.find_nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(build._target(library))],
-                          capture_output=True, text=True, check=True).stdout
-    kernels, ops = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            ops = kernels.setdefault(line.split("Function :", 1)[1].strip(), [])
-        elif ops is not None and "*/" in line:
-            words = [w for w in line.split("*/", 1)[1].split() if not w.startswith("@")]
-            if words and words[0][0].isupper():
-                ops.append(" ".join(words).rstrip(" ;"))
-    return kernels
+    return {name: [text for _, text, _ in insts]
+            for name, insts in sass_listing(str(build._target(library))).items()}
+
+
+def innermost_loops(insts: list[tuple[int, str, int | None]]) -> list[list[str]]:
+    """The instructions (no NOPs) of each innermost loop of one kernel's SASS: the span from
+    a backward branch's target to the branch that holds no other such span and no ``EXIT``
+    (a span over an ``EXIT`` is a slow path, placed after the kernel's code, returning into
+    the code it left: no loop)."""
+    exits = [address for address, text, _ in insts if text.startswith("EXIT")]
+    spans = [(target, address) for address, _, target in insts
+             if target is not None and target <= address
+             and not any(target <= e <= address for e in exits)]
+    inner = [(lo, hi) for lo, hi in spans
+             if not any((lo, hi) != (a, b) and lo <= a and b <= hi for a, b in spans)]
+    return [[text for address, text, _ in insts if lo <= address <= hi and
+             not text.startswith("NOP")] for lo, hi in inner]
+
+
+def innermost_loop(insts: list[tuple[int, str, int | None]]) -> list[str]:
+    """The largest of ``innermost_loops``."""
+    return max(innermost_loops(insts), key=len, default=[])
+
+
+def variant_libraries(specs: dict) -> dict[str, Path]:
+    """Builds of ``csrc/<name>.cu`` with extra ``-D`` defines, ``{label: (name, defines)}``:
+    one ``nvcc`` each, all started together, into ``build/torch_kernels/variants/`` (named by
+    the package build's hash and the defines; an existing one is reused). Returns
+    ``{label: library path}``; a failed build fails the run."""
+    import hashlib
+    import os
+
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import build
+
+    out_dir = build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs, paths = [], {}
+    for label, (name, defines) in specs.items():
+        digest = hashlib.sha256(" ".join((build._target(name).name, *defines)).encode())
+        out = out_dir / f"lib{name}_{digest.hexdigest()[:16]}.so"
+        paths[label] = out
+        if out.exists():
+            continue
+        tmp = out.with_name(out.name + f".tmp{os.getpid()}")
+        cmd = [build.find_nvcc(), *build.NVCC_FLAGS, *defines, "-o", str(tmp),
+               str(build.CSRC_DIR / f"{name}.cu")]
+        jobs.append((label, tmp, out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                       stderr=subprocess.STDOUT, text=True)))
+    for label, tmp, out, proc in jobs:
+        log = proc.communicate()[0]
+        check(proc.returncode == 0, f"nvcc failed to build the variant '{label}':\n{log}")
+        os.replace(tmp, out)
+    return paths
 
 
 @functools.cache
@@ -590,16 +701,101 @@ def philox_ops(elements: int, rate: float) -> float:
     return 0.0 if rate == 0 else -(-elements // 4) * philox_instructions()
 
 
-def bound(bytes_moved: float, flops: float, dtype, exps: float = 0.0,
-          int_ops: float = 0.0) -> dict:
+@functools.cache
+def k5_instructions(dtype, backward: bool, library: str | None = None) -> float:
+    """Instructions a thread issues per element in the main loop of the built K5 kernel
+    (``csrc/ffn_act.cu``, or the build at ``library``) for ``dtype``: the instructions of the
+    largest innermost loop in its SASS (the forward's takes one 16-byte run a trip, the
+    backward's one row of four columns) over the elements of a trip
+    (``ffn_act_trip_elements``)."""
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import build
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels.dropout import DTYPE_CODES
+
+    path = library or str(build._target("ffn_act"))
+    kernel = "ffn_act_bwd_kernel" if backward else "ffn_act_fwd_kernel"
+    bf16 = dtype == torch.bfloat16
+    bodies = [innermost_loop(insts) for name, insts in sass_listing(path).items()
+              if kernel in name and ("bfloat16" in name) == bf16]
+    check(len(bodies) == 1 and bool(bodies[0]), f"no main loop found in {kernel}'s SASS ({dtype})")
+    trip = ctypes.CDLL(path).ffn_act_trip_elements
+    trip.argtypes, trip.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    return len(bodies[0]) / trip(DTYPE_CODES[dtype], int(backward))
+
+
+# K7's SASS counted for its bound: sinc_delay.cu built with every sample in one form and one
+# tap a trip of its tap loop.
+K7_FORM_BUILDS = {form: ("sinc_delay", (f"-DW2V_SINC_FORM={code}", "-DW2V_SINC_UNROLL=1"))
+                  for form, code in (("near", 1), ("far", 2))}
+K7_ENTRIES = {"sinc_delay_fwd": "sinc_delay_fwd_kernel", "sinc_delay_grad_d":
+              "sinc_delay_grad_d_kernel", "sinc_delay_grad_x": "sinc_delay_grad_x_kernel"}
+FP64_OPCODES = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "DSET")
+
+
+def k7_kinds(ops: list[str]) -> dict:
+    """Float64 instructions (``FP64_OPCODES``), conversions to or from float64 (``F2F``,
+    ``I2F``/``F2I`` with an F64 operand) and special-function instructions (``MUFU``)."""
+    return {"fp64": sum(op.split(".")[0] in FP64_OPCODES for op in ops),
+            "conversions": sum(op.startswith(("F2F", "I2F", "F2I")) and "F64" in op
+                               for op in ops),
+            "special": sum(op.startswith("MUFU") for op in ops)}
+
+
+@functools.cache
+def k7_form_counts() -> dict:
+    """``{form: {entry: kinds}}`` (``k7_kinds``, and all its ``instructions``) of one tap of
+    each K7 entry's kernel built with every sample in that form (``K7_FORM_BUILDS``): its tap
+    loop, the innermost loop that reads the window from ``__constant__`` memory (bank
+    ``c[0x3]``). The code a sample runs once (staging, the sort, the last division) is left
+    out: a bound."""
+    out = {}
+    for form, path in variant_libraries(K7_FORM_BUILDS).items():
+        listing = sass_listing(str(path))
+        out[form] = {}
+        for entry, kernel in K7_ENTRIES.items():
+            insts = [insts for name, insts in listing.items() if kernel in name]
+            check(len(insts) == 1, f"no single {kernel} in the {form}-form build's SASS")
+            taps = [body for body in innermost_loops(insts[0])
+                    if any("c[0x3]" in text for text in body)]
+            check(len(taps) == 1, f"no single tap loop in {kernel}'s {form}-form SASS")
+            ops = [text.split()[0] for text in taps[0]]
+            out[form][entry] = {**k7_kinds(ops), "instructions": len(ops)}
+    return out
+
+
+def k7_bound(entry: str, bytes_moved: float, d: torch.Tensor) -> dict:
+    """K7's bound on delays ``d``: bytes, or K taps of each form's float64 instructions,
+    conversions and special-function instructions (``k7_form_counts``) times that form's
+    samples in this draw, at their rates, whichever is larger."""
+    K = len(K7_WINDOW)
+    far = int((torch.round(d).abs() > K // 2).sum())
+    samples = {"far": far, "near": d.numel() - far}
+    c = k7_form_counts()
+    work = {kind: sum(K * n * c[form][entry][kind] for form, n in samples.items())
+            for kind in ("fp64", "conversions", "special")}
+    b = bound(bytes_moved, 0.0, torch.float32, exps=work["special"], fp64=work["fp64"],
+              conversions=work["conversions"])
+    return {**b, "far_share": far / d.numel(),
+            "per_tap": {form: c[form][entry] for form in samples}}
+
+
+def bound(bytes_moved: float, flops: float, dtype, exps: float = 0.0, int_ops: float = 0.0,
+          instructions: float = 0.0, fp64: float = 0.0, conversions: float = 0.0) -> dict:
     """The least time the card could take: bytes over the memory rate, or operations over
-    the peak rate for ``dtype`` (a torch dtype, or ``"tf32"`` for float32 products on the
-    tensor cores), exponentials over the special-function rate, or integer instructions over
-    the INT32 issue rate, whichever is larger (H100 SXM data-sheet rates)."""
+    their rates, whichever is larger (H100 SXM data-sheet rates): products at the peak rate
+    for ``dtype`` (a torch dtype, or ``"tf32"`` for float32 products on the tensor cores),
+    ``exps`` on the special-function units, ``int_ops`` at the INT32 rate, ``instructions``
+    (every instruction a thread issues) at the issue rate, ``fp64`` at the float64 rate,
+    ``conversions`` at the F2F rate. Returns the bound, its side, and both sides' times."""
     mem_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    clock = sm_clock_hz() if int_ops or instructions or fp64 or conversions else 0.0
     op_ms = max(flops / PEAK_FLOPS[dtype], exps / EXP_PER_S,
-                int_ops / int_ops_per_s() if int_ops else 0.0) * 1e3
-    return {"bound_ms": max(mem_ms, op_ms), "bound_by": "bytes" if mem_ms >= op_ms else "operations"}
+                int_ops / (INT_PER_CLOCK_SM * SMS * clock) if int_ops else 0.0,
+                instructions / 32 / (ISSUE_PER_CLOCK_SM * SMS * clock) if instructions else 0.0,
+                fp64 / (FP64_PER_CLOCK_SM * SMS * clock) if fp64 else 0.0,
+                conversions / (F2F_PER_CLOCK_SM * SMS * clock) if conversions else 0.0) * 1e3
+    return {"bound_ms": max(mem_ms, op_ms),
+            "bound_by": "bytes" if mem_ms >= op_ms else "operations",
+            "bytes_ms": mem_ms, "operations_ms": op_ms}
 
 
 def phase_training_kernels() -> dict:
@@ -659,7 +855,9 @@ def phase_training_kernels() -> dict:
             lib_dev = f", library call {lib_dev_ms:.4f} ms" if lib_dev_ms is not None else ""
             print(f"[train-kernel] {name} {dt}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
                   f"{lib} (CUDA events, median of 20); device time kernel {dev_ms:.4f} ms"
-                  f"{lib_dev} (device_ms); bound {b['bound_ms']:.4f} ms by {b['bound_by']}")
+                  f"{lib_dev} (device_ms); bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+                  f"(bytes {b['bytes_ms']:.4f} ms, operations {b['operations_ms']:.4f} ms; "
+                  f"{b['bound_ms'] / dev_ms:.0%} of it by device time)")
             rec[name] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, **b,
                          "library_ms": lib_ms, "device_ms": dev_ms,
                          "library_device_ms": lib_dev_ms}
@@ -710,16 +908,41 @@ def phase_training_kernels() -> dict:
         args = (seed, site, RATE)
         identical(f"ffn_act mask {dt} (y of pre=10)", ffn.ffn_act_fwd_kernel(ten, *args),
                   ffn.ffn_act_fwd_reference(ten, *args))
+        identical(f"ffn_act_bwd mask {dt} (zero pattern of dpre, g=1, pre=10)",
+                  ffn.ffn_act_bwd_kernel(torch.ones_like(g), ten, *args)[0] == 0,
+                  ffn.ffn_act_bwd_reference(torch.ones_like(g), ten, *args)[0] == 0)
         err = agree(f"ffn_act_fwd {dt} [{ROWS}, {FFN}]", ffn.ffn_act_fwd_kernel(pre, *args),
                     ffn.ffn_act_fwd_reference(pre, *args), *elem)
+        # The bound: each tensor once (and the backward's partial rows written and read
+        # once), or the masks' Philox instructions at the integer rate, as K1's and K2's.
+        # Beside it, what the built kernel spends: every instruction its main loop issues per
+        # element (its SASS) at the issue rate, which counts the kernel's own overheads and so
+        # is no bound of the function.
+        per_elem = k5_instructions(dtype, False), k5_instructions(dtype, True)
+        issue_ms = [bound(0.0, 0.0, dtype, instructions=n * pre.numel())["operations_ms"]
+                    for n in per_elem]
+        print(f"[train-kernel] ffn_act {dt}: {per_elem[0]:.2f} / {per_elem[1]:.2f} instructions "
+              f"an element in the built forward / backward main loop (SASS), "
+              f"{issue_ms[0]:.4f} / {issue_ms[1]:.4f} ms at the issue rate")
         timed("ffn_act_fwd", lambda: ffn.ffn_act_fwd_kernel(pre, *args),
-              lambda: ffn.ffn_act_fwd_reference(pre, *args), err, 2 * rows_f)
+              lambda: ffn.ffn_act_fwd_reference(pre, *args), err, 2 * rows_f,
+              int_ops=philox_ops(pre.numel(), RATE))
         got, ref = ffn.ffn_act_bwd_kernel(g, pre, *args), ffn.ffn_act_bwd_reference(g, pre, *args)
         err = max(agree(f"ffn_act_bwd dpre {dt}", got[0], ref[0], *grad),
                   agree(f"ffn_act_bwd dbias {dt}", got[1], ref[1], *colsum))
+        identical(f"ffn_act_bwd dpre and dbias {dt}, two runs",
+                  torch.cat([t.float().flatten() for t in ffn.ffn_act_bwd_kernel(g, pre, *args)]),
+                  torch.cat([t.float().flatten() for t in got]))
+        partials = 2 * min(ROWS, ffn.MAX_CHUNKS) * FFN * 4       # per-chunk partial rows
         timed("ffn_act_bwd", lambda: ffn.ffn_act_bwd_kernel(g, pre, *args),
-              lambda: ffn.ffn_act_bwd_reference(g, pre, *args), err, 3 * rows_f)
+              lambda: ffn.ffn_act_bwd_reference(g, pre, *args), err, 3 * rows_f + partials,
+              int_ops=philox_ops(pre.numel(), RATE))
+        for name, n, t in zip(("ffn_act_fwd", "ffn_act_bwd"), per_elem, issue_ms):
+            rec[name].update(instructions_per_element=n, issue_ms=t)
         del pre, g, ten, got, ref, x, ones
+        # a generator of their own, so that the inputs drawn after them stay as they were
+        k5_shapes(dtype, torch.Generator(device="cuda").manual_seed(12), seed, site, elem,
+                  grad, colsum)
 
         # K3b attention with dropout, [96, 36, 199, 64], then at t = 150 keys: on the head
         # view of a [B, T, 3H, d] projection (the encoder's layout, no copy), held bit for bit
@@ -778,9 +1001,15 @@ def phase_training_kernels() -> dict:
     return records
 
 
+# The other widths K2 takes (rows, cols): the test config's 32 columns (its 2 x 399 frames),
+# wav2vec2-large's 1024 at the training rows, and 40 (five bf16 runs, ten f32 ones: no whole
+# pass of 32 lanes) at a ragged row count.
+K2_WIDTHS = ((798, 32), (ROWS, 1024), (127, 40))
+
 # K2's other shapes: fusion's rows (64 x 51), ragged row counts (127, and one row: fewer than a
 # tile of 8, no whole tile) and a width of 384 (the lanes of the last pass half idle in bf16).
-K2_SHAPES = ((FUSION_BATCH * FUSION_FRAMES, HIDDEN), (127, HIDDEN), (1, HIDDEN), (ROWS, 384))
+K2_SHAPES = ((FUSION_BATCH * FUSION_FRAMES, HIDDEN), (127, HIDDEN), (1, HIDDEN), (ROWS, 384),
+             *K2_WIDTHS)
 # K1's: the vest's LoRA inputs (16 x 25 rows), and an odd length on a view one element past
 # 16 bytes.
 K1_SHAPES = ((VEST_BATCH * VEST_FRAMES, HIDDEN), (100003,))
@@ -838,6 +1067,46 @@ def k1_k2_shapes(dtype, gen, seed: int, site: int, eps: float, elem, grad, colsu
     print(f"[train-kernel] resid_fwd_kernel {dt}: refuses a view one element past 16 bytes")
 
 
+# K5's other shapes: a ragged row count (fewer rows than the backward's 256 chunks) and the
+# tiny config's 64 columns, and for the forward an odd length on a view that starts on 16
+# bytes (a tail of fewer than 8 elements).
+K5_SHAPES = ((127, FFN), (400, 64), (100003,))
+
+
+def k5_shapes(dtype, gen, seed: int, site: int, elem, grad, colsum) -> None:
+    """K5 against its plain version at ``K5_SHAPES``, rate 0.1: the masks bit for bit (y of
+    pre = 10, and the backward's zero pattern), y, dpre and dbias at phase 5's bars; the
+    forward's wrapper refuses a view one element past 16 bytes."""
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import ffn
+
+    dt = "bf16" if dtype == torch.bfloat16 else "f32"
+    args = (seed, site, RATE)
+    for shape in K5_SHAPES:
+        pre = torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+        ten = torch.full_like(pre, 10.0)
+        where = f"{dt} {list(shape)}"
+        identical(f"ffn_act mask {where} (y of pre=10)", ffn.ffn_act_fwd_kernel(ten, *args),
+                  ffn.ffn_act_fwd_reference(ten, *args))
+        agree(f"ffn_act_fwd {where}", ffn.ffn_act_fwd_kernel(pre, *args),
+              ffn.ffn_act_fwd_reference(pre, *args), *elem)
+        if len(shape) == 1:
+            continue
+        g = torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+        got, ref = ffn.ffn_act_bwd_kernel(g, pre, *args), ffn.ffn_act_bwd_reference(g, pre, *args)
+        agree(f"ffn_act_bwd dpre {where}", got[0], ref[0], *grad)
+        agree(f"ffn_act_bwd dbias {where}", got[1], ref[1], *colsum)
+        identical(f"ffn_act_bwd zero pattern of dpre {where} (g=1, pre=10)",
+                  ffn.ffn_act_bwd_kernel(torch.ones_like(g), ten, *args)[0] == 0,
+                  ffn.ffn_act_bwd_reference(torch.ones_like(g), ten, *args)[0] == 0)
+    view = torch.randn(2 * FFN + 1, device="cuda", generator=gen).to(dtype)[1:].view(2, FFN)
+    before = ffn.ffn_act_fwd_kernel.launches
+    with contextlib.suppress(ValueError):          # the refusal this check asks for
+        ffn.ffn_act_fwd_kernel(view, *args)
+        check(False, "ffn_act_fwd_kernel took a view that does not start on 16 bytes")
+    check(ffn.ffn_act_fwd_kernel.launches == before, "ffn_act_fwd_kernel launched on a bad view")
+    print(f"[train-kernel] ffn_act_fwd_kernel {dt}: refuses a view one element past 16 bytes")
+
+
 # The row counts K4 runs at: CinC training (96 x 199 frames), fusion (64 x 51), the vest
 # (16 x 25), and a ragged count inside one 128-row tile.
 K4_ROWS = (ROWS, FUSION_BATCH * FUSION_FRAMES, VEST_BATCH * VEST_FRAMES, 127)
@@ -893,62 +1162,100 @@ def print_k4_stages(fwd, bwd, rows: int, runs: int = 10) -> dict:
     return stage_ms
 
 
-def phase_megakernel() -> dict:
-    """K4 (the FFN-sublayer kernels) against its plain version in bfloat16 and float32 at
-    rate 0.1, at every row count of ``K4_ROWS``, and at the training shape timed beside the
-    decomposed route (``F.linear`` + K5 + ``F.linear`` + K2), with the device time of each
-    bf16 stage. Returns the bfloat16 records by kernel name."""
+K4_SEED, K4_SITES, K4_EPS = 3141592653, (4, 5), 1e-5
+
+
+def k4_tolerances(dtype) -> tuple:
+    """(elem, grad, colsum) bars of K4 against its plain version. bf16: the kernel's products
+    sum in another order than cuBLAS, so pre (and dh) may differ by one ulp (2^-8 relative)
+    before two more roundings; float32 differs only by summation order. Column sums over up
+    to 19104 rows are compared relative."""
+    if dtype == torch.bfloat16:
+        return (3e-2, 2e-2), (3e-2, 2e-2), (1e-1, 2e-2)
+    return (1e-5, 1e-5), (1e-4, 1e-4), (1e-2, 1e-4)
+
+
+def k4_weights(gen, dtype, d: int, f: int) -> tuple:
+    """(w1, b1, w2, b2, LayerNorm weight, LayerNorm bias) of a [d] -> [f] -> [d] sublayer."""
+    def randn(*shape, std=1.0):
+        return (std * torch.randn(*shape, device="cuda", generator=gen)).to(dtype)
+
+    w1, b1 = randn(f, d, std=d ** -0.5), randn(f, std=0.1)
+    w2, b2 = randn(d, f, std=f ** -0.5), randn(d, std=0.1)
+    lw = 1.0 + 0.1 * torch.randn(d, device="cuda", generator=gen)
+    lb = 0.1 * torch.randn(d, device="cuda", generator=gen)
+    return w1, b1, w2, b2, lw, lb
+
+
+def k4_check(weights: tuple, x, g) -> tuple:
+    """K4 against its plain version on rows ``x`` and cotangent ``g`` at rate 0.1: pre, s, y
+    and every output of the backward at ``k4_tolerances``, and both masks bit for bit through
+    the zero patterns of the backward's h (act mask) and dhid (hidden mask), which contain
+    the masks' zeros. Returns (forward error, backward error, forward inputs, backward
+    inputs, the plain forward's (y, s, pre))."""
     from wav2vec_heart_sounds_tpu_torch.ops import philox
     from wav2vec_heart_sounds_tpu_torch.ops.kernels import megakernel as mk
 
+    elem, grad, colsum = k4_tolerances(x.dtype)
+    dt = "bf16" if x.dtype == torch.bfloat16 else "f32"
+    (rows, d), f = x.shape, weights[0].shape[0]
+    args = (K4_SEED, *K4_SITES, RATE, RATE, K4_EPS)
+    fwd_in = (x, *weights, *args)
+    y_k, s_k, pre_k = mk.ffn_mega_fwd_kernel(*fwd_in)
+    plain = mk.ffn_mega_fwd_reference(*fwd_in)
+    err = max(agree(f"ffn_mega_fwd {name} {dt} [{rows}, {d}] -> {f}", a, r, *elem)
+              for name, a, r in zip(("y", "s", "pre"), (y_k, s_k, pre_k), plain))
+    del y_k, s_k, pre_k
+    bwd_in = (g, plain[1], plain[2], weights[2], weights[4], *args)
+    got = mk.ffn_mega_bwd_kernel(*bwd_in)
+    ref = mk.ffn_mega_bwd_reference(*bwd_in)
+    names = ("ds", "dhid", "dpre", "h", "db1", "db2", "dweight", "dbias")
+    err_b = max(agree(f"ffn_mega_bwd {name} {dt} [{rows}, {d}] -> {f}", a, r,
+                      *(colsum if i >= 4 else grad))
+                for i, (name, a, r) in enumerate(zip(names, got, ref)))
+    for name, a, r, site, shape in (("h (act mask)", got[3], ref[3], K4_SITES[0], (rows, f)),
+                                    ("dhid (hidden mask)", got[1], ref[1], K4_SITES[1],
+                                     (rows, d))):
+        keep = philox.keep_mask(K4_SEED, site, shape, RATE, "cuda")
+        check(not bool((r[~keep] != 0).any()), f"plain {name} is nonzero off its mask")
+        identical(f"ffn_mega_bwd zero pattern of {name} {dt} [{rows}, {d}] -> {f}", a == 0,
+                  r == 0)
+    return err, err_b, fwd_in, bwd_in, plain
+
+
+# The other widths K4 takes, (hidden, FFN, rows): the test config's (its 2 x 399 frames),
+# wav2vec2-large's (at fusion's rows), and widths that are no multiple of a tile (a ragged
+# row count).
+K4_WIDTHS = ((32, 64, 798), (1024, 4096, FUSION_BATCH * FUSION_FRAMES), (40, 72, 127))
+
+
+def k4_widths() -> None:
+    """K4 (``k4_check``) at ``K4_WIDTHS``, bfloat16 and float32."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    for dtype in (torch.bfloat16, torch.float32):
+        for d, f, rows in K4_WIDTHS:
+            x, g = (torch.randn(rows, d, device="cuda", generator=gen).to(dtype) for _ in "xg")
+            k4_check(k4_weights(gen, dtype, d, f), x, g)
+    torch.cuda.empty_cache()
+
+
+def phase_megakernel() -> dict:
+    """K4 (the FFN-sublayer kernels) against its plain version in bfloat16 and float32 at
+    rate 0.1, at every row count of ``K4_ROWS`` (``k4_check``), and at the training shape
+    timed beside the decomposed route (``F.linear`` + K5 + ``F.linear`` + K2), with the device
+    time of each bf16 stage. Returns the bfloat16 records by kernel name."""
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import megakernel as mk
+
     gen = torch.Generator(device="cuda").manual_seed(11)
-    seed, s_act, s_hid, eps = 3141592653, 4, 5, 1e-5
-    args = (seed, s_act, s_hid, RATE, RATE, eps)
     records = {}
     for dtype in (torch.bfloat16, torch.float32):
         bf16 = dtype == torch.bfloat16
         dt = "bf16" if bf16 else "f32"
-        # bf16: the kernel's products sum in another order than cuBLAS, so pre (and dh) may
-        # differ by one ulp (2^-8 relative) before two more roundings; float32 differs only
-        # by summation order. Column sums over 19104 rows are compared relative.
-        elem = (3e-2, 2e-2) if bf16 else (1e-5, 1e-5)
-        grad = (3e-2, 2e-2) if bf16 else (1e-4, 1e-4)
-        colsum = (1e-1, 2e-2) if bf16 else (1e-2, 1e-4)
-
-        def randn(*shape, std=1.0):
-            return (std * torch.randn(*shape, device="cuda", generator=gen)).to(dtype)
-
-        w1, b1 = randn(FFN, HIDDEN, std=HIDDEN ** -0.5), randn(FFN, std=0.1)
-        w2, b2 = randn(HIDDEN, FFN, std=FFN ** -0.5), randn(HIDDEN, std=0.1)
-        lw = 1.0 + 0.1 * torch.randn(HIDDEN, device="cuda", generator=gen)
-        lb = 0.1 * torch.randn(HIDDEN, device="cuda", generator=gen)
+        params = k4_weights(gen, dtype, HIDDEN, FFN)
         for rows in K4_ROWS:
-            x, g = randn(rows, HIDDEN), randn(rows, HIDDEN)
-            fwd_in = (x, w1, b1, w2, b2, lw, lb, *args)
-            y_k, s_k, pre_k = mk.ffn_mega_fwd_kernel(*fwd_in)
-            y_p, s_p, pre_p = mk.ffn_mega_fwd_reference(*fwd_in)
-            err = max(agree(f"ffn_mega_fwd {name} {dt} [{rows}, {HIDDEN}] -> {FFN}", a, r, *elem)
-                      for name, a, r in (("pre", pre_k, pre_p), ("s", s_k, s_p),
-                                         ("y", y_k, y_p)))
-            del y_k, s_k, pre_k
-
-            bwd_in = (g, s_p, pre_p, w2, lw, *args)
-            got = mk.ffn_mega_bwd_kernel(*bwd_in)
-            ref = mk.ffn_mega_bwd_reference(*bwd_in)
-            names = ("ds", "dhid", "dpre", "h", "db1", "db2", "dweight", "dbias")
-            err_b = max(agree(f"ffn_mega_bwd {name} {dt} [{rows}, {HIDDEN}]", a, r,
-                              *(colsum if i >= 4 else grad))
-                        for i, (name, a, r) in enumerate(zip(names, got, ref)))
-            # Both masks bit for bit: with the same pre, g and s the zero patterns of h (act
-            # mask) and dhid (hidden mask) are the plain ones, which contain the masks' zeros.
-            for name, a, r, site, shape in (("h (act mask)", got[3], ref[3], s_act, (rows, FFN)),
-                                            ("dhid (hidden mask)", got[1], ref[1], s_hid,
-                                             (rows, HIDDEN))):
-                keep = philox.keep_mask(seed, site, shape, RATE, "cuda")
-                check(not bool((r[~keep] != 0).any()), f"plain {name} is nonzero off its mask")
-                identical(f"ffn_mega_bwd zero pattern of {name} {dt} [{rows}, {HIDDEN}]",
-                          a == 0, r == 0)
-            del got, ref
+            x, g = (torch.randn(rows, HIDDEN, device="cuda", generator=gen).to(dtype)
+                    for _ in "xg")
+            err, err_b, fwd_in, bwd_in, (y_p, s_p, pre_p) = k4_check(params, x, g)
             if rows != ROWS:
                 continue
 
@@ -1026,6 +1333,21 @@ def k7_draws(source: torch.Generator | None = None) -> tuple:
             ("after the ragged eight", after(*ragged)))
 
 
+def k7_smooth_inputs(seed: int = 23) -> tuple:
+    """K7's ``[96, 8250]`` inputs with delays smooth in time, as the delay predictor's clamped
+    output: per row a slow sinusoid (0.5-3 Hz at 4125 Hz) of amplitude up to 15 samples
+    around a centre uniform in [0, 41.25], clamped to [0, 41.25]; x and g unit normals."""
+    src = torch.Generator(device="cuda").manual_seed(seed)
+    R, T = VEST_BATCH * VEST_MICS, VEST_T
+    x, g = (torch.randn(R, T, device="cuda", generator=src) for _ in range(2))
+    top = 0.01 * VEST_FS
+    centre, amp, freq, phase = (torch.rand(R, 1, device="cuda", generator=src) for _ in range(4))
+    t = torch.arange(T, device="cuda") / VEST_FS
+    d = top * centre + 15.0 * amp * torch.sin(2 * np.pi * (0.5 + 2.5 * freq) * t
+                                              + 2 * np.pi * phase)
+    return x, g, d.clamp(0.0, top)
+
+
 def sinc_condition(x: torch.Tensor, d: torch.Tensor, window) -> torch.Tensor:
     """Per sample beyond the taps (|rint(d)| > K // 2), the float32 condition factor of y in
     float64: sum_k |e_k xpad[t + k]| / |sum_k e_k|, e_k = (-1)^(c_k + 1) w_k / (pi (c_k - d))."""
@@ -1045,8 +1367,9 @@ def sinc_condition(x: torch.Tensor, d: torch.Tensor, window) -> torch.Tensor:
 
 def k7_checks(sk, label: str, x, g, d, window) -> tuple[float, float, float]:
     """K7 on one draw of ``[96, 8250]`` inputs: forward, ``grad_d`` and ``grad_x`` against
-    the plain versions at the unchanged bars (y and s 1e-5 / 1e-5; the gradients 2e-4 /
-    1e-3), after printing each side's largest error against the plain version evaluated in
+    the plain versions at the unchanged bars (y and s 1e-5 / 1e-5, and beyond the taps bit for
+    bit; the gradients 2e-4 / 1e-3), after printing each side's largest error against the
+    plain version evaluated in
     float64 (float64 copies of x and d, the same taps), inside and beyond the taps, and the
     largest float32 condition factor of y beyond them. Returns the three largest errors."""
     far = torch.round(d).abs() > len(window) // 2
@@ -1060,6 +1383,8 @@ def k7_checks(sk, label: str, x, g, d, window) -> tuple[float, float, float]:
             print(f"[vest-kernel] K7 {label}: sinc_delay_fwd {name} {region}: kernel vs plain "
                   f"{kp:.3e}; vs float64 kernel {k64:.3e}, plain {p64:.3e} (max |float64| "
                   f"{r64[sel].abs().max().item():.3e})")
+        check(torch.equal(a[far], r[far]),
+              f"sinc_delay_fwd {name} ({label}): kernel and plain differ beyond the taps")
     cond = sinc_condition(x, d, window)
     print(f"[vest-kernel] K7 {label}: {cond.numel()} samples beyond the taps, float32 condition "
           f"factor of y sum|e xpad| / |sum e| up to {cond.max().item():.1f} (median "
@@ -1095,15 +1420,20 @@ def phase_vest_kernels() -> dict:
     def randn(*shape, dtype=torch.float32, std=1.0):
         return (std * torch.randn(*shape, device="cuda", generator=gen)).to(dtype)
 
-    def timed(name, kernel, plain, err, b, library=None, runs=20):
+    def timed(name, kernel, plain, err, b, library=None, runs=20, label=""):
+        # CUDA events around each call, and beside them the device time (device_ms: the
+        # calls queued behind a spin kernel, no host launch work in it), as phase 5 has it
         ms, plain_ms = cuda_ms(kernel, runs), cuda_ms(plain, runs)
         lib_ms = cuda_ms(library, runs) if library is not None else None
+        dev_ms = device_ms(kernel, runs)
         lib = f", library call {lib_ms:.4f} ms" if lib_ms is not None else ""
-        print(f"[vest-kernel] {name} f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, "
-              f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} (CUDA events, median of "
-              f"{runs})")
-        records[name] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, **b,
-                         "library_ms": lib_ms}
+        print(f"[vest-kernel] {name}{label} f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+              f"{lib} (CUDA events, median of {runs}); device time kernel {dev_ms:.4f} ms "
+              f"(device_ms); bound {b['bound_ms']:.4f} ms by {b['bound_by']} (bytes "
+              f"{b['bytes_ms']:.4f} ms, operations {b['operations_ms']:.4f} ms; "
+              f"{b['bound_ms'] / dev_ms:.0%} of it by device time)")
+        return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, **b, "library_ms": lib_ms,
+                "device_ms": dev_ms}
 
     # K6 at [16, 8250, 4, 8], float32.
     B, Tv, Hk, dk = VEST_BATCH, VEST_T, KV_HEADS, KV_DIM
@@ -1174,13 +1504,14 @@ def phase_vest_kernels() -> dict:
         return F.scaled_dot_product_attention(a.transpose(1, 2), b.transpose(1, 2),
                                               c.transpose(1, 2))
 
-    timed("flash_kv_fwd", lambda: fk.flash_kv_fwd_kernel(q, k, v),
+    records["flash_kv_fwd"] = timed("flash_kv_fwd", lambda: fk.flash_kv_fwd_kernel(q, k, v),
           lambda: fk.attention_kv_fwd_reference(q, k, v), err_f, fwd_b,
           library=lambda: sdpa(q, k, v), runs=10)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     lib_out = sdpa(*leaves)
     g_heads = g.transpose(1, 2)
-    timed("flash_kv_bwd", lambda: fk.flash_kv_bwd_kernel(q, k, v, o_p, lse_p, g),
+    records["flash_kv_bwd"] = timed("flash_kv_bwd",
+                                    lambda: fk.flash_kv_bwd_kernel(q, k, v, o_p, lse_p, g),
           lambda: fk.attention_kv_bwd_reference(q, k, v, o_p, lse_p, g), err_b, bwd_b,
           library=lambda: torch.autograd.grad(lib_out, leaves, g_heads, retain_graph=True),
           runs=10)
@@ -1188,25 +1519,39 @@ def phase_vest_kernels() -> dict:
     torch.cuda.empty_cache()
 
     # K7 at [96, 8250]: every microphone of a B=16 batch in one launch, on three draws of
-    # its inputs (k7_draws), each held at the same bars.
+    # its inputs (k7_draws), each held at the same bars, and on delays smooth in time
+    # (k7_smooth_inputs), as the delay predictor's clamped output gives them. Timed on the
+    # phase's own draw (delays independent per sample: nearly every warp holds both forms)
+    # and on the smooth one; the bound counts each form's float64 work in the built SASS.
     R = VEST_BATCH * VEST_MICS
     window = K7_WINDOW
     draws = k7_draws(gen)
-    err7f, err7d, err7x = [k7_checks(sk, label, *inputs, window) for label, inputs in draws][0]
-    x, g, d = draws[0][1]                       # timed on the phase's own draw
-    s_p = sk.sinc_fwd_reference(x, d, window)[1]
+    err7 = [k7_checks(sk, label, *inputs, window) for label, inputs in draws][0]
+    smooth = k7_smooth_inputs()
+    k7_checks(sk, "smooth delays", *smooth, window)
     rows_bytes = 4 * R * Tv
-    taps_flops = 6 * 41 * R * Tv          # per tap: z, the quotient, the weight, two sums
-    timed("sinc_delay_fwd", lambda: sk.sinc_fwd_kernel(x, d, window),
-          lambda: sk.sinc_fwd_reference(x, d, window), err7f,
-          bound(4 * rows_bytes, taps_flops, torch.float32))
-    timed("sinc_delay_grad_d", lambda: sk.sinc_grad_d_kernel(x, d, g, window),
-          lambda: sk.sinc_grad_d_reference(x, d, g, window), err7d,
-          bound(4 * rows_bytes, 2 * taps_flops, torch.float32))
-    timed("sinc_delay_grad_x", lambda: sk.sinc_grad_x_kernel(d, g, s_p, window),
-          lambda: sk.sinc_grad_x_reference(d, g, s_p, window), err7x,
-          bound(3 * rows_bytes + 4 * R * (Tv + 40), taps_flops, torch.float32))
-    del draws, x, g, d, s_p
+    for label, (x, g, d) in (("", draws[0][1]), (", smooth delays", smooth)):
+        s_p = sk.sinc_fwd_reference(x, d, window)[1]
+        for name, kernel, plain, err, nbytes in (
+                ("sinc_delay_fwd", lambda: sk.sinc_fwd_kernel(x, d, window),
+                 lambda: sk.sinc_fwd_reference(x, d, window), err7[0], 4 * rows_bytes),
+                ("sinc_delay_grad_d", lambda: sk.sinc_grad_d_kernel(x, d, g, window),
+                 lambda: sk.sinc_grad_d_reference(x, d, g, window), err7[1], 4 * rows_bytes),
+                ("sinc_delay_grad_x", lambda: sk.sinc_grad_x_kernel(d, g, s_p, window),
+                 lambda: sk.sinc_grad_x_reference(d, g, s_p, window), err7[2],
+                 3 * rows_bytes + 4 * R * (Tv + 40))):
+            b = k7_bound(name, nbytes, d)
+            print(f"[vest-kernel] {name}{label}: far share {b['far_share']:.1%}; per tap of "
+                  + "; ".join(f"{form} " + ", ".join(f"{v:.2f} {kind}" for kind, v in
+                                                     b["per_tap"][form].items())
+                              for form in ("near", "far"))
+                  + " (the tap loop of the kernel built in that form, SASS)")
+            rec = timed(name, kernel, plain, err, b, label=label)
+            if label:
+                records[name]["smooth_delays"] = rec
+            else:
+                records[name] = rec
+    del draws, smooth, x, g, d, s_p
 
     # K3b at the vest encoder's T = 25 frames and K4 at its 400 rows, rate 0.1.
     seed, site, eps = 1618033988, 9, 1e-5
@@ -1344,14 +1689,16 @@ def phase_unpacked_attention() -> dict:
     return records
 
 
-def attention_routes(gen, batch: int, frames: int, seed: int, site: int) -> None:
-    """Both attention routes at the vest's (T = 25) or fusion's (T = 51) frames, bfloat16 and
-    float32, rate 0.1 and 0, t = T and t < T: K3a on head views of ``[B, T, H, d]``
-    projections and K3b on the head view of the ``[B, T, 3H, d]`` projection of the same
-    values equal bit for bit, the backward equal to a second run of itself, and both
-    against the plain version at phase 5's bars."""
+def attention_routes(gen, batch: int, frames: int, seed: int, site: int, heads: int = H,
+                     dim: int = D) -> None:
+    """Both attention routes at the vest's (T = 25) or fusion's (T = 51) frames, or at another
+    head count and head dim, bfloat16 and float32, rate 0.1 and 0, t = T and t < T: K3a on
+    head views of ``[B, T, H, d]`` projections and K3b on the head view of the
+    ``[B, T, 3H, d]`` projection of the same values equal bit for bit, the backward equal to
+    a second run of itself, and both against the plain version at phase 5's bars."""
     from wav2vec_heart_sounds_tpu_torch.ops.kernels import attention
 
+    H, D = heads, dim                   # noqa: N806  (the module's names, at other widths)
     for dtype in (torch.bfloat16, torch.float32):
         bf16 = dtype == torch.bfloat16
         elem, grad = ((1e-2, 1e-2), (2e-2, 2e-2)) if bf16 else ((1e-5, 1e-5), (1e-4, 1e-4))
@@ -1679,6 +2026,81 @@ def phase_train_step() -> None:
     check(excess <= 5e-2, f"bf16 K4 route's gradient norms stray further from f32 than K5's: "
                           f"{excess}")
     check(all(np.isfinite(v) for v in norms_4.values()), "a bf16 K4 gradient is not finite")
+
+
+# Wav2Vec2Config.tiny() (hidden 32, head dim 16, FFN 64) on the card: every kernel of the
+# encoder takes these widths. Per route, the launches of one training step (forward,
+# backward): K1 at the feature projection and the encoder input; K2 ends the attention
+# sublayer of both layers (and on the decomposed route the FFN sublayer too), K3b and K4 (or
+# K5) once a layer.
+TINY_ROUTES = (
+    ("K4 route", True, {"dropout": (2, 2), "resid_fwd": (2, 0), "resid_bwd": (0, 2),
+                        "attention_qkv_fwd": (2, 0), "attention_qkv_bwd": (0, 2),
+                        "ffn_mega_fwd": (2, 0), "ffn_mega_bwd": (0, 2)}),
+    ("K5 route", False, {"dropout": (2, 2), "resid_fwd": (4, 0), "resid_bwd": (0, 4),
+                         "attention_qkv_fwd": (2, 0), "attention_qkv_bwd": (0, 2),
+                         "ffn_act_fwd": (2, 0), "ffn_act_bwd": (0, 2)}))
+TINY_EVAL = {"attention_qkv_fwd": 2}       # an eval forward: K3b once a layer
+
+
+def phase_tiny() -> None:
+    """Phase 17: the kernels at the widths of other configs against their plain versions
+    (K2 at ``K2_WIDTHS`` runs in phase 5): K3a and K3b at the test config's head dim 16 (its
+    2 heads and 399 frames), and at head dims 32 and 128; K4 at ``K4_WIDTHS``. Then
+    ``Wav2Vec2Config.tiny()`` on the card, float32, dropout and SpecAugment on, B=2 windows
+    of 1 s at 4 kHz, on both FFN routes: one eval forward and one training step, each against
+    the same on the CPU from the same state dict and step seed (logits at 1e-5 absolute and
+    1e-4 relative; the loss at 1e-4 relative, each gradient norm at 1e-3 relative, the key
+    biases, whose true gradient is 0, held below 1e-5 of the largest norm), with the exact
+    launches of every kernel."""
+    from wav2vec_heart_sounds_tpu_torch.models.build import build_classifier
+    from wav2vec_heart_sounds_tpu_torch.models.classifier import ClassifierConfig
+    from wav2vec_heart_sounds_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for batch, heads, frames, dim in ((2, 2, 399, 16), (4, 4, 199, 32), (4, 4, 199, 128)):
+        attention_routes(gen, batch, frames, 2718281828, 9, heads=heads, dim=dim)
+    k4_widths()
+
+    B, fs = 2, 4000
+    gen = torch.Generator().manual_seed(17)
+    x = 0.3 * torch.randn(B, fs, generator=gen)
+    y = torch.arange(B) % 2
+    for route, mega, launches in TINY_ROUTES:
+        per_step = {**dict.fromkeys(kernel_wrappers(), (0, 0)), **launches}
+        cfg = ClassifierConfig(num_classes=2, head_hidden=(16,), fs=fs, random_init=True,
+                               encoder=Wav2Vec2Config.tiny(ffn_mega=mega))
+        card = build_classifier(cfg, seed=0, device="cuda", dtype=torch.float32, train=True)
+        cpu = build_classifier(cfg, seed=1, device="cpu", dtype=torch.float32, train=True)
+        cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()}, strict=True)
+        reset_counts()
+        with torch.no_grad():
+            logits = card(x.cuda()).cpu()
+            want = cpu(x)
+        eval_launches = {n: v for n, v in counts().items() if v}
+        check(eval_launches == TINY_EVAL, f"tiny eval forward's launches: {eval_launches}")
+        err = (logits - want).abs().max().item()
+        check(torch.allclose(logits, want, atol=1e-5, rtol=1e-4),
+              f"tiny eval logits, card vs CPU: {err}")
+        loss_k, norms_k = train_step(card, x.cuda(), y.cuda(), per_step)
+        loss_c, norms_c = train_step(cpu, x, y, None)
+        noise = [n for n in norms_c if n.endswith("k_proj.bias")]
+        top = max(norms_c.values())
+        check(all(max(norms_k[n], norms_c[n]) < 1e-5 * top for n in noise),
+              f"tiny key-bias gradients are not ~0: {[(norms_k[n], norms_c[n]) for n in noise]}")
+        worst = worst_norm_gap({n: v for n, v in norms_k.items() if n not in noise},
+                               {n: v for n, v in norms_c.items() if n not in noise})
+        print(f"[tiny] Wav2Vec2Config.tiny() f32 B={B}, {route}: eval logits card vs CPU "
+              f"max_abs_err={err:.3e} (atol 1e-5, rtol 1e-4), eval launches "
+              f"{json.dumps(eval_launches)}; training step (dropout 0.1, SpecAugment on): loss "
+              f"card {loss_k:.7f} vs CPU {loss_c:.7f}; {len(norms_c)} gradient norms, worst "
+              f"relative difference {worst:.3e} (limit 1e-3) outside the {len(noise)} key "
+              f"biases (at most {max(max(norms_k[n], norms_c[n]) for n in noise) / top:.1e} of "
+              f"the largest, limit 1e-5); kernel launches fwd+bwd {per_step_text(launches)}")
+        check(abs(loss_k - loss_c) <= 1e-4 * max(1.0, abs(loss_c)), "tiny step losses differ")
+        check(worst <= 1e-3, f"tiny gradient norms differ between card and CPU: {worst}")
+        check(all(np.isfinite(v) for v in norms_k.values()), "a tiny gradient is not finite")
+        del card, cpu
 
 
 def phase_gated_step() -> None:
@@ -2274,6 +2696,7 @@ def main() -> None:
     kernel_wrappers()
     phase_build()
     phase_kernel_vs_plain()
+    phase_tiny()
     phase_full_width()
     phase_serving(card)
     measured = {**phase_training_kernels(), **phase_megakernel()}

@@ -26,9 +26,15 @@ parent, one process each, in one card call. The phases, all of them without name
   and K4's stages at the training shape (its backward's (C) is K2's row pass), by device time
   (this script's ``chip_smoke.device_ms`` and ``print_k4_stages``, torch.profiler) and by
   CUDA events around each call, on the tree's wrappers (the same signatures on both trees);
-* ``sass``: the memory instructions of the tree's built K1 and K2 kernels by kind (this
-  script's ``torch_kernel_check.access_counts``: 16-byte and 16-bit global accesses, bulk
-  copies);
+* ``k5``: K5 (forward and backward) at ``[19104, 3072]``, bf16 and f32, rate 0.1, and in
+  bf16 the decomposed FFN route (cuBLAS products + K5 + K2) beside K4, by device time and by
+  CUDA events around each call, on the tree's wrappers (this script's timing code);
+* ``k7``: K7's three entries at ``[96, 8250]`` on this script's iid draw (phase 9's own) and
+  its smooth draw (``k7_smooth_inputs``), by device time and by CUDA events, on the tree's
+  wrappers;
+* ``sass``: the memory instructions of the tree's built K1, K2, K5 and K7 kernels by kind
+  and width (this script's ``torch_kernel_check.access_counts``: global and shared accesses by
+  width, bulk copies);
 * ``conv``: the tree's phase 14 (K8 against its plain version at conv_1's shapes, its times
   beside cuDNN ``conv1d`` + ``gelu``);
 * ``serving``: the tree's phase 4 (serving windows/s);
@@ -45,8 +51,8 @@ from pathlib import Path
 
 import numpy as np
 
-PHASES = ("sinc", "vest-kernels", "vest-arms", "megakernel", "train-kernels", "k1k2", "sass",
-          "conv", "serving", "training", "fusion")
+PHASES = ("sinc", "vest-kernels", "vest-arms", "megakernel", "train-kernels", "k1k2", "k5", "k7",
+          "sass", "conv", "serving", "training", "fusion")
 tree = Path(sys.argv[1]).resolve()
 phases = sys.argv[2:] or list(PHASES)
 if not set(phases) <= set(PHASES):
@@ -109,6 +115,60 @@ def k1k2_times():
                         lambda: mk.ffn_mega_bwd_kernel(*bwd_in), cs.ROWS, runs=20)
 
 
+def timings(tag: str, label: str, fn, own) -> None:
+    print(f"[ab-{tag}] {tree.name} {label}: {own.device_ms(fn):.4f} ms device time (device_ms), "
+          f"{own.cuda_ms(fn):.4f} ms CUDA events around each call (median of 20)", flush=True)
+
+
+def k5_times():
+    """The tree's K5, and its decomposed FFN route beside K4, timed by this script's code."""
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import ffn
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import megakernel as mk
+
+    own = own_chip_smoke()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    seed, site, rate, eps = 2718281828, 7, 0.1, 1e-5
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = "bf16" if dtype == torch.bfloat16 else "f32"
+        pre, g = (torch.randn(cs.ROWS, cs.FFN, device="cuda", generator=gen).to(dtype)
+                  for _ in range(2))
+        timings("k5", f"K5 forward {dt} [{cs.ROWS}, {cs.FFN}]",
+                lambda: ffn.ffn_act_fwd_kernel(pre, seed, site, rate), own)
+        timings("k5", f"K5 backward {dt} [{cs.ROWS}, {cs.FFN}]",
+                lambda: ffn.ffn_act_bwd_kernel(g, pre, seed, site, rate), own)
+        del pre, g
+    x, g = (torch.randn(cs.ROWS, cs.HIDDEN, device="cuda", generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    w = 1.0 + 0.1 * torch.randn(cs.HIDDEN, device="cuda", generator=gen)
+    b = 0.1 * torch.randn(cs.HIDDEN, device="cuda", generator=gen)
+    w1 = torch.randn(cs.FFN, cs.HIDDEN, device="cuda", generator=gen) * cs.HIDDEN ** -0.5
+    w2 = torch.randn(cs.HIDDEN, cs.FFN, device="cuda", generator=gen) * cs.FFN ** -0.5
+    b1, b2 = (0.1 * torch.randn(n, device="cuda", generator=gen) for n in (cs.FFN, cs.HIDDEN))
+    w1, w2, b1, b2 = (t.to(torch.bfloat16) for t in (w1, w2, b1, b2))
+    fwd_in = (x, w1, b1, w2, b2, w, b, seed, 4, 5, rate, rate, eps)
+    _, s4, pre = mk.ffn_mega_fwd_kernel(*fwd_in)
+    bwd_in = (g, s4, pre, w2, w, seed, 4, 5, rate, rate, eps)
+    for label, fn in (("decomposed FFN forward", lambda: own.decomposed_ffn_fwd(*fwd_in)),
+                      ("decomposed FFN backward", lambda: own.decomposed_ffn_bwd(*bwd_in)),
+                      ("K4 forward", lambda: mk.ffn_mega_fwd_kernel(*fwd_in)),
+                      ("K4 backward", lambda: mk.ffn_mega_bwd_kernel(*bwd_in))):
+        timings("k5", f"{label} bf16 [{cs.ROWS}, {cs.HIDDEN}] -> {cs.FFN}", fn, own)
+
+
+def k7_times():
+    """The tree's K7 entries on this script's iid and smooth draws, timed by this script."""
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import sinc_delay as sk
+
+    own = own_chip_smoke()
+    window = own.K7_WINDOW
+    for draw, (x, g, d) in (("iid", own.k7_draws()[0][1]), ("smooth", own.k7_smooth_inputs())):
+        s_p = sk.sinc_fwd_reference(x, d, window)[1]
+        for label, fn in (("forward", lambda: sk.sinc_fwd_kernel(x, d, window)),
+                          ("grad_d", lambda: sk.sinc_grad_d_kernel(x, d, g, window)),
+                          ("grad_x", lambda: sk.sinc_grad_x_kernel(d, g, s_p, window))):
+            timings("k7", f"K7 {label} [96, 8250], {draw} delays", fn, own)
+
+
 def sinc_float64():
     """K7's float64 errors on the tree's kernel and plain version, with this script's own
     ``chip_smoke`` (its draws and ``k7_checks``), its failed checks reported."""
@@ -160,20 +220,21 @@ def vest_arms():
 
 
 def sass_counts():
-    """The tree's K1 and K2 kernels by kind of memory instruction, with this script's own
+    """The tree's K1, K2, K5 and K7 kernels by kind of memory instruction, with this script's own
     ``torch_kernel_check.access_counts`` (on the tree's built libraries)."""
     spec = importlib.util.spec_from_file_location(
         "kernel_check_of_this_script", Path(__file__).resolve().parent / "torch_kernel_check.py")
     own = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(own)
     own.chip_smoke = own_chip_smoke()      # its SASS reader, on the tree's built libraries
-    for name in ("dropout", "resid"):
+    for name in ("dropout", "resid", "ffn_act", "sinc_delay"):
         for kernel, kinds in own.access_counts(name):
             print(f"[ab-sass] {tree.name} {name}: {kernel}: "
                   + ", ".join(f"{k} {v}" for k, v in sorted(kinds.items())), flush=True)
 
 
-RUN = {"sinc": sinc_float64, "sass": sass_counts, "k1k2": k1k2_times,
+RUN = {"sinc": sinc_float64, "sass": sass_counts, "k1k2": k1k2_times, "k5": k5_times,
+       "k7": k7_times,
        "train-kernels": cs.phase_training_kernels, "vest-kernels": cs.phase_vest_kernels, "vest-arms": vest_arms,
        "megakernel": cs.phase_megakernel, "conv": cs.phase_conv_kernel,
        "serving": lambda: cs.phase_serving(card),

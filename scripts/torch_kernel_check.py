@@ -3,7 +3,8 @@
 long-sequence attention (K6) kernels on one CUDA card: build them, run each once against its
 plain version, and time them.
 
-    python3 scripts/torch_kernel_check.py [--attention | --conv | --ffn | --flash-kv | --resid]
+    python3 scripts/torch_kernel_check.py [--attention | --conv | --ffn | --flash-kv | --resid |
+                                           --k5 | --k7]
 
 A minute of card time where ``chip_smoke.py`` takes several: for the first call after a
 kernel changes. Prints the ptxas register and spill lines of the sources and the count of
@@ -41,7 +42,15 @@ against their plain versions at the training shape and at ``chip_smoke``'s extra
 values of ``csrc/resid.cuh``'s ``W2V_RESID_*`` macros, ``RESID_BUILDS``: the ring in both
 passes or in neither, 2 / 3 slots, 16-row tiles, bulk stores, three blocks an SM), each
 checked against the plain version and timed (device time, ``chip_smoke.device_ms``) at rate
-0.1 and at rate 0 (no Philox), in turns, twice. The last line is ``ALL_OK``
+0.1 and at rate 0 (no Philox), in turns, twice. ``--k5`` builds K5 (``csrc/ffn_act.cu``,
+``FFN_ACT_BUILDS``), prints its memory instructions by width and instructions an element
+(``chip_smoke.k5_instructions``), checks it at phase 5's bars and masks, and times the bf16
+kernels at rate 0.1 and 0, twice. ``--k7`` builds K7 (``csrc/sinc_delay.cu``) once for each of
+``SINC_BUILDS`` (its ``W2V_SINC_UNROLL`` macro: 1, 4 or 8 taps a trip), prints each form's
+float64, conversion and special-function instructions per tap (``chip_smoke.k7_form_counts``),
+checks each build with ``chip_smoke.k7_checks`` on the three draws and the smooth one, and
+times each entry on the iid and the smooth draw and on draws of one form each
+(``k7_one_form``), in turns, twice. The last line is ``ALL_OK``
 or ``SOME_FAILED``.
 """
 
@@ -304,66 +313,29 @@ def check_ffn(gen):
             torch.cuda.empty_cache()
 
 
-def access_counts(name: str) -> list[tuple[str, dict]]:
+def access_counts(name: str, library: str | None = None) -> list[tuple[str, dict]]:
     """(kernel, {kind: count}) of the memory instructions in the built library of
-    ``csrc/<name>.cu``: 16-byte and 16-bit global loads and stores, 16-byte shared loads and
-    stores, and bulk copies (``UBLKCP``)."""
+    ``csrc/<name>.cu`` (or the build at ``library``): global and shared loads and stores by
+    width (``LDG.128``, ``.64``, ``.32``, ``.16``, ``.8``), and bulk copies (``UBLKCP``)."""
+    listing = chip_smoke.sass_listing(library or str(build._target(name)))
     rows = []
-    for kernel, lines in chip_smoke.library_sass(name).items():
+    for kernel, insts in listing.items():
         kinds = {}
-        for line in lines:
-            code = line.split()[0]
+        for _, text, _ in insts:
+            code = text.split()[0]
             base = code.split(".")[0]
-            kind = ("UBLKCP" if base == "UBLKCP" else
-                    None if base not in ("LDG", "STG", "LDS", "STS") else
-                    f"{base}.128" if ".128" in code else
-                    f"{base}.16" if ".U16" in code or ".S16" in code else None)
-            if kind:
-                kinds[kind] = kinds.get(kind, 0) + 1
+            if base == "UBLKCP":
+                kind = base
+            elif base in ("LDG", "STG", "LDS", "STS"):
+                width = next((w for w in ("128", "64") if f".{w}" in code), None)
+                width = width or ("16" if ".U16" in code or ".S16" in code else
+                                  "8" if ".U8" in code or ".S8" in code else "32")
+                kind = f"{base}.{width}"
+            else:
+                continue
+            kinds[kind] = kinds.get(kind, 0) + 1
         rows.append((kernel, kinds))
     return rows
-
-
-def resid_builds() -> dict[str, object]:
-    """``csrc/resid.cu`` built once for each of ``RESID_BUILDS`` (one ``nvcc`` each, all
-    started together) into ``build/torch_kernels/ablation/``, loaded; a failed build is
-    recorded in ``failures``."""
-    out_dir = build.BUILD_DIR / "ablation"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for i, (label, defines) in enumerate(RESID_BUILDS.items()):
-        out = out_dir / f"libresid_{i}.so"
-        cmd = [build.find_nvcc(), *build.NVCC_FLAGS, *defines, "-o", str(out),
-               str(build.CSRC_DIR / "resid.cu")]
-        jobs[label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), out)
-    libs = {}
-    for label, (proc, out) in jobs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            failures.append(f"K2 build '{label}' failed:\n{log}")
-            continue
-        libs[label] = ctypes.CDLL(str(out))
-    return libs
-
-
-@contextlib.contextmanager
-def resid_library(lib):
-    """K2's wrappers (``ops/kernels/resid.py``) on another build of ``csrc/resid.cu``."""
-    from wav2vec_heart_sounds_tpu_torch.ops.kernels import resid as K2
-
-    saved = build.load_library("resid")
-
-    def swap(to):
-        build._libs["resid"] = to
-        build.entry.cache_clear()
-        K2.grid_blocks.cache_clear()
-
-    swap(lib)
-    try:
-        yield
-    finally:
-        swap(saved)
 
 
 def check_resid(gen):
@@ -386,8 +358,9 @@ def check_resid(gen):
           + ", ".join(f"{op} {n}" for op, n in mix.items()))
     print(f"one Philox call: {chip_smoke.philox_instructions()} integer instructions "
           f"({', '.join(chip_smoke.PHILOX_OPCODES)}) in philox_fill_kernel's SASS; INT32 rate "
-          f"{chip_smoke.int_ops_per_s() / 1e12:.3f} T/s")
-    libs = resid_builds()
+          f"{chip_smoke.INT_PER_CLOCK_SM * chip_smoke.SMS * chip_smoke.sm_clock_hz() / 1e12:.3f} T/s")
+    libs = chip_smoke.variant_libraries({label: ("resid", defines)
+                                         for label, defines in RESID_BUILDS.items()})
     seed, site, rate, eps = 2718281828, 7, 0.1, 1e-5
     rows, cols = chip_smoke.ROWS, chip_smoke.HIDDEN
     for dtype in (torch.bfloat16, torch.float32):
@@ -410,7 +383,7 @@ def check_resid(gen):
         out_p = K2.resid_fwd_reference(h, x, w, b, *args)[0]
         ref = K2.resid_bwd_reference(g, s_p, w, *args)
         for label, lib in libs.items() if bf16 else ():
-            with resid_library(lib):
+            with swapped_library("resid", lib, K2.grid_blocks):
                 out_k, s_k = K2.resid_fwd_kernel(h, x, w, b, *args)
                 got = K2.resid_bwd_kernel(g, s_p, w, *args)
                 again = K2.resid_bwd_kernel(g, s_p, w, *args)
@@ -446,7 +419,7 @@ def check_resid(gen):
             for turn in range(2):
                 for label in labels if turn == 0 else labels[::-1]:
                     dev = chip_smoke.device_ms
-                    with resid_library(libs[label]):
+                    with swapped_library("resid", libs[label], K2.grid_blocks):
                         fwd = dev(lambda: K2.resid_fwd_kernel(h, x, w, b, *args))
                         bwd = dev(lambda: K2.resid_bwd_kernel(g, s_p, w, *args))
                         fwd0 = dev(lambda: K2.resid_fwd_kernel(h, x, w, b, *zero))
@@ -460,6 +433,158 @@ def check_resid(gen):
         del x, h, g, s_p
         torch.cuda.empty_cache()
     check_ffn(gen)
+
+
+# The build of csrc/ffn_act.cu (K5) that --k5 checks and times (the shipped one).
+FFN_ACT_BUILDS = {"default": ()}
+# Builds of csrc/sinc_delay.cu (K7) for its ablation: its W2V_SINC_UNROLL macro against the
+# default (eight taps a trip).
+SINC_BUILDS = {
+    "default": (),
+    "a tap a trip": ("-DW2V_SINC_UNROLL=1",),
+    "4 taps a trip": ("-DW2V_SINC_UNROLL=4",),
+}
+
+
+def k7_one_form(far: bool, seed: int = 24) -> tuple:
+    """K7's ``[96, 8250]`` inputs with every delay in one form: uniform in [0, 20.4] (inside
+    the taps) or in [20.6, 41.25] (beyond them); x and g unit normals."""
+    src = torch.Generator(device="cuda").manual_seed(seed)
+    R, T = chip_smoke.VEST_BATCH * chip_smoke.VEST_MICS, chip_smoke.VEST_T
+    x, g, u = (torch.rand(R, T, device="cuda", generator=src) if i == 2 else
+               torch.randn(R, T, device="cuda", generator=src) for i in range(3))
+    return x, g, (20.6 + 20.65 * u) if far else 20.4 * u
+
+
+@contextlib.contextmanager
+def swapped_library(name: str, path, *caches):
+    """The wrappers of ``csrc/<name>.cu`` on another build of it (``path``); ``caches`` are
+    the module's cached grids, cleared on the way in and out."""
+    saved = build.load_library(name)
+
+    def swap(lib):
+        build._libs[name] = lib
+        build.entry.cache_clear()
+        for cache in caches:
+            cache.cache_clear()
+
+    swap(ctypes.CDLL(str(path)))
+    try:
+        yield
+    finally:
+        swap(saved)
+
+
+def check_k5(gen):
+    """K5 (``csrc/ffn_act.cu``) on every build of ``FFN_ACT_BUILDS``: memory instructions by
+    width and instructions an element (SASS), phase 5's checks at ``[19104, 3072]`` and
+    ``chip_smoke.k5_shapes``, the backward run twice, and the bf16 device times at rate 0.1
+    and 0, in turns, twice."""
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import ffn as K5
+
+    paths = chip_smoke.variant_libraries({label: ("ffn_act", d)
+                                          for label, d in FFN_ACT_BUILDS.items()})
+    for label, path in paths.items():
+        for kernel, kinds in access_counts("ffn_act", str(path)):
+            print(f"  K5 build '{label}': {kernel}: "
+                  + ", ".join(f"{k} {v}" for k, v in sorted(kinds.items())))
+        print(f"  K5 build '{label}': instructions an element, fwd / bwd: "
+              + "; ".join(f"{dt} {chip_smoke.k5_instructions(dtype, False, str(path)):.2f} / "
+                          f"{chip_smoke.k5_instructions(dtype, True, str(path)):.2f}"
+                          for dt, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32))))
+    seed, site, rate = 2718281828, 7, 0.1
+    rows, cols = chip_smoke.ROWS, chip_smoke.FFN
+    for dtype in (torch.bfloat16, torch.float32):
+        bf16 = dtype == torch.bfloat16
+        elem = (1e-2, 1e-2) if bf16 else (1e-5, 1e-5)
+        grad = (1e-2, 1e-2) if bf16 else (1e-4, 1e-4)
+        colsum = (1e-2, 1e-4)
+        tag = f"{dtype} [{rows}, {cols}]"
+        pre, g = (torch.randn(rows, cols, device="cuda", generator=gen).to(dtype)
+                  for _ in range(2))
+        ten, ones = torch.full_like(pre, 10.0), torch.ones_like(g)
+        args = (seed, site, rate)
+        y_p = K5.ffn_act_fwd_reference(pre, *args)
+        dpre_p, db_p = K5.ffn_act_bwd_reference(g, pre, *args)
+        mask_p = K5.ffn_act_fwd_reference(ten, *args), K5.ffn_act_bwd_reference(ones, ten, *args)[0]
+        for label, path in paths.items():
+            with swapped_library("ffn_act", path, K5.grid_blocks):
+                y = K5.ffn_act_fwd_kernel(pre, *args)
+                dpre, db = K5.ffn_act_bwd_kernel(g, pre, *args)
+                again = K5.ffn_act_bwd_kernel(g, pre, *args)
+                masks = K5.ffn_act_fwd_kernel(ten, *args), K5.ffn_act_bwd_kernel(ones, ten, *args)[0]
+            torch.cuda.synchronize()
+            report(f"K5 fwd y {tag} build '{label}'", y, y_p, *elem)
+            report(f"K5 bwd dpre {tag} build '{label}'", dpre, dpre_p, *grad)
+            report(f"K5 bwd dbias {tag} build '{label}'", db, db_p, *colsum)
+            same = (torch.equal(masks[0], mask_p[0]), torch.equal(masks[1] == 0, mask_p[1] == 0),
+                    torch.equal(again[0], dpre) and torch.equal(again[1], db))
+            print(f"  K5 {tag} build '{label}': forward mask (y of pre=10) bit for bit {same[0]}, "
+                  f"backward mask (zero pattern) {same[1]}, backward twice bit for bit {same[2]}")
+            if not all(same):
+                failures.append(f"K5 {tag} build '{label}': masks or repeat {same}")
+            if label == "default":
+                chip_smoke.k5_shapes(dtype, gen, seed, site, elem, grad, colsum)
+        if bf16:
+            labels = list(paths)
+            for turn in range(2):
+                for label in labels if turn == 0 else labels[::-1]:
+                    dev = chip_smoke.device_ms
+                    with swapped_library("ffn_act", paths[label], K5.grid_blocks):
+                        times = [dev(lambda: K5.ffn_act_fwd_kernel(pre, seed, site, r))
+                                 for r in (rate, 0.0)]
+                        times += [dev(lambda: K5.ffn_act_bwd_kernel(g, pre, seed, site, r))
+                                  for r in (rate, 0.0)]
+                        blocks = K5.grid_blocks(pre.numel(), dtype, pre.device)
+                    print(f"  K5 {tag} build '{label}', turn {turn}: fwd {times[0]:.4f} ms, bwd "
+                          f"{times[2]:.4f} ms; at rate 0 (no Philox) fwd {times[1]:.4f} ms, bwd "
+                          f"{times[3]:.4f} ms; forward grid {blocks} blocks (device time, "
+                          f"chip_smoke.device_ms; the backward's with the partials' sum)")
+        del pre, g, ten, ones, y_p, dpre_p, mask_p
+        torch.cuda.empty_cache()
+
+
+def check_k7(gen):
+    """K7 (``csrc/sinc_delay.cu``) on every build of ``SINC_BUILDS``: ``chip_smoke.k7_checks``
+    (beyond the taps y and s bit for bit; the bars) on the three ``k7_draws`` and the smooth
+    draw, then device times of each entry on the iid and the smooth draw, in turns, twice;
+    with each form's float64, conversion and special-function instructions per tap and the
+    memory instructions by width (SASS)."""
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import sinc_delay as sk
+
+    counts = chip_smoke.k7_form_counts()
+    for form, entries in counts.items():
+        for entry, kinds in entries.items():
+            print(f"  K7 {entry}, every sample {form}: per tap "
+                  + ", ".join(f"{v} {k}" for k, v in kinds.items()))
+    for kernel, kinds in access_counts("sinc_delay"):
+        print(f"  K7 default: {kernel}: " + ", ".join(f"{k} {v}" for k, v in sorted(kinds.items())))
+    paths = chip_smoke.variant_libraries({label: ("sinc_delay", d)
+                                          for label, d in SINC_BUILDS.items()})
+    window = chip_smoke.K7_WINDOW
+    draws = [*chip_smoke.k7_draws(), ("smooth delays", chip_smoke.k7_smooth_inputs())]
+    for label, path in paths.items():
+        with swapped_library("sinc_delay", path):
+            for draw, inputs in draws:
+                try:
+                    chip_smoke.k7_checks(sk, f"build '{label}', {draw}", *inputs, window)
+                except SystemExit as miss:
+                    failures.append(str(miss))
+    timed = (("iid", draws[0][1]), ("smooth", draws[-1][1]), ("near-only", k7_one_form(False)),
+             ("far-only", k7_one_form(True)))
+    labels = list(paths)
+    for turn in range(2):
+        for label in labels if turn == 0 else labels[::-1]:
+            with swapped_library("sinc_delay", paths[label]):
+                for draw, (x, g, d) in timed:
+                    s_p = sk.sinc_fwd_reference(x, d, window)[1]
+                    dev = chip_smoke.device_ms
+                    times = (dev(lambda: sk.sinc_fwd_kernel(x, d, window)),
+                             dev(lambda: sk.sinc_grad_d_kernel(x, d, g, window)),
+                             dev(lambda: sk.sinc_grad_x_kernel(d, g, s_p, window)))
+                    print(f"  K7 [96, 8250] {draw} delays, build '{label}', turn {turn}: fwd "
+                          f"{times[0]:.4f} ms, grad_d {times[1]:.4f} ms, grad_x {times[2]:.4f} ms "
+                          f"(device time, chip_smoke.device_ms)")
 
 
 def check_flash_kv(gen):
@@ -526,6 +651,8 @@ def main() -> None:
                else FFN_SOURCES if "--ffn" in sys.argv
                else RESID_SOURCES if "--resid" in sys.argv
                else ("conv_gelu",) if "--conv" in sys.argv
+               else tuple(name for flag, name in (("--k5", "ffn_act"), ("--k7", "sinc_delay"))
+                          if flag in sys.argv) if {"--k5", "--k7"} & set(sys.argv)
                else ("flash_kv",) if "--flash-kv" in sys.argv else SOURCES)
     t0 = time.perf_counter()
     build.load_libraries(*sources)
@@ -550,13 +677,18 @@ def main() -> None:
         check_resid(gen)
     elif "--flash-kv" in sys.argv:
         check_flash_kv(gen)
+    elif "--k5" in sys.argv or "--k7" in sys.argv:
+        if "--k5" in sys.argv:
+            check_k5(gen)
+        if "--k7" in sys.argv:
+            check_k7(gen)
     elif "--conv" in sys.argv:
         check_conv(gen)
         if not failures:
             chip_smoke.phase_conv_kernel()
     else:
         check_attention(gen)
-    if not {"--attention", "--ffn", "--flash-kv", "--conv", "--resid"} & set(sys.argv):
+    if not {"--attention", "--ffn", "--flash-kv", "--conv", "--resid", "--k5", "--k7"} & set(sys.argv):
         check_conv(gen)
         check_ffn(gen)
     print("SOME_FAILED: " + ", ".join(failures) if failures else "ALL_OK")

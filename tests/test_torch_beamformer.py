@@ -166,6 +166,18 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         sinc_delay.delay_channel(x, x, K - 1, WINDOW)
 
 
+def test_window_arg_is_built_once_per_window():
+    """The taps' ctypes array is cached per window (a tuple is its own key), float32-rounded
+    as the plain version's taps; an even tap count is refused."""
+    taps, count = sinc_delay._window_arg(WINDOW)
+    assert count == K and list(taps) == sinc_delay._taps(WINDOW)
+    again = sinc_delay._window_arg(tuple(sinc_delay._taps(WINDOW)))
+    assert again[0] is sinc_delay._window_arg(tuple(sinc_delay._taps(WINDOW)))[0]
+    assert list(again[0]) == list(taps)
+    with pytest.raises(ValueError, match="odd number of taps"):
+        sinc_delay._window_arg((0.5, 1.0))
+
+
 @pytest.fixture(scope="module")
 def vest_pair():
     """A JAX multichannel classifier (tiny encoder) and the port's, on the same weights;

@@ -16,6 +16,7 @@ import torch
 from wav2vec_heart_sounds_tpu.ops.pallas import conv as jax_conv
 from wav2vec_heart_sounds_tpu.ops.pallas.ffn import dense_gelu_dropout as jax_ffn
 from wav2vec_heart_sounds_tpu_torch.ops import philox
+from wav2vec_heart_sounds_tpu_torch.ops.kernels import dropout
 from wav2vec_heart_sounds_tpu_torch.ops.kernels import ffn as port
 
 RATE = 0.1
@@ -107,3 +108,22 @@ def test_kernel_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         port.ffn_act_bwd_kernel(pre, pre, 0, 0, RATE)
     assert (port.ffn_act_fwd_kernel.launches, port.ffn_act_bwd_kernel.launches) == before
+
+
+def test_the_kernels_take_rows_of_four_column_groups():
+    """The backward's threads own four adjacent columns of every row; the forward any length."""
+    assert port.kernel_takes(3072, torch.bfloat16) and port.kernel_takes(64, torch.float32)
+    assert port.kernel_takes(12, torch.bfloat16) and not port.kernel_takes(14, torch.float32)
+    assert not port.kernel_takes(64, torch.float16) and not port.kernel_takes(0, torch.float32)
+
+
+def test_the_autograd_op_hands_the_kernels_16_byte_aligned_tensors():
+    """The forward's wrapper refuses a tensor that does not start on 16 bytes; the op copies
+    one."""
+    view = torch.arange(2 * 64 + 1, dtype=torch.bfloat16)[1:].view(2, 64)
+    assert view.data_ptr() % 16
+    copy = dropout.aligned(view)
+    assert copy.data_ptr() % 16 == 0 and torch.equal(copy, view)
+    dense = torch.zeros(2, 64, dtype=torch.bfloat16)
+    assert dense.data_ptr() % 16 == 0 and dropout.aligned(dense) is dense
+

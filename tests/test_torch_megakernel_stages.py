@@ -103,10 +103,10 @@ def test_wrappers_reject_what_tma_cannot_take(case):
     CPU tensors, so it comes before any CUDA call (and counts no launch)."""
     calls = {
         "ffn_width": (mk.ffn_mega_fwd_kernel, _fwd_args(
-            w1=torch.zeros(200, D, dtype=torch.bfloat16), b1=torch.zeros(200, dtype=torch.bfloat16),
-            w2=torch.zeros(D, 200, dtype=torch.bfloat16)), "multiple of 128"),
+            w1=torch.zeros(204, D, dtype=torch.bfloat16), b1=torch.zeros(204, dtype=torch.bfloat16),
+            w2=torch.zeros(D, 204, dtype=torch.bfloat16)), "multiples of 8"),
         "row_width": (mk.ffn_mega_fwd_kernel, _fwd_args(
-            x=torch.zeros(8, 512, dtype=torch.bfloat16)), "768"),
+            x=torch.zeros(8, 1032, dtype=torch.bfloat16)), "at most 1024"),
         "fwd_base": (mk.ffn_mega_fwd_kernel, _fwd_args(x=_misaligned(8, D)), "16-byte aligned"),
         "fwd_row_stride": (mk.ffn_mega_fwd_kernel, _fwd_args(x=_strided(8, D, 4)),
                            "row strides must be multiples of 16 bytes, got 1544"),

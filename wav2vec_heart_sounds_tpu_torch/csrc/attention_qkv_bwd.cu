@@ -69,19 +69,19 @@ __device__ __forceinline__ void zero(float (&a)[NT][4]) {
     for (int i = 0; i < 4; ++i) a[n][i] = 0.f;
 }
 
-template <typename T>
+template <typename T, int D>
 constexpr int dq_smem_bytes() {
-  return 6 * Tile<T>::ELEMS * static_cast<int>(sizeof(T)) +
+  return 6 * Tile<T, D>::ELEMS * static_cast<int>(sizeof(T)) +
          p_buffer_floats<T, kHalf>() * static_cast<int>(sizeof(float));
 }
 
-template <typename T>
+template <typename T, int D>
 constexpr int dkdv_smem_bytes() {
-  return 6 * Tile<T>::ELEMS * static_cast<int>(sizeof(T)) +
+  return 6 * Tile<T, D>::ELEMS * static_cast<int>(sizeof(T)) +
          (4 * kTile + p_buffer_floats<T, kHalf>()) * static_cast<int>(sizeof(float));
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, min_blocks<T>())
 attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ o,
@@ -89,12 +89,13 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         float* __restrict__ dsum, T* __restrict__ dq, Views vw, int heads,
                         int seq, int t_keys, float scale, uint32_t seed, uint32_t site,
                         uint32_t thr, float drop_scale) {
-  constexpr int S = Tile<T>::S;
+  using Tl = Tile<T, D>;
+  constexpr int S = Tl::S;
   extern __shared__ __align__(16) unsigned char smem[];
   T* q_s = reinterpret_cast<T*>(smem);
-  T* do_s = q_s + Tile<T>::ELEMS;
-  T* kv_s = do_s + Tile<T>::ELEMS;                         // [stage][K, V]
-  float* p_s = reinterpret_cast<float*>(kv_s + 4 * Tile<T>::ELEMS);
+  T* do_s = q_s + Tl::ELEMS;
+  T* kv_s = do_s + Tl::ELEMS;                              // [stage][K, V]
+  float* p_s = reinterpret_cast<float*>(kv_s + 4 * Tl::ELEMS);
 
   const int bh = blockIdx.x;
   const int b = bh / heads, h = bh - (bh / heads) * heads;
@@ -107,19 +108,19 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* v_g = v + b * vw.v.b + h * vw.v.h;
   float* pbuf = p_s + warp * 16 * (kHalf + 4);
 
-  stage(q_s, q + b * vw.q.b + h * vw.q.h, vw.q.t, q0, seq);
-  stage(do_s, dout + b * vw.dout.b + h * vw.dout.h, vw.dout.t, q0, seq);
+  stage<T, D>(q_s, q + b * vw.q.b + h * vw.q.h, vw.q.t, q0, seq);
+  stage<T, D>(do_s, dout + b * vw.dout.b + h * vw.dout.h, vw.dout.t, q0, seq);
   w2v::cp_async_commit();
-  stage(kv_s, k_g, vw.k.t, 0, t_keys);
-  stage(kv_s + Tile<T>::ELEMS, v_g, vw.v.t, 0, t_keys);
+  stage<T, D>(kv_s, k_g, vw.k.t, 0, t_keys);
+  stage<T, D>(kv_s + Tl::ELEMS, v_g, vw.v.t, 0, t_keys);
   w2v::cp_async_commit();
   w2v::cp_async_wait<1>();
   __syncthreads();
 
-  // D = rowsum(do * o): lane L takes row L >> 1, columns 32 (L & 1) .. + 31.
+  // rowsum(do * o): lane L takes row L >> 1, columns D / 2 (L & 1) .. + D / 2 - 1.
   float d_r[2] = {0.f, 0.f}, lse_r[2] = {0.f, 0.f};
   if (active) {
-    const int r = lane >> 1, c0 = 32 * (lane & 1);
+    const int r = lane >> 1, c0 = (D / 2) * (lane & 1);
     const int row = wrow + r;
     float part = 0.f;
     if (row < seq) {
@@ -127,7 +128,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const T* do_row = do_s + (warp * 16 + r) * S + c0;
       constexpr int E = 16 / static_cast<int>(sizeof(T));
 #pragma unroll
-      for (int c = 0; c < 32; c += E) {                    // 16-byte loads of o
+      for (int c = 0; c < D / 2; c += E) {                 // 16-byte loads of o
         const uint4 chunk = *reinterpret_cast<const uint4*>(o_row + c);
         const T* oc = reinterpret_cast<const T*>(&chunk);
 #pragma unroll
@@ -144,23 +145,23 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  float acc[8][4];
+  float acc[D / 8][4];
   zero(acc);
   const int tiles = (t_keys + kTile - 1) / kTile;
   for (int it = 0; it < tiles; ++it) {
     const int k0 = it * kTile;
     if (it + 1 < tiles) {
-      T* next = kv_s + ((it + 1) & 1) * 2 * Tile<T>::ELEMS;
-      stage(next, k_g, vw.k.t, k0 + kTile, t_keys);
-      stage(next + Tile<T>::ELEMS, v_g, vw.v.t, k0 + kTile, t_keys);
+      T* next = kv_s + ((it + 1) & 1) * 2 * Tl::ELEMS;
+      stage<T, D>(next, k_g, vw.k.t, k0 + kTile, t_keys);
+      stage<T, D>(next + Tl::ELEMS, v_g, vw.v.t, k0 + kTile, t_keys);
       w2v::cp_async_commit();
       w2v::cp_async_wait<1>();
     } else {
       w2v::cp_async_wait<0>();
     }
     __syncthreads();
-    const T* k_t = kv_s + (it & 1) * 2 * Tile<T>::ELEMS;
-    const T* v_t = k_t + Tile<T>::ELEMS;
+    const T* k_t = kv_s + (it & 1) * 2 * Tl::ELEMS;
+    const T* v_t = k_t + Tl::ELEMS;
     if (active) {
       const uint32_t runs =
           thr ? draw_row_runs(seed, site, thr,
@@ -174,8 +175,8 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float s[4][4], dp[4][4];
         zero(s);
         zero(dp);
-        mma_abt<4>(s, q_s + warp * 16 * S, k_t + c0 * S, lane);
-        mma_abt<4>(dp, do_s + warp * 16 * S, v_t + c0 * S, lane);
+        mma_abt<4, D>(s, q_s + warp * 16 * S, k_t + c0 * S, lane);
+        mma_abt<4, D>(dp, do_s + warp * 16 * S, v_t + c0 * S, lane);
         uint32_t keep[2];
         row_keep(runs, lane, half, keep);
         // ds = p (dp - D), with dp dropped as the forward dropped p.
@@ -189,7 +190,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const float dpv = (keep[i >> 1] >> c) & 1u ? dp[n][i] * drop_scale : 0.f;
             s[n][i] = p * (dpv - d_r[i >> 1]);
           }
-        mma_pv<kHalf>(acc, s, k_t + c0 * S, pbuf, lane);
+        mma_pv<kHalf, D>(acc, s, k_t + c0 * S, pbuf, lane);
       }
     }
     __syncthreads();
@@ -202,13 +203,13 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = wrow + g + 8 * r;
     if (row >= seq) continue;
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < D / 8; ++n)
       store2(dq_g + row * vw.dq.t + n * 8 + t2, acc[n][2 * r] * scale,
              acc[n][2 * r + 1] * scale);
   }
 }
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, min_blocks<T>())
 attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ dout,
@@ -216,12 +217,13 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           T* __restrict__ dk_out, T* __restrict__ dv_out, Views vw, int heads,
                           int seq, int t_keys, float scale, uint32_t seed, uint32_t site,
                           uint32_t thr, float drop_scale) {
-  constexpr int S = Tile<T>::S;
+  using Tl = Tile<T, D>;
+  constexpr int S = Tl::S;
   extern __shared__ __align__(16) unsigned char smem[];
   T* k_s = reinterpret_cast<T*>(smem);
-  T* v_s = k_s + Tile<T>::ELEMS;
-  T* qdo_s = v_s + Tile<T>::ELEMS;                         // [stage][Q, dO]
-  float* lse_s = reinterpret_cast<float*>(qdo_s + 4 * Tile<T>::ELEMS);   // [stage][64]
+  T* v_s = k_s + Tl::ELEMS;
+  T* qdo_s = v_s + Tl::ELEMS;                              // [stage][Q, dO]
+  float* lse_s = reinterpret_cast<float*>(qdo_s + 4 * Tl::ELEMS);        // [stage][64]
   float* d_s = lse_s + 2 * kTile;                                        // [stage][64]
   float* p_s = d_s + 2 * kTile;
 
@@ -239,9 +241,9 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* pbuf = p_s + warp * 16 * (kHalf + 4);
 
   auto stage_queries = [&](int buf, int r0) {
-    T* dst = qdo_s + buf * 2 * Tile<T>::ELEMS;
-    stage(dst, q_g, vw.q.t, r0, seq);
-    stage(dst + Tile<T>::ELEMS, do_g, vw.dout.t, r0, seq);
+    T* dst = qdo_s + buf * 2 * Tl::ELEMS;
+    stage<T, D>(dst, q_g, vw.q.t, r0, seq);
+    stage<T, D>(dst + Tl::ELEMS, do_g, vw.dout.t, r0, seq);
     w2v::cp_async_commit();
     for (int r = threadIdx.x; r < kTile; r += kThreads) {
       const bool ok = r0 + r < seq;
@@ -250,12 +252,12 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   };
 
-  stage(k_s, k + b * vw.k.b + h * vw.k.h, vw.k.t, key0, t_keys);
-  stage(v_s, v + b * vw.v.b + h * vw.v.h, vw.v.t, key0, t_keys);
+  stage<T, D>(k_s, k + b * vw.k.b + h * vw.k.h, vw.k.t, key0, t_keys);
+  stage<T, D>(v_s, v + b * vw.v.b + h * vw.v.h, vw.v.t, key0, t_keys);
   w2v::cp_async_commit();
   stage_queries(0, 0);
 
-  float dk[8][4], dv[8][4];
+  float dk[D / 8][4], dv[D / 8][4];
   zero(dk);
   zero(dv);
   const int tiles = (seq + kTile - 1) / kTile;
@@ -268,8 +270,8 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       w2v::cp_async_wait<0>();
     }
     __syncthreads();
-    const T* q_t = qdo_s + buf * 2 * Tile<T>::ELEMS;
-    const T* do_t = q_t + Tile<T>::ELEMS;
+    const T* q_t = qdo_s + buf * 2 * Tl::ELEMS;
+    const T* do_t = q_t + Tl::ELEMS;
     if (active) {
       const uint32_t runs =
           thr ? draw_col_runs(seed, site, thr,
@@ -283,8 +285,8 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float s[4][4], dp[4][4];                 // S^T and dP^T: keys as rows
         zero(s);
         zero(dp);
-        mma_abt<4>(s, k_s + warp * 16 * S, q_t + c0 * S, lane);
-        mma_abt<4>(dp, v_s + warp * 16 * S, do_t + c0 * S, lane);
+        mma_abt<4, D>(s, k_s + warp * 16 * S, q_t + c0 * S, lane);
+        mma_abt<4, D>(dp, v_s + warp * 16 * S, do_t + c0 * S, lane);
         // pd = the dropped p (for dv); ds = p (dp - D) (for dk).
 #pragma unroll
         for (int n = 0; n < 4; ++n)
@@ -304,8 +306,8 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
               dp[n][i] = p * ((kept ? dp[n][i] * drop_scale : 0.f) - d_c);
             }
           }
-        mma_pv<kHalf>(dv, s, do_t + c0 * S, pbuf, lane);
-        mma_pv<kHalf>(dk, dp, q_t + c0 * S, pbuf, lane);
+        mma_pv<kHalf, D>(dv, s, do_t + c0 * S, pbuf, lane);
+        mma_pv<kHalf, D>(dk, dp, q_t + c0 * S, pbuf, lane);
       }
     }
     __syncthreads();
@@ -319,35 +321,37 @@ attention_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int key = wkey + g + 8 * r;
     if (key >= seq) continue;                    // keys in [t_keys, seq) get exact zeros
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
       store2(dk_g + key * vw.dk.t + n * 8 + t2, dk[n][2 * r] * scale, dk[n][2 * r + 1] * scale);
       store2(dv_g + key * vw.dv.t + n * 8 + t2, dv[n][2 * r], dv[n][2 * r + 1]);
     }
   }
 }
 
-template <typename T>
+template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
            const void* lse, void* dsum, void* dq, void* dk, void* dv, const Views& vw,
            int batch, int heads, int seq, int t_keys, float scale, uint32_t seed, uint32_t site,
            uint32_t thr, float drop_scale, cudaStream_t stream) {
-  static const cudaError_t set_dq = cudaFuncSetAttribute(  // above 48 KB, once per kernel
-      attention_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem_bytes<T>());
-  static const cudaError_t set_dkdv = cudaFuncSetAttribute(
-      attention_bwd_dkdv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      dkdv_smem_bytes<T>());
+  // Above 48 KB: set at every launch, as the attribute is the device's.
+  const cudaError_t set_dq = cudaFuncSetAttribute(
+      attention_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dq_smem_bytes<T, D>());
+  const cudaError_t set_dkdv = cudaFuncSetAttribute(
+      attention_bwd_dkdv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dkdv_smem_bytes<T, D>());
   if (set_dq != cudaSuccess) return static_cast<int>(set_dq);
   if (set_dkdv != cudaSuccess) return static_cast<int>(set_dkdv);
   const dim3 grid(batch * heads, (seq + kRows - 1) / kRows);
   const T *qp = static_cast<const T*>(q), *kp = static_cast<const T*>(k),
           *vp = static_cast<const T*>(v), *dop = static_cast<const T*>(dout);
-  attention_bwd_dq_kernel<T><<<grid, kThreads, dq_smem_bytes<T>(), stream>>>(
+  attention_bwd_dq_kernel<T, D><<<grid, kThreads, dq_smem_bytes<T, D>(), stream>>>(
       qp, kp, vp, static_cast<const T*>(o), dop, static_cast<const float*>(lse),
       static_cast<float*>(dsum), static_cast<T*>(dq), vw, heads, seq, t_keys, scale, seed, site,
       thr, drop_scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd_dkdv_kernel<T><<<grid, kThreads, dkdv_smem_bytes<T>(), stream>>>(
+  attention_bwd_dkdv_kernel<T, D><<<grid, kThreads, dkdv_smem_bytes<T, D>(), stream>>>(
       qp, kp, vp, dop, static_cast<const float*>(lse), static_cast<const float*>(dsum),
       static_cast<T*>(dk), static_cast<T*>(dv), vw, heads, seq, t_keys, scale, seed, site, thr,
       drop_scale);
@@ -357,7 +361,8 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
 }  // namespace
 
 // C entry point, bound with ctypes. strides: 24 element strides, (b, h, t) of q, k, v, o,
-// dout, dq, dk and dv in that order (d contiguous in each). dtype: 0 = float32,
+// dout, dq, dk and dv in that order (d contiguous in each). head_dim: 16, 32, 64 or 128.
+// dtype: 0 = float32,
 // 1 = bfloat16 (the eight views); lse and the scratch dsum ([B, H, T], contiguous) are
 // float32. thr = uint32(rate * (2^32 - 1)) (0 = no dropout), drop_scale = 1 / (1 - rate), as
 // the forward was given. Returns the cudaError_t of the launches (0 = launched); the caller
@@ -368,21 +373,22 @@ extern "C" int attention_bwd(const void* q, const void* k, const void* v, const 
                              int head_dim, int t_keys, float scale, uint32_t seed,
                              uint32_t site, uint32_t thr, float drop_scale, int dtype,
                              void* stream) {
-  if (batch <= 0 || heads <= 0 || seq <= 0 || t_keys <= 0 || t_keys > seq || head_dim != kD)
+  if (batch <= 0 || heads <= 0 || seq <= 0 || t_keys <= 0 || t_keys > seq)
     return static_cast<int>(cudaErrorInvalidValue);
   View v8[8];
   for (int i = 0; i < 8; ++i)
     v8[i] = View{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   const Views vw{v8[0], v8[1], v8[2], v8[3], v8[4], v8[5], v8[6], v8[7]};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch<float>(q, k, v, o, dout, lse, dsum, dq, dk, dv, vw, batch, heads, seq,
-                           t_keys, scale, seed, site, thr, drop_scale, st);
-    case 1:
-      return launch<__nv_bfloat16>(q, k, v, o, dout, lse, dsum, dq, dk, dv, vw, batch, heads,
-                                   seq, t_keys, scale, seed, site, thr, drop_scale, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  on_head_dim(head_dim, [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    if (dtype == 0)
+      err = launch<float, D>(q, k, v, o, dout, lse, dsum, dq, dk, dv, vw, batch, heads, seq,
+                             t_keys, scale, seed, site, thr, drop_scale, st);
+    if (dtype == 1)
+      err = launch<__nv_bfloat16, D>(q, k, v, o, dout, lse, dsum, dq, dk, dv, vw, batch, heads,
+                                     seq, t_keys, scale, seed, site, thr, drop_scale, st);
+  });
+  return err;
 }

@@ -55,18 +55,19 @@ namespace {
 
 using namespace w2v::attn;
 
-// kTrain = false is the eval instantiation (no dropout, no lse).
-template <typename T, bool kTrain>
+// kTrain = false is the eval instantiation (no dropout, no lse); D is the head width.
+template <typename T, int D, bool kTrain>
 __global__ void __launch_bounds__(kThreads, min_blocks<T>())
 attention_fwd_kernel(const T* __restrict__ q, View qs, const T* __restrict__ k, View ks,
                      const T* __restrict__ v, View vs, T* __restrict__ out, View os,
                      float* __restrict__ lse, int heads, int seq, int t_keys, float scale,
                      uint32_t seed, uint32_t site, uint32_t thr, float drop_scale) {
-  constexpr int S = Tile<T>::S;
+  using Tl = Tile<T, D>;
+  constexpr int S = Tl::S;
   extern __shared__ __align__(16) unsigned char smem[];
   T* q_s = reinterpret_cast<T*>(smem);
-  T* kv_s = q_s + Tile<T>::ELEMS;                          // [stage][K, V]
-  float* p_s = reinterpret_cast<float*>(kv_s + 4 * Tile<T>::ELEMS);
+  T* kv_s = q_s + Tl::ELEMS;                               // [stage][K, V]
+  float* p_s = reinterpret_cast<float*>(kv_s + 4 * Tl::ELEMS);
 
   const int bh = blockIdx.x;
   const int b = bh / heads, h = bh - (bh / heads) * heads;
@@ -79,15 +80,15 @@ attention_fwd_kernel(const T* __restrict__ q, View qs, const T* __restrict__ k, 
   const T* v_g = v + b * vs.b + h * vs.h;
   float* pbuf = p_s + warp * 16 * (kTile + 4);
 
-  stage(q_s, q + b * qs.b + h * qs.h, qs.t, q0, seq);
+  stage<T, D>(q_s, q + b * qs.b + h * qs.h, qs.t, q0, seq);
   w2v::cp_async_commit();
-  stage(kv_s, k_g, ks.t, 0, t_keys);
-  stage(kv_s + Tile<T>::ELEMS, v_g, vs.t, 0, t_keys);
+  stage<T, D>(kv_s, k_g, ks.t, 0, t_keys);
+  stage<T, D>(kv_s + Tl::ELEMS, v_g, vs.t, 0, t_keys);
   w2v::cp_async_commit();
 
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[8][4];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[D / 8][4];
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
     for (int i = 0; i < 4; ++i) o[n][i] = 0.f;
 
@@ -95,24 +96,24 @@ attention_fwd_kernel(const T* __restrict__ q, View qs, const T* __restrict__ k, 
   for (int it = 0; it < tiles; ++it) {
     const int k0 = it * kTile;
     if (it + 1 < tiles) {
-      T* next = kv_s + ((it + 1) & 1) * 2 * Tile<T>::ELEMS;
-      stage(next, k_g, ks.t, k0 + kTile, t_keys);
-      stage(next + Tile<T>::ELEMS, v_g, vs.t, k0 + kTile, t_keys);
+      T* next = kv_s + ((it + 1) & 1) * 2 * Tl::ELEMS;
+      stage<T, D>(next, k_g, ks.t, k0 + kTile, t_keys);
+      stage<T, D>(next + Tl::ELEMS, v_g, vs.t, k0 + kTile, t_keys);
       w2v::cp_async_commit();
       w2v::cp_async_wait<1>();
     } else {
       w2v::cp_async_wait<0>();
     }
     __syncthreads();
-    const T* k_t = kv_s + (it & 1) * 2 * Tile<T>::ELEMS;
-    const T* v_t = k_t + Tile<T>::ELEMS;
+    const T* k_t = kv_s + (it & 1) * 2 * Tl::ELEMS;
+    const T* v_t = k_t + Tl::ELEMS;
     if (active) {
       float s[8][4];
 #pragma unroll
       for (int n = 0; n < 8; ++n)
 #pragma unroll
         for (int i = 0; i < 4; ++i) s[n][i] = 0.f;
-      mma_abt<8>(s, q_s + warp * 16 * S, k_t, lane);
+      mma_abt<8, D>(s, q_s + warp * 16 * S, k_t, lane);
 
       // Online softmax; a tile holds key k0 < t_keys, so its row max is finite.
       float mx[2] = {-INFINITY, -INFINITY};
@@ -133,10 +134,13 @@ attention_fwd_kernel(const T* __restrict__ q, View qs, const T* __restrict__ k, 
         l[r] *= corr[r];
       }
 #pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o[n][i] *= corr[i >> 1];
+#pragma unroll
       for (int n = 0; n < 8; ++n)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          o[n][i] *= corr[i >> 1];
           s[n][i] = expf(s[n][i] - m[i >> 1]);             // masked keys give exactly 0
           l[i >> 1] += s[n][i];                            // l sums every e, kept or not
         }
@@ -153,7 +157,7 @@ attention_fwd_kernel(const T* __restrict__ q, View qs, const T* __restrict__ k, 
           for (int i = 0; i < 4; ++i)
             if (!((keep[n >> 2][i >> 1] >> ((n & 3) * 8 + t2 + (i & 1))) & 1u)) s[n][i] = 0.f;
       }
-      mma_pv<kTile>(o, s, v_t, pbuf, lane);
+      mma_pv<kTile, D>(o, s, v_t, pbuf, lane);
     }
     __syncthreads();                                       // the stage is free for reuse
   }
@@ -169,32 +173,33 @@ attention_fwd_kernel(const T* __restrict__ q, View qs, const T* __restrict__ k, 
     if (kTrain && lse != nullptr && (lane & 3) == 0)
       lse[static_cast<size_t>(bh) * seq + row] = m[r] + logf(total);
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int n = 0; n < D / 8; ++n)
       store2(o_g + row * os.t + n * 8 + t2, o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
   }
 }
 
-template <typename T>
+template <typename T, int D>
 constexpr int smem_bytes() {
-  return 5 * Tile<T>::ELEMS * static_cast<int>(sizeof(T)) +
+  return 5 * Tile<T, D>::ELEMS * static_cast<int>(sizeof(T)) +
          p_buffer_floats<T, kTile>() * static_cast<int>(sizeof(float));
 }
 
-template <typename T, bool kTrain>
+template <typename T, int D, bool kTrain>
 int launch_one(const dim3& grid, const T* q, const T* k, const T* v, T* out, float* lse,
                const View* s, int heads, int seq, int t_keys, float scale, uint32_t seed,
                uint32_t site, uint32_t thr, float drop_scale, cudaStream_t stream) {
-  static const cudaError_t set = cudaFuncSetAttribute(      // above 48 KB, once per kernel
-      attention_fwd_kernel<T, kTrain>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes<T>());
+  // Above 48 KB at some widths: set at every launch, as the attribute is the device's.
+  const cudaError_t set = cudaFuncSetAttribute(
+      attention_fwd_kernel<T, D, kTrain>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes<T, D>());
   if (set != cudaSuccess) return static_cast<int>(set);
-  attention_fwd_kernel<T, kTrain><<<grid, kThreads, smem_bytes<T>(), stream>>>(
+  attention_fwd_kernel<T, D, kTrain><<<grid, kThreads, smem_bytes<T, D>(), stream>>>(
       q, s[0], k, s[1], v, s[2], out, s[3], lse, heads, seq, t_keys, scale, seed, site, thr,
       drop_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse, const View* s,
            int batch, int heads, int seq, int t_keys, float scale, uint32_t seed, uint32_t site,
            uint32_t thr, float drop_scale, cudaStream_t stream) {
@@ -203,16 +208,17 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse, co
           *vp = static_cast<const T*>(v);
   T* op = static_cast<T*>(out);
   if (lse == nullptr && thr == 0)
-    return launch_one<T, false>(grid, qp, kp, vp, op, nullptr, s, heads, seq, t_keys, scale,
+    return launch_one<T, D, false>(grid, qp, kp, vp, op, nullptr, s, heads, seq, t_keys, scale,
                                 seed, site, thr, drop_scale, stream);
-  return launch_one<T, true>(grid, qp, kp, vp, op, static_cast<float*>(lse), s, heads, seq,
+  return launch_one<T, D, true>(grid, qp, kp, vp, op, static_cast<float*>(lse), s, heads, seq,
                              t_keys, scale, seed, site, thr, drop_scale, stream);
 }
 
 }  // namespace
 
 // C entry point, bound with ctypes. strides: 12 element strides, (b, h, t) of q, k, v and
-// out in that order (d contiguous in each). dtype: 0 = float32, 1 = bfloat16. lse may be
+// out in that order (d contiguous in each). head_dim: 16, 32, 64 or 128. dtype: 0 = float32,
+// 1 = bfloat16. lse may be
 // null (eval; with thr 0 too, the eval instantiation runs). thr = uint32(rate * (2^32 - 1))
 // (0 = no dropout), drop_scale = 1 / (1 - rate). Returns the cudaError_t of the launch
 // (0 = launched); the caller raises on anything else.
@@ -221,19 +227,20 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v, void* 
                              int head_dim, int t_keys, float scale, uint32_t seed,
                              uint32_t site, uint32_t thr, float drop_scale, int dtype,
                              void* stream) {
-  if (batch <= 0 || heads <= 0 || seq <= 0 || t_keys <= 0 || t_keys > seq || head_dim != kD)
+  if (batch <= 0 || heads <= 0 || seq <= 0 || t_keys <= 0 || t_keys > seq)
     return static_cast<int>(cudaErrorInvalidValue);
   View s[4];
   for (int i = 0; i < 4; ++i) s[i] = View{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch<float>(q, k, v, out, lse, s, batch, heads, seq, t_keys, scale, seed, site,
-                           thr, drop_scale, st);
-    case 1:
-      return launch<__nv_bfloat16>(q, k, v, out, lse, s, batch, heads, seq, t_keys, scale, seed,
-                                   site, thr, drop_scale, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  on_head_dim(head_dim, [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    if (dtype == 0)
+      err = launch<float, D>(q, k, v, out, lse, s, batch, heads, seq, t_keys, scale, seed, site,
+                             thr, drop_scale, st);
+    if (dtype == 1)
+      err = launch<__nv_bfloat16, D>(q, k, v, out, lse, s, batch, heads, seq, t_keys, scale,
+                                     seed, site, thr, drop_scale, st);
+  });
+  return err;
 }

@@ -1,13 +1,14 @@
 // Tile machinery of the attention kernels (attention_qkv_fwd.cu, attention_qkv_bwd.cu).
 //
-// A block has 4 warps; each warp owns 16 rows of one side (queries, or keys in the dk/dv
-// kernel) and walks 64-row tiles of the other side, staged as padded tiles in shared memory
-// in the input dtype by cp.async. Score-shaped products leave each warp with its 16 x N
-// block in the m16n8 accumulator layout of mma.sync: lane (g = lane >> 2, t = lane & 3)
-// holds columns 8 n + 2 t and 8 n + 2 t + 1 of rows g and g + 8 in acc[n][0..1] and
-// acc[n][2..3]. bfloat16 runs the products on the tensor cores (m16n8k16, float32
-// accumulators); float32 runs them as FMAs that fill the same layout (no TF32), so the
-// softmax, the masks and the epilogues are one code for both dtypes.
+// Every piece is templated on the head width D (on_head_dim: 16, 32, 64 and 128; wav2vec2-base
+// and -large take 64, the test config 16). A block has 4 warps; each warp owns 16 rows of one
+// side (queries, or keys in the dk/dv kernel) and walks 64-row tiles of the other side,
+// staged as padded tiles in shared memory in the input dtype by cp.async. Score-shaped
+// products leave each warp with its 16 x N block in the m16n8 accumulator layout of
+// mma.sync: lane (g = lane >> 2, t = lane & 3) holds columns 8 n + 2 t and 8 n + 2 t + 1 of
+// rows g and g + 8 in acc[n][0..1] and acc[n][2..3]. bfloat16 runs the products on the tensor
+// cores (m16n8k16, float32 accumulators); float32 runs them as FMAs that fill the same layout
+// (no TF32), so the softmax, the masks and the epilogues are one code for both dtypes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -23,7 +24,6 @@
 namespace w2v {
 namespace attn {
 
-constexpr int kD = 64;                  // head width (wav2vec2-base), the only one built
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 16 * kWarps;      // rows a block owns
@@ -43,11 +43,12 @@ struct View {
   long long b, h, t;
 };
 
-// A padded tile: 64 rows of the head width, each row 16 bytes longer than its data so the
+// A padded tile: 64 rows of the head width D, each row 16 bytes longer than its data so the
 // eight rows of an ldmatrix (and the FMA path's row reads) fall in distinct banks.
-template <typename T>
+template <typename T, int D>
 struct Tile {
-  static constexpr int S = kD + 16 / static_cast<int>(sizeof(T));   // row stride, elements
+  static_assert(D % 16 == 0 && D >= 16 && D <= 128, "head widths of whole k16 steps");
+  static constexpr int S = D + 16 / static_cast<int>(sizeof(T));    // row stride, elements
   static constexpr int ELEMS = kTile * S;
 };
 
@@ -82,11 +83,11 @@ __device__ __forceinline__ float quad_sum(float v) {
 // Rows r0 .. r0 + 63 of a view (row stride ld elements) into a padded tile by cp.async,
 // 16 bytes a chunk, every thread of the block; rows at or past `rows` are zero-filled and
 // never read. The wrapper guarantees 16-byte aligned rows.
-template <typename T>
+template <typename T, int D>
 __device__ __forceinline__ void stage(T* tile, const T* __restrict__ src, long long ld, int r0,
                                       int rows) {
   constexpr int E = 16 / static_cast<int>(sizeof(T));
-  constexpr int PER_ROW = kD / E;
+  constexpr int PER_ROW = D / E;
   constexpr int CHUNKS = kTile * PER_ROW;
   static_assert(CHUNKS % kThreads == 0, "whole chunks per thread");
 #pragma unroll
@@ -94,18 +95,18 @@ __device__ __forceinline__ void stage(T* tile, const T* __restrict__ src, long l
     const int i = i0 + static_cast<int>(threadIdx.x);
     const int r = i / PER_ROW, c = (i % PER_ROW) * E;
     const bool ok = r0 + r < rows;
-    cp_async16(tile + r * Tile<T>::S + c, src + (ok ? (r0 + r) * ld : 0) + c, ok);
+    cp_async16(tile + r * Tile<T, D>::S + c, src + (ok ? (r0 + r) * ld : 0) + c, ok);
   }
 }
 
-// acc[n] += A B^T over the head width: A the warp's 16 rows at As, B the 8 NT rows at Bs
+// acc[n] += A B^T over the head width D: A the warp's 16 rows at As, B the 8 NT rows at Bs
 // (both in padded tiles). B is the mma "col" operand, read by ldmatrix without transpose.
-template <int NT>
+template <int NT, int D>
 __device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const __nv_bfloat16* As,
                                         const __nv_bfloat16* Bs, int lane) {
-  constexpr int S = Tile<__nv_bfloat16>::S;
+  constexpr int S = Tile<__nv_bfloat16, D>::S;
 #pragma unroll
-  for (int kk = 0; kk < kD; kk += 16) {
+  for (int kk = 0; kk < D; kk += 16) {
     uint32_t a[4];
     ldmatrix_x4(a, As + (lane & 15) * S + kk + (lane >> 4) * 8);
 #pragma unroll
@@ -126,13 +127,13 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
-template <int NT>
+template <int NT, int D>
 __device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const float* As, const float* Bs,
                                         int lane) {
-  constexpr int S = Tile<float>::S;
+  constexpr int S = Tile<float, D>::S;
   const int g = lane >> 2, t2 = 2 * (lane & 3);
 #pragma unroll 2
-  for (int k = 0; k < kD; k += 4) {
+  for (int k = 0; k < D; k += 4) {
     const float4 a0 = *reinterpret_cast<const float4*>(As + g * S + k);
     const float4 a1 = *reinterpret_cast<const float4*>(As + (g + 8) * S + k);
 #pragma unroll
@@ -147,15 +148,15 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const float* As, co
   }
 }
 
-// acc[n] (n8 tiles of the head width) += P B: P the warp's 16 x KT block in the
+// acc[n] (the D / 8 n8 tiles of the head width) += P B: P the warp's 16 x KT block in the
 // accumulator layout, B the KT rows at Bs (a padded tile, read transposed). bfloat16: P is
 // rounded to bf16 in registers, where an m16n8 accumulator pair is already the m16n8k16 A
 // fragment, so it never goes through shared memory. `pbuf` (the warp's 16 x (KT + 4)
 // floats) is used by the float32 path only.
-template <int KT>
-__device__ __forceinline__ void mma_pv(float (&acc)[8][4], const float (&p)[KT / 8][4],
+template <int KT, int D>
+__device__ __forceinline__ void mma_pv(float (&acc)[D / 8][4], const float (&p)[KT / 8][4],
                                        const __nv_bfloat16* Bs, float* /*pbuf*/, int lane) {
-  constexpr int S = Tile<__nv_bfloat16>::S;
+  constexpr int S = Tile<__nv_bfloat16, D>::S;
 #pragma unroll
   for (int kk = 0; kk < KT / 16; ++kk) {
     const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
@@ -163,7 +164,7 @@ __device__ __forceinline__ void mma_pv(float (&acc)[8][4], const float (&p)[KT /
                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
                            pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
 #pragma unroll
-    for (int n = 0; n < 8; n += 2) {
+    for (int n = 0; n < D / 8; n += 2) {
       uint32_t b[4];
       ldmatrix_x4_trans(b, Bs + (kk * 16 + (lane & 15)) * S + n * 8 + (lane >> 4) * 8);
       mma_bf16(acc[n], a, b[0], b[1]);
@@ -172,10 +173,10 @@ __device__ __forceinline__ void mma_pv(float (&acc)[8][4], const float (&p)[KT /
   }
 }
 
-template <int KT>
-__device__ __forceinline__ void mma_pv(float (&acc)[8][4], const float (&p)[KT / 8][4],
+template <int KT, int D>
+__device__ __forceinline__ void mma_pv(float (&acc)[D / 8][4], const float (&p)[KT / 8][4],
                                        const float* Bs, float* pbuf, int lane) {
-  constexpr int S = Tile<float>::S, PS = KT + 4;
+  constexpr int S = Tile<float, D>::S, PS = KT + 4;
   const int g = lane >> 2, t2 = 2 * (lane & 3);
 #pragma unroll
   for (int n = 0; n < KT / 8; ++n) {
@@ -187,7 +188,7 @@ __device__ __forceinline__ void mma_pv(float (&acc)[8][4], const float (&p)[KT /
   for (int k = 0; k < KT; ++k) {
     const float pg = pbuf[g * PS + k], pg8 = pbuf[(g + 8) * PS + k];
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
       const float2 b = *reinterpret_cast<const float2*>(Bs + k * S + n * 8 + t2);
       acc[n][0] = fmaf(pg, b.x, acc[n][0]);
       acc[n][1] = fmaf(pg, b.y, acc[n][1]);
@@ -239,6 +240,19 @@ __device__ __forceinline__ uint32_t draw_col_runs(uint32_t seed, uint32_t site, 
 // row r.
 __device__ __forceinline__ uint32_t col_keep(uint32_t runs, int c, int h) {
   return __shfl_sync(kFull, runs, c) >> (16 * h);
+}
+
+// f(std::integral_constant<int, D>{}) for a head width D the kernels are built for; false
+// (and no call) for any other.
+template <class F>
+bool on_head_dim(int head_dim, F&& f) {
+  switch (head_dim) {
+    case 16: f(std::integral_constant<int, 16>{}); return true;
+    case 32: f(std::integral_constant<int, 32>{}); return true;
+    case 64: f(std::integral_constant<int, 64>{}); return true;
+    case 128: f(std::integral_constant<int, 128>{}); return true;
+    default: return false;
+  }
 }
 
 }  // namespace attn

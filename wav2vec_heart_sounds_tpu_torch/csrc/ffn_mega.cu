@@ -10,7 +10,7 @@
 //             y = (s - mean) * rsqrt(var + eps) * gamma + beta, float32 statistics
 //             (var = E[s^2] - E[s]^2). Writes y, s and pre (the backward's residuals).
 //   backward: the LayerNorm backward gives ds, dhid = keep_h ? ds * scale_h : 0;
-//             dh = round_T(dhid W2) (the product in the kernel, k = 768);
+//             dh = round_T(dhid W2) (the product in the kernel, k = D);
 //             dpre = (keep_a ? dh * scale_a : 0) * act'(pre); h recomputed from pre;
 //             float32 per-block partials of db1 (sum of dpre), db2 (sum of the rounded dhid),
 //             dgamma and dbeta, no atomics. dx = dpre W1 + ds, dW1 = dpre^T x and
@@ -20,6 +20,10 @@
 // masks are Philox4x32-10 over the row-major element index (philox.cuh): keep_a at the
 // activation site over [N, F], keep_h at the FFN-tail site over [N, D], bit for bit the
 // masks of the decomposed route (K5 + K2).
+// Widths: the hidden size D and the FFN width F are any multiples of 8 (16-byte rows), D at
+// most 1024 (K2's rows): wav2vec2-base's 768 / 3072, wav2vec2-large's 1024 / 4096, the test
+// config's 32 / 64. The tiles' last columns and k steps past D or F read zeros and store
+// nothing.
 //
 // What bounds it on this card (N = 96*199 = 19104 rows, D = 768, F = 3072, bf16): the
 // forward's two products are 2 * 2*N*D*F = 180 GFLOP, 182 us at 989 TFLOP/s, against 215 MB
@@ -45,7 +49,7 @@
 // moves: a fused block would hold a 64 x 768 float32 accumulator and reread both weights
 // from L2 once per 64 rows (~2.8 GB), which costs more than the round trip saves. The
 // float32 bodies keep the mma_tile.cuh tiling and compute the products with FMAs (wgmma on
-// float32 is TF32), so float32 checks stay tight.
+// float32 is TF32), so float32 checks stay tight; there too (B) writes s and (L) follows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,7 +66,6 @@
 namespace {
 
 constexpr int kThreads = w2v::kTileThreads;      // 8 warps (the float32 bodies)
-constexpr int kDownCols = 768;                  // the row width: wav2vec2-base's hidden size
 constexpr unsigned kFull = 0xffffffffu;
 
 using w2v::cp_async_commit;
@@ -73,23 +76,20 @@ using w2v::warp_tile;
 
 // ---- float32 bodies: FMAs in the mma_tile.cuh layout ---------------------------------------
 //
-// (A) and (D) as 128 x 128 tiles; (B) owns 32 whole 768-column rows, so the bias, the hidden
-// mask, +x, the rounding to s and the row LayerNorm run as its epilogue from the
-// accumulators (8 warps x 96 columns, row sums through shared memory). 2 stages, and a
-// shallower k step for (B) so two stages of its 768-row W2 tile fit.
+// (A), (B) and (D) as 128 x 128 tiles, 2 stages; the row LayerNorm of s is its own pass (L).
 template <typename T> struct Cfg;
 template <> struct Cfg<float> {
-  using Up = Tiling<float, 128, 128, 32, 64, 32, false, 2>;
-  using Down = Tiling<float, 32, kDownCols, 16, 32, 96, false, 2>;
+  using Up = Tiling<float, 128, 128, 32, 64, 32, false, 2>;   // (A) and (B): B K-major
   using Dgrad = Tiling<float, 128, 128, 32, 64, 32, true, 2>;
 };
 
-// acc = A[m0 : m0+BM, :K] * B(:K, n0 : n0+BN) through a STAGES-deep cp.async ring. Leaves
+// acc = A[m0 : m0+BM, :K] * B(:K, n0 : n0+BN) through a STAGES-deep cp.async ring, B's
+// columns bounded by N (rows past `rows`, columns past N and k past K read zeros). Leaves
 // shared memory free for the epilogue (all copies retired, block synchronised).
 template <typename T, class G>
 __device__ __forceinline__ void gemm(float (&acc)[G::MT][G::NT][4], T* smem,
                                      const T* __restrict__ A, int lda, int m0, int rows,
-                                     const T* __restrict__ B, int ldb, int n0, int K) {
+                                     const T* __restrict__ B, int ldb, int n0, int N, int K) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm0 = (warp / G::WARPS_N) * G::WM, wn0 = (warp % G::WARPS_N) * G::WN;
 #pragma unroll
@@ -98,15 +98,15 @@ __device__ __forceinline__ void gemm(float (&acc)[G::MT][G::NT][4], T* smem,
     for (int j = 0; j < G::NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  const int KT = K / G::BK;
+  const int KT = (K + G::BK - 1) / G::BK;
   auto load = [&](int stage, int kt) {
     T* As = smem + stage * G::STAGE;
     T* Bs = As + G::A_ELEMS;
-    load_tile<T, G::BM, G::BK, G::SA>(As, A, lda, m0, rows, kt * G::BK);
+    load_tile<T, G::BM, G::BK, G::SA>(As, A, lda, m0, rows, kt * G::BK, K);
     if (G::kBKN)
-      load_tile<T, G::BK, G::BN, G::SB>(Bs, B, ldb, kt * G::BK, K, n0);
+      load_tile<T, G::BK, G::BN, G::SB>(Bs, B, ldb, kt * G::BK, K, n0, N);
     else
-      load_tile<T, G::BN, G::BK, G::SB>(Bs, B, ldb, n0, INT_MAX, kt * G::BK);
+      load_tile<T, G::BN, G::BK, G::SB>(Bs, B, ldb, n0, N, kt * G::BK, K);
   };
 #pragma unroll
   for (int s = 0; s < G::STAGES - 1; ++s) {
@@ -158,7 +158,7 @@ ffn_up_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __rest
   T* smem = reinterpret_cast<T*>(smem_raw);
   float acc[G::MT][G::NT][4];
   const int m0 = blockIdx.y * G::BM, n0 = blockIdx.x * G::BN;
-  gemm<T, G>(acc, smem, x, d, m0, rows, w1, d, n0, d);
+  gemm<T, G>(acc, smem, x, d, m0, rows, w1, d, n0, f, d);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm0 = (warp / G::WARPS_N) * G::WM, wn0 = (warp % G::WARPS_N) * G::WN;
@@ -172,6 +172,7 @@ ffn_up_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __rest
 #pragma unroll
       for (int j = 0; j < G::NT; ++j) {
         const int col = n0 + wn0 + j * 8 + t2;
+        if (col >= f) continue;                   // the last tile's columns past F
         const size_t idx = static_cast<size_t>(row) * f + col;
         uint32_t bits[2];
         pair_bits(bits, seed, site, thr, idx);
@@ -185,38 +186,35 @@ ffn_up_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __rest
     }
 }
 
-// ---- (B) y2 = h W2^T + b2 -> s, y (row LayerNorm in the epilogue) ------------------------
+// ---- (B) y2 = h W2^T + b2 -> s --------------------------------------------------------------
+// (the row LayerNorm follows as its own pass, ln_rows_kernel)
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-ffn_down_ln_kernel(const T* __restrict__ h, const T* __restrict__ w2, const T* __restrict__ b2,
-                   const T* __restrict__ x, const float* __restrict__ gamma,
-                   const float* __restrict__ beta, T* __restrict__ y, T* __restrict__ s_out,
-                   int rows, int f, uint32_t seed, uint32_t site, uint32_t thr, float scale,
-                   float eps) {
-  using G = typename Cfg<T>::Down;
+__global__ void __launch_bounds__(kThreads, 2)
+ffn_down_kernel(const T* __restrict__ h, const T* __restrict__ w2, const T* __restrict__ b2,
+                const T* __restrict__ x, T* __restrict__ s_out, int rows, int d, int f,
+                uint32_t seed, uint32_t site, uint32_t thr, float scale) {
+  using G = typename Cfg<T>::Up;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int D = G::BN;
   T* smem = reinterpret_cast<T*>(smem_raw);
   float acc[G::MT][G::NT][4];
-  const int m0 = blockIdx.x * G::BM;
-  gemm<T, G>(acc, smem, h, f, m0, rows, w2, f, 0, f);
+  const int m0 = blockIdx.y * G::BM, n0 = blockIdx.x * G::BN;
+  gemm<T, G>(acc, smem, h, f, m0, rows, w2, f, n0, d, f);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wn0 = warp * G::WN;                     // one warp row: WM = BM
+  const int wm0 = (warp / G::WARPS_N) * G::WM, wn0 = (warp % G::WARPS_N) * G::WN;
   const int g = lane >> 2, t2 = 2 * (lane & 3);
-  float rsum[G::MT][2], rsq[G::MT][2];
 #pragma unroll
   for (int i = 0; i < G::MT; ++i)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int row = m0 + i * 16 + g + half * 8;
-      const bool live = row < rows;
-      float sum = 0.f, sq = 0.f;
+      const int row = m0 + wm0 + i * 16 + g + half * 8;
+      if (row >= rows) continue;
 #pragma unroll
       for (int j = 0; j < G::NT; ++j) {
-        const int col = wn0 + j * 8 + t2;
-        const size_t idx = static_cast<size_t>(live ? row : 0) * D + col;
+        const int col = n0 + wn0 + j * 8 + t2;
+        if (col >= d) continue;                   // the last tile's columns past D
+        const size_t idx = static_cast<size_t>(row) * d + col;
         uint32_t bits[2];
         pair_bits(bits, seed, site, thr, idx);
 #pragma unroll
@@ -224,56 +222,8 @@ ffn_down_ln_kernel(const T* __restrict__ h, const T* __restrict__ w2, const T* _
           const float y2 = w2v::round_to<T>(acc[i][j][2 * half + e] + w2v::to_float(b2[col + e]));
           // __fmul_rn: not contracted with the add, as the plain multiply then add.
           const float hv = bits[e] >= thr ? __fmul_rn(y2, scale) : 0.f;
-          const float sv = live ? w2v::round_to<T>(w2v::to_float(x[idx + e]) + hv) : 0.f;
-          if (live) w2v::store(s_out + idx + e, sv);
-          acc[i][j][2 * half + e] = sv;
-          sum += sv;
-          sq += sv * sv;
+          w2v::store(s_out + idx + e, w2v::round_to<T>(w2v::to_float(x[idx + e]) + hv));
         }
-      }
-      sum += __shfl_xor_sync(kFull, sum, 1);
-      sum += __shfl_xor_sync(kFull, sum, 2);
-      sq += __shfl_xor_sync(kFull, sq, 1);
-      sq += __shfl_xor_sync(kFull, sq, 2);
-      rsum[i][half] = sum;
-      rsq[i][half] = sq;
-    }
-  // Row sums across the 8 warps (each holds 96 of the 768 columns), in a fixed order.
-  float* red = reinterpret_cast<float*>(smem_raw);   // [8 warps][BM rows][2]
-  if ((lane & 3) == 0) {
-#pragma unroll
-    for (int i = 0; i < G::MT; ++i)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = i * 16 + g + half * 8;
-        red[(warp * G::BM + r) * 2] = rsum[i][half];
-        red[(warp * G::BM + r) * 2 + 1] = rsq[i][half];
-      }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < G::MT; ++i)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = i * 16 + g + half * 8;
-      const int row = m0 + r;
-      float sum = 0.f, sq = 0.f;
-#pragma unroll
-      for (int w = 0; w < kThreads / 32; ++w) {
-        sum += red[(w * G::BM + r) * 2];
-        sq += red[(w * G::BM + r) * 2 + 1];
-      }
-      if (row >= rows) continue;
-      const float mean = sum / D;
-      const float var = fmaxf(sq / D - mean * mean, 0.f);
-      const float rstd = rsqrtf(var + eps);
-#pragma unroll
-      for (int j = 0; j < G::NT; ++j) {
-        const int col = wn0 + j * 8 + t2;
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          w2v::store(y + static_cast<size_t>(row) * D + col + e,
-                     (acc[i][j][2 * half + e] - mean) * rstd * gamma[col + e] + beta[col + e]);
       }
     }
 }
@@ -290,7 +240,7 @@ ffn_dgrad_kernel(const T* __restrict__ dhid, const T* __restrict__ w2, const T* 
   T* smem = reinterpret_cast<T*>(smem_raw);
   float acc[G::MT][G::NT][4];
   const int m0 = blockIdx.y * G::BM, n0 = blockIdx.x * G::BN;
-  gemm<T, G>(acc, smem, dhid, d, m0, rows, w2, f, n0, d);
+  gemm<T, G>(acc, smem, dhid, d, m0, rows, w2, f, n0, f, d);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = warp / G::WARPS_N;
@@ -308,6 +258,7 @@ ffn_dgrad_kernel(const T* __restrict__ dhid, const T* __restrict__ w2, const T* 
 #pragma unroll
       for (int j = 0; j < G::NT; ++j) {
         const int col = n0 + wn0 + j * 8 + t2;
+        if (col >= f) continue;                   // the last tile's columns past F
         const size_t idx = static_cast<size_t>(row) * f + col;
         uint32_t bits[2];
         pair_bits(bits, seed, site, thr, idx);
@@ -342,7 +293,7 @@ ffn_dgrad_kernel(const T* __restrict__ dhid, const T* __restrict__ w2, const T* 
       for (int e = 0; e < 2; ++e) red[wm * G::BN + wn0 + j * 8 + t2 + e] = colsum[j][e];
   }
   __syncthreads();
-  for (int c = threadIdx.x; c < G::BN; c += kThreads) {
+  for (int c = threadIdx.x; c < G::BN && n0 + c < f; c += kThreads) {
     float v = 0.f;
 #pragma unroll
     for (int w = 0; w < G::BM / G::WM; ++w) v += red[w * G::BN + c];
@@ -359,6 +310,9 @@ using KMajor = w2v::WgmmaTiling<false>;
 using NMajor = w2v::WgmmaTiling<true>;
 using Acc = float[w2v::kGemmAcc];
 constexpr int kLd = w2v::kStageLd;
+// The hidden size the bfloat16 bodies are also built for as a compile-time constant
+// (wav2vec2-base's), so that their tile and index arithmetic folds; kD = 0 reads it from d.
+constexpr int kBaseHidden = 768;
 
 // Eight consecutive bf16 travel as one 16-byte word; pair i is its 32-bit word i.
 __device__ __forceinline__ float2 pair_of(const uint4& v, int i) {
@@ -370,17 +324,17 @@ __device__ __forceinline__ uint32_t pack_pair(float a, float b) {
   return *reinterpret_cast<const uint32_t*>(&t);
 }
 
-// The calling warpgroup's sums (+ bias) rounded to bf16 into its group's staging tile
-// [128][kLd].
+// The calling warpgroup's sums (+ bias, read below column `cols`) rounded to bf16 into its
+// group's staging tile [128][kLd].
 __device__ __forceinline__ void stage_acc(bf16* tile, const Acc& acc,
-                                          const bf16* __restrict__ bias, int n0) {
+                                          const bf16* __restrict__ bias, int n0, int cols) {
   const int lane = threadIdx.x & 31;
   const int r = (w2v::group_thread() / 128) * 64 + ((threadIdx.x / 32) & 3) * 16 + (lane >> 2);
 #pragma unroll
   for (int j = 0; j < w2v::kGemmBN / 8; ++j) {
     const int c = 8 * j + 2 * (lane & 3);
     float2 b = make_float2(0.f, 0.f);
-    if (bias != nullptr)
+    if (bias != nullptr && n0 + c < cols)
       b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + n0 + c));
     *reinterpret_cast<__nv_bfloat162*>(tile + r * kLd + c) =
         __floats2bfloat162_rn(acc[4 * j] + b.x, acc[4 * j + 1] + b.y);
@@ -397,7 +351,8 @@ __device__ __forceinline__ uint32_t keep8(uint32_t seed, uint32_t site, size_t i
 
 // One 16-byte word of a [rows, ld] bf16 matrix at the thread's run j of tile (m0, n0), or
 // zeros past the rows: loaded one run ahead, so its latency hides behind a run's arithmetic.
-// A group thread takes kGemmRuns runs of its staged tile, one column run over 8 rows.
+// A group thread takes kGemmRuns runs of its staged tile, one column run over 8 rows; the
+// caller keeps its column below ld.
 __device__ __forceinline__ uint4 run_word(const bf16* __restrict__ src, int ld, int m0, int n0,
                                           int rows, int j) {
   const int row = m0 + w2v::run_row(j);
@@ -407,19 +362,22 @@ __device__ __forceinline__ uint4 run_word(const bf16* __restrict__ src, int ld, 
 }
 
 // (A) pre = x W1^T + b1 -> pre, h = keep_a ? gelu(pre) * scale_a : 0
+template <int kD>
 __global__ void __launch_bounds__(w2v::kGemmThreads, 1)
 ffn_up_wgmma_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mw1,
                     const bf16* __restrict__ b1, bf16* __restrict__ pre, bf16* __restrict__ h,
-                    int rows, int f, uint32_t seed, uint32_t site, uint32_t thr, float scale) {
+                    int rows, int d_arg, int f, uint32_t seed, uint32_t site, uint32_t thr,
+                    float scale) {
+  const int d = kD ? kD : d_arg;
   extern __shared__ unsigned char smem_raw[];
   const w2v::GemmSmem<KMajor> sm(smem_raw);
-  w2v::gemm_tiles(sm, &mx, &mw1, rows, f, kDownCols, [&](const Acc& acc, int g, int m0, int n0,
-                                                         int) {
+  w2v::gemm_tiles(sm, &mx, &mw1, rows, f, d, [&](const Acc& acc, int g, int m0, int n0, int) {
     bf16* tile = sm.staging(g);
     w2v::group_sync(g);                         // the group's previous runs are read
-    stage_acc(tile, acc, b1, n0);
+    stage_acc(tile, acc, b1, n0, f);
     w2v::group_sync(g);
     const int c = w2v::run_col();
+    if (n0 + c >= f) return;                    // no runs past F
 #pragma unroll 1
     for (int j = 0; j < w2v::kGemmRuns; ++j) {
       const int r = w2v::run_row(j), row = m0 + r;
@@ -442,28 +400,31 @@ ffn_up_wgmma_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constan
 
 // (B) y2 = h W2^T + b2 -> s = round(x + (keep_h ? y2 * scale_h : 0)); the row LayerNorm
 // follows as its own pass.
+template <int kD>
 __global__ void __launch_bounds__(w2v::kGemmThreads, 1)
 ffn_down_wgmma_kernel(const __grid_constant__ CUtensorMap mh,
                       const __grid_constant__ CUtensorMap mw2, const bf16* __restrict__ b2,
-                      const bf16* __restrict__ x, bf16* __restrict__ s, int rows, int f,
-                      uint32_t seed, uint32_t site, uint32_t thr, float scale) {
+                      const bf16* __restrict__ x, bf16* __restrict__ s, int rows, int d_arg,
+                      int f, uint32_t seed, uint32_t site, uint32_t thr, float scale) {
+  const int d = kD ? kD : d_arg;
   extern __shared__ unsigned char smem_raw[];
   const w2v::GemmSmem<KMajor> sm(smem_raw);
-  w2v::gemm_tiles(sm, &mh, &mw2, rows, kDownCols, f, [&](const Acc& acc, int g, int m0, int n0,
-                                                         int) {
+  w2v::gemm_tiles(sm, &mh, &mw2, rows, d, f, [&](const Acc& acc, int g, int m0, int n0, int) {
     bf16* tile = sm.staging(g);
     w2v::group_sync(g);
-    stage_acc(tile, acc, b2, n0);
-    uint4 next = run_word(x, kDownCols, m0, n0, rows, 0);
-    w2v::group_sync(g);
+    stage_acc(tile, acc, b2, n0, d);
     const int c = w2v::run_col();
+    const bool live = n0 + c < d;               // no runs past D
+    uint4 next = live ? run_word(x, d, m0, n0, rows, 0) : make_uint4(0u, 0u, 0u, 0u);
+    w2v::group_sync(g);
+    if (!live) return;
 #pragma unroll 1
     for (int j = 0; j < w2v::kGemmRuns; ++j) {
       const uint4 xv = next;
-      if (j + 1 < w2v::kGemmRuns) next = run_word(x, kDownCols, m0, n0, rows, j + 1);
+      if (j + 1 < w2v::kGemmRuns) next = run_word(x, d, m0, n0, rows, j + 1);
       const int r = w2v::run_row(j), row = m0 + r;
       if (row >= rows) break;
-      const size_t idx = static_cast<size_t>(row) * kDownCols + n0 + c;
+      const size_t idx = static_cast<size_t>(row) * d + n0 + c;
       const uint4 y2 = *reinterpret_cast<const uint4*>(tile + r * kLd + c);
       const uint32_t keep = keep8(seed, site, idx, thr);
       uint32_t out[4];
@@ -483,56 +444,62 @@ ffn_down_wgmma_kernel(const __grid_constant__ CUtensorMap mh,
 // (D) dh = round(dhid W2) -> dpre = (keep_a ? dh * scale_a : 0) * gelu'(pre), h recomputed,
 // and the tile's float32 column sums of dpre (the db1 partial of its row tile), summed in a
 // fixed order: each thread's 8 rows, then the group's 16 row groups through its scratch.
+template <int kD>
 __global__ void __launch_bounds__(w2v::kGemmThreads, 1)
 ffn_dgrad_wgmma_kernel(const __grid_constant__ CUtensorMap mdhid,
                        const __grid_constant__ CUtensorMap mw2, const bf16* __restrict__ pre,
                        bf16* __restrict__ dpre, bf16* __restrict__ h,
-                       float* __restrict__ db1_part, int rows, int f, uint32_t seed,
+                       float* __restrict__ db1_part, int rows, int d_arg, int f, uint32_t seed,
                        uint32_t site, uint32_t thr, float scale) {
+  const int d = kD ? kD : d_arg;
   extern __shared__ unsigned char smem_raw[];
   const w2v::GemmSmem<NMajor> sm(smem_raw);
-  w2v::gemm_tiles(sm, &mdhid, &mw2, rows, f, kDownCols, [&](const Acc& acc, int g, int m0,
-                                                            int n0, int row_tile) {
+  w2v::gemm_tiles(sm, &mdhid, &mw2, rows, f, d, [&](const Acc& acc, int g, int m0, int n0,
+                                                    int row_tile) {
     bf16* tile = sm.staging(g);
     w2v::group_sync(g);
-    stage_acc(tile, acc, nullptr, n0);
-    uint4 next = run_word(pre, f, m0, n0, rows, 0);
-    w2v::group_sync(g);
+    stage_acc(tile, acc, nullptr, n0, f);
     const int c = w2v::run_col();
+    const bool live = n0 + c < f;               // no runs past F
+    uint4 next = live ? run_word(pre, f, m0, n0, rows, 0) : make_uint4(0u, 0u, 0u, 0u);
+    w2v::group_sync(g);
     float colsum[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) colsum[e] = 0.f;
+    if (live) {
 #pragma unroll 1
-    for (int j = 0; j < w2v::kGemmRuns; ++j) {
-      const uint4 pv = next;
-      if (j + 1 < w2v::kGemmRuns) next = run_word(pre, f, m0, n0, rows, j + 1);
-      const int r = w2v::run_row(j), row = m0 + r;
-      if (row >= rows) break;
-      const size_t idx = static_cast<size_t>(row) * f + n0 + c;
-      const uint4 dh = *reinterpret_cast<const uint4*>(tile + r * kLd + c);
-      const uint32_t keep = keep8(seed, site, idx, thr);
-      uint32_t dp_out[4], h_out[4];
+      for (int j = 0; j < w2v::kGemmRuns; ++j) {
+        const uint4 pv = next;
+        if (j + 1 < w2v::kGemmRuns) next = run_word(pre, f, m0, n0, rows, j + 1);
+        const int r = w2v::run_row(j), row = m0 + r;
+        if (row >= rows) break;
+        const size_t idx = static_cast<size_t>(row) * f + n0 + c;
+        const uint4 dh = *reinterpret_cast<const uint4*>(tile + r * kLd + c);
+        const uint32_t keep = keep8(seed, site, idx, thr);
+        uint32_t dp_out[4], h_out[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 dv = pair_of(dh, i), p = pair_of(pv, i);
-        const bool k0 = (keep >> (2 * i)) & 1, k1 = (keep >> (2 * i + 1)) & 1;
-        const float d0 = (k0 ? dv.x * scale : 0.f) * act_grad<true>(p.x);
-        const float d1 = (k1 ? dv.y * scale : 0.f) * act_grad<true>(p.y);
-        colsum[2 * i] += d0;
-        colsum[2 * i + 1] += d1;
-        dp_out[i] = pack_pair(d0, d1);
-        h_out[i] = pack_pair(k0 ? act<true>(p.x) * scale : 0.f, k1 ? act<true>(p.y) * scale : 0.f);
+        for (int i = 0; i < 4; ++i) {
+          const float2 dv = pair_of(dh, i), p = pair_of(pv, i);
+          const bool k0 = (keep >> (2 * i)) & 1, k1 = (keep >> (2 * i + 1)) & 1;
+          const float d0 = (k0 ? dv.x * scale : 0.f) * act_grad<true>(p.x);
+          const float d1 = (k1 ? dv.y * scale : 0.f) * act_grad<true>(p.y);
+          colsum[2 * i] += d0;
+          colsum[2 * i + 1] += d1;
+          dp_out[i] = pack_pair(d0, d1);
+          h_out[i] = pack_pair(k0 ? act<true>(p.x) * scale : 0.f,
+                               k1 ? act<true>(p.y) * scale : 0.f);
+        }
+        *reinterpret_cast<uint4*>(dpre + idx) =
+            make_uint4(dp_out[0], dp_out[1], dp_out[2], dp_out[3]);
+        *reinterpret_cast<uint4*>(h + idx) = make_uint4(h_out[0], h_out[1], h_out[2], h_out[3]);
       }
-      *reinterpret_cast<uint4*>(dpre + idx) =
-          make_uint4(dp_out[0], dp_out[1], dp_out[2], dp_out[3]);
-      *reinterpret_cast<uint4*>(h + idx) = make_uint4(h_out[0], h_out[1], h_out[2], h_out[3]);
     }
     float* red = sm.scratch(g);                  // [16 row groups][128 columns]
     const int gt = w2v::group_thread();
 #pragma unroll
     for (int e = 0; e < 8; ++e) red[(gt / 16) * w2v::kGemmBN + c + e] = colsum[e];
     w2v::group_sync(g);
-    if (gt < w2v::kGemmBN) {
+    if (gt < w2v::kGemmBN && n0 + gt < f) {
       float v = 0.f;
 #pragma unroll
       for (int q = 0; q < w2v::kGemmGroup / 16; ++q) v += red[q * w2v::kGemmBN + gt];
@@ -546,6 +513,18 @@ cudaError_t set_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// (L): the row LayerNorm of s into y.
+template <typename T>
+int ln_rows(const T* s, const float* gamma, const float* beta, T* y, int rows, int d, float eps,
+            cudaStream_t st) {
+  const int blocks = (rows + w2v::kLnWarps - 1) / w2v::kLnWarps;
+  auto kernel = d == w2v::kResidFullCols ? w2v::ln_rows_kernel<T, true>
+                                         : w2v::ln_rows_kernel<T, false>;
+  kernel<<<blocks < 65535 ? blocks : 65535, w2v::kLnThreads, 0, st>>>(s, gamma, beta, y, rows,
+                                                                      d, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int fwd(const T* x, const T* w1, const T* b1, const T* w2, const T* b2, const float* gamma,
         const float* beta, T* pre, T* h, T* s, T* y, int rows, int d, int f, uint32_t seed,
@@ -553,19 +532,22 @@ int fwd(const T* x, const T* w1, const T* b1, const T* w2, const T* b2, const fl
         float scale_act, float scale_hid, float eps, cudaStream_t st) {
   constexpr bool kTanh = sizeof(T) == 2;
   using Up = typename Cfg<T>::Up;
-  using Down = typename Cfg<T>::Down;
   auto up = ffn_up_kernel<T, kTanh>;
-  auto down = ffn_down_ln_kernel<T>;
   cudaError_t err = set_smem(up, Up::SMEM);
-  if (err == cudaSuccess) err = set_smem(down, Down::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  up<<<dim3(f / Up::BN, (rows + Up::BM - 1) / Up::BM), kThreads, Up::SMEM, st>>>(
+  const int row_tiles = (rows + Up::BM - 1) / Up::BM;
+  up<<<dim3((f + Up::BN - 1) / Up::BN, row_tiles), kThreads, Up::SMEM, st>>>(
       x, w1, b1, pre, h, rows, d, f, seed, site_act, thr_act, scale_act);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  down<<<(rows + Down::BM - 1) / Down::BM, kThreads, Down::SMEM, st>>>(
-      h, w2, b2, x, gamma, beta, y, s, rows, f, seed, site_hid, thr_hid, scale_hid, eps);
-  return static_cast<int>(cudaGetLastError());
+  auto down = ffn_down_kernel<T>;
+  err = set_smem(down, Up::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  down<<<dim3((d + Up::BN - 1) / Up::BN, row_tiles), kThreads, Up::SMEM, st>>>(
+      h, w2, b2, x, s, rows, d, f, seed, site_hid, thr_hid, scale_hid);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return ln_rows(s, gamma, beta, y, rows, d, eps, st);
 }
 
 template <typename T>
@@ -583,7 +565,7 @@ int bwd(const T* g, const T* s, const T* pre, const T* w2, const float* gamma, T
                                        dbeta_part, db2_part, rows, d, eps, seed, site_hid,
                                        thr_hid, scale_hid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dgrad<<<dim3(f / Dg::BN, (rows + Dg::BM - 1) / Dg::BM), kThreads, Dg::SMEM, st>>>(
+  dgrad<<<dim3((f + Dg::BN - 1) / Dg::BN, (rows + Dg::BM - 1) / Dg::BM), kThreads, Dg::SMEM, st>>>(
       dhid, w2, pre, dpre, h, db1_part, rows, d, f, seed, site_act, thr_act, scale_act);
   return static_cast<int>(cudaGetLastError());
 }
@@ -599,21 +581,21 @@ int fwd_bf16(const bf16* x, const bf16* w1, const bf16* b1, const bf16* w2, cons
       !w2v::tensor_map(&mh, h, rows, f, w2v::kGemmBM) ||
       !w2v::tensor_map(&mw2, w2, d, f, w2v::kGemmBN))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = set_smem(ffn_up_wgmma_kernel, KMajor::SMEM);
-  if (err == cudaSuccess) err = set_smem(ffn_down_wgmma_kernel, KMajor::SMEM);
+  const bool base = d == kBaseHidden;
+  auto up = base ? ffn_up_wgmma_kernel<kBaseHidden> : ffn_up_wgmma_kernel<0>;
+  auto down = base ? ffn_down_wgmma_kernel<kBaseHidden> : ffn_down_wgmma_kernel<0>;
+  cudaError_t err = set_smem(up, KMajor::SMEM);
+  if (err == cudaSuccess) err = set_smem(down, KMajor::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ffn_up_wgmma_kernel<<<w2v::gemm_grid(rows, f), w2v::kGemmThreads, KMajor::SMEM, st>>>(
-      mx, mw1, b1, pre, h, rows, f, seed, site_act, thr_act, scale_act);
+  up<<<w2v::gemm_grid(rows, f), w2v::kGemmThreads, KMajor::SMEM, st>>>(
+      mx, mw1, b1, pre, h, rows, d, f, seed, site_act, thr_act, scale_act);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  ffn_down_wgmma_kernel<<<w2v::gemm_grid(rows, d), w2v::kGemmThreads, KMajor::SMEM, st>>>(
-      mh, mw2, b2, x, s, rows, f, seed, site_hid, thr_hid, scale_hid);
+  down<<<w2v::gemm_grid(rows, d), w2v::kGemmThreads, KMajor::SMEM, st>>>(
+      mh, mw2, b2, x, s, rows, d, f, seed, site_hid, thr_hid, scale_hid);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int ln_blocks = (rows + w2v::kLnWarps - 1) / w2v::kLnWarps;
-  w2v::ln_rows_kernel<<<ln_blocks < 65535 ? ln_blocks : 65535, w2v::kLnThreads, 0, st>>>(
-      s, gamma, beta, y, rows, d, eps);
-  return static_cast<int>(cudaGetLastError());
+  return ln_rows(s, gamma, beta, y, rows, d, eps, st);
 }
 
 int bwd_bf16(const bf16* g, const bf16* s, const bf16* pre, const bf16* w2, const float* gamma,
@@ -625,26 +607,28 @@ int bwd_bf16(const bf16* g, const bf16* s, const bf16* pre, const bf16* w2, cons
   if (!w2v::tensor_map(&mdhid, dhid, rows, d, w2v::kGemmBM) ||
       !w2v::tensor_map(&mw2, w2, d, f, w2v::kGemmBK))     // boxes of 64 k rows x 64 columns
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = set_smem(ffn_dgrad_wgmma_kernel, NMajor::SMEM);
+  auto dgrad =
+      d == kBaseHidden ? ffn_dgrad_wgmma_kernel<kBaseHidden> : ffn_dgrad_wgmma_kernel<0>;
+  cudaError_t err = set_smem(dgrad, NMajor::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = w2v::ResidBwd<bf16, true>::launch(d, row_blocks, st, g, s, gamma, dhid, ds,
                                           dgamma_part, dbeta_part, db2_part, rows, d, eps, seed,
                                           site_hid, thr_hid, scale_hid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ffn_dgrad_wgmma_kernel<<<w2v::gemm_grid(rows, f), w2v::kGemmThreads, NMajor::SMEM, st>>>(
-      mdhid, mw2, pre, dpre, h, db1_part, rows, f, seed, site_act, thr_act, scale_act);
+  dgrad<<<w2v::gemm_grid(rows, f), w2v::kGemmThreads, NMajor::SMEM, st>>>(
+      mdhid, mw2, pre, dpre, h, db1_part, rows, d, f, seed, site_act, thr_act, scale_act);
   return static_cast<int>(cudaGetLastError());
 }
 
 bool bad_shape(int rows, int d, int f) {
-  return rows <= 0 || d != kDownCols || f <= 0 || f % 128;
+  return rows <= 0 || d <= 0 || d % 8 || d > w2v::kResidMaxCols || f <= 0 || f % 8;
 }
 
 }  // namespace
 
 // C entry points, bound with ctypes. dtype: 0 = float32, 1 = bfloat16; x, the weights, the
 // biases and every [rows, *] tensor are in it; gamma, beta and the partials are float32.
-// d must be 768 and f a multiple of 128. Each returns the cudaError_t of its launches.
+// d and f are multiples of 8, d at most 1024. Each returns the cudaError_t of its launches.
 
 // Forward: (A) then (B); in bfloat16 (B) writes s and the row LayerNorm pass y. h is
 // [rows, f] scratch between (A) and (B). Every tensor is 16-byte aligned (TMA and the
@@ -681,11 +665,11 @@ extern "C" int ffn_mega_fwd(const void* x, const void* w1, const void* b1, const
 
 // (C)'s persistent grid for `sms` SMs (resid.cuh's K2 backward row pass with the db2 sums),
 // which the caller passes to ffn_mega_bwd as `row_blocks` (negative on error).
-extern "C" int ffn_mega_row_blocks(int rows, int sms, int dtype) {
-  if (rows <= 0 || sms <= 0) return -1;
+extern "C" int ffn_mega_row_blocks(int rows, int d, int sms, int dtype) {
+  if (bad_shape(rows, d, 8) || sms <= 0) return -1;
   switch (dtype) {
-    case 0: return w2v::ResidBwd<float, true>::grid(rows, kDownCols, sms);
-    case 1: return w2v::ResidBwd<bf16, true>::grid(rows, kDownCols, sms);
+    case 0: return w2v::ResidBwd<float, true>::grid(rows, d, sms);
+    case 1: return w2v::ResidBwd<bf16, true>::grid(rows, d, sms);
     default: return -1;
   }
 }

@@ -1,4 +1,5 @@
-// GELU forms of the training kernels (float32 math), and the dtype helpers they share.
+// GELU forms of the training kernels (float32 math), and the dtype helpers they share
+// (Run16: 16 bytes of a dtype as floats, the unit of the kernels' 16-byte accesses).
 //
 // The same formulas as wav2vec_heart_sounds_tpu_torch/ops/gelu.py, ported from
 // wav2vec_heart_sounds_tpu/ops/pallas/conv.py:47-104: the Abramowitz-Stegun 7.1.26
@@ -16,6 +17,46 @@ __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+// 16 bytes of T: N values, unpacked to float and packed back with round-to-nearest.
+template <typename T>
+struct Run16;
+
+template <>
+struct Run16<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void unpack(const uint4& r, float (&v)[4]) {
+    v[0] = __uint_as_float(r.x);
+    v[1] = __uint_as_float(r.y);
+    v[2] = __uint_as_float(r.z);
+    v[3] = __uint_as_float(r.w);
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&v)[4]) {
+    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
+                      __float_as_uint(v[3]));
+  }
+};
+
+template <>
+struct Run16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  static __device__ __forceinline__ void unpack(const uint4& r, float (&v)[8]) {
+    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = __bfloat1622float2(p[j]);
+      v[2 * j] = f.x;
+      v[2 * j + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ uint4 pack(const float (&v)[8]) {
+    uint4 r;
+    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&r);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) p[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+    return r;
+  }
+};
 
 // v rounded to T and back (the compute-dtype rounding point of a float32 value).
 template <typename T>

@@ -8,6 +8,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 namespace w2v {
@@ -77,10 +78,11 @@ struct Tiling {
 };
 
 // R x C elements from src (leading dimension ld) at (r0, c0) into smem (row stride S);
-// rows at or past `rows` are zero-filled.
+// rows at or past `rows` and columns at or past `cols` (a multiple of 16 bytes) are
+// zero-filled.
 template <typename T, int R, int C, int S>
 __device__ __forceinline__ void load_tile(T* smem, const T* __restrict__ src, int ld, int r0,
-                                          int rows, int c0) {
+                                          int rows, int c0, int cols = INT_MAX) {
   constexpr int E = 16 / static_cast<int>(sizeof(T));
   constexpr int PER_ROW = C / E;
   constexpr int CHUNKS = R * PER_ROW;
@@ -89,8 +91,8 @@ __device__ __forceinline__ void load_tile(T* smem, const T* __restrict__ src, in
     const int i = i0 + static_cast<int>(threadIdx.x);
     if (CHUNKS % kTileThreads == 0 || i < CHUNKS) {
       const int r = i / PER_ROW, c = (i % PER_ROW) * E;
-      const bool ok = r0 + r < rows;
-      cp_async16(smem + r * S + c, src + static_cast<size_t>(ok ? r0 + r : 0) * ld + c0 + c, ok);
+      const bool ok = r0 + r < rows && c0 + c < cols;
+      cp_async16(smem + r * S + c, ok ? src + static_cast<size_t>(r0 + r) * ld + c0 + c : src, ok);
     }
   }
 }

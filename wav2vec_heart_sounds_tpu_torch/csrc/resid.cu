@@ -29,17 +29,19 @@ void on_dtype(int dtype, F&& f) {
 }  // namespace
 
 // C entry points, bound with ctypes. dtype: 0 = float32, 1 = bfloat16; gamma, beta and the
-// partials are float32. `blocks` is the grid (the backward's partials have `blocks` rows),
-// from resid_blocks for the same rows, cols and dtype. Every [rows, cols] pointer is
+// partials are float32. cols is a whole number of 16-byte runs (a multiple of 8 in bfloat16,
+// of 4 in float32), at most 1024. `blocks` is the grid (the backward's partials have `blocks`
+// rows), from resid_blocks for the same rows, cols and dtype. Every [rows, cols] pointer is
 // 16-byte aligned (the bulk copies and 16-byte accesses). Each returns the cudaError_t of its
 // launch (0 = launched).
 
 // The persistent grid for `sms` SMs (negative on error).
 extern "C" int resid_blocks(int rows, int cols, int sms, int dtype, int backward) {
-  if (w2v::resid_bad_shape(rows, cols, 1) || sms <= 0) return -1;
+  if (sms <= 0) return -1;
   int blocks = -1;
   on_dtype(dtype, [&](auto t) {
     using T = decltype(t);
+    if (w2v::resid_bad_shape<T>(rows, cols, 1)) return;
     blocks = backward ? w2v::ResidBwd<T, false>::grid(rows, cols, sms)
                       : w2v::ResidFwd<T>::grid(rows, cols, sms);
   });
@@ -50,10 +52,10 @@ extern "C" int resid_fwd(const void* h, const void* x, const void* gamma, const 
                          void* out, void* s, int rows, int cols, float eps, uint32_t seed,
                          uint32_t site, uint32_t thr, float scale, int blocks, int dtype,
                          void* stream) {
-  if (w2v::resid_bad_shape(rows, cols, blocks)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaErrorInvalidValue;
   on_dtype(dtype, [&](auto t) {
     using T = decltype(t);
+    if (w2v::resid_bad_shape<T>(rows, cols, blocks)) return;
     err = w2v::ResidFwd<T>::launch(
         cols, blocks, static_cast<cudaStream_t>(stream), static_cast<const T*>(h),
         static_cast<const T*>(x), static_cast<const float*>(gamma),
@@ -67,10 +69,10 @@ extern "C" int resid_bwd(const void* g, const void* s, const void* gamma, void* 
                          void* dgamma_part, void* dbeta_part, int rows, int cols, float eps,
                          uint32_t seed, uint32_t site, uint32_t thr, float scale, int blocks,
                          int dtype, void* stream) {
-  if (w2v::resid_bad_shape(rows, cols, blocks)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaErrorInvalidValue;
   on_dtype(dtype, [&](auto t) {
     using T = decltype(t);
+    if (w2v::resid_bad_shape<T>(rows, cols, blocks)) return;
     err = w2v::ResidBwd<T, false>::launch(
         cols, blocks, static_cast<cudaStream_t>(stream), static_cast<const T*>(g),
         static_cast<const T*>(s), static_cast<const float*>(gamma), static_cast<T*>(dh),

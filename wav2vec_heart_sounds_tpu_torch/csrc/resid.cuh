@@ -12,7 +12,9 @@
 //             over its rows of g * shat (dgamma), g (dbeta) and, with kDhSums, the rounded dh
 //             (the bias gradient of the product that made h). Partials, not atomics, so every
 //             run and the comparison with the plain version reproduce.
-// Rows are every multiple of 128 up to 768 columns (wav2vec2-base's hidden size).
+// Rows are any width up to 1024 columns (wav2vec2-large's hidden size) that is a whole
+// number of 16-byte runs: a multiple of 8 columns in bfloat16, of 4 in float32. 768 columns
+// (wav2vec2-base's) take an unguarded instantiation; every other width the guarded one.
 //
 // What bounds it: bytes. The forward reads h and x and writes out and s, the backward reads g
 // and s and writes dx and dh: 4 x 29 MB a pass at [96*199, 768] bf16, ~35 us at 3.35 TB/s.
@@ -73,7 +75,8 @@
 
 namespace w2v {
 
-constexpr int kResidMaxCols = 768;
+constexpr int kResidFullCols = 768;                        // the unguarded instantiation's rows
+constexpr int kResidMaxCols = 1024;                        // the widest row (guarded)
 constexpr int kResidWarps = 8;                             // a row each per tile
 constexpr int kResidThreads = kResidWarps * 32;
 constexpr int kResidBarHeader = 128;                       // dynamic smem: the barriers first
@@ -85,49 +88,19 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Rows of 16-byte runs (Run16<T>, gelu.cuh), up to kResidMaxCols columns.
+template <typename T>
 inline bool resid_bad_shape(int rows, int cols, int blocks) {
-  return rows <= 0 || cols <= 0 || cols % 128 || cols > kResidMaxCols || blocks <= 0;
+  return rows <= 0 || cols <= 0 || cols % (16 / static_cast<int>(sizeof(T))) ||
+         cols > kResidMaxCols || blocks <= 0;
 }
 
-// 16 bytes of T: N values, unpacked to float and packed back with round-to-nearest.
-template <typename T>
-struct Run16;
-
-template <>
-struct Run16<float> {
-  static constexpr int N = 4;
-  static __device__ __forceinline__ void unpack(const uint4& r, float (&v)[4]) {
-    v[0] = __uint_as_float(r.x);
-    v[1] = __uint_as_float(r.y);
-    v[2] = __uint_as_float(r.z);
-    v[3] = __uint_as_float(r.w);
-  }
-  static __device__ __forceinline__ uint4 pack(const float (&v)[4]) {
-    return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]), __float_as_uint(v[2]),
-                      __float_as_uint(v[3]));
-  }
-};
-
-template <>
-struct Run16<__nv_bfloat16> {
-  static constexpr int N = 8;
-  static __device__ __forceinline__ void unpack(const uint4& r, float (&v)[8]) {
-    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(p[j]);
-      v[2 * j] = f.x;
-      v[2 * j + 1] = f.y;
-    }
-  }
-  static __device__ __forceinline__ uint4 pack(const float (&v)[8]) {
-    uint4 r;
-    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&r);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) p[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
-    return r;
-  }
-};
+// Passes of 32 runs of N columns that a lane makes over a row: kResidFullCols in the
+// unguarded instantiation, up to kResidMaxCols in the guarded one.
+template <int N, bool kFull>
+__host__ __device__ constexpr int resid_passes() {
+  return (kFull ? kResidFullCols : kResidMaxCols) / (32 * N);
+}
 
 // The keep bits of the run of N elements at row-major index `index` (a multiple of N): one
 // Philox call per four elements, none at rate 0.
@@ -271,7 +244,7 @@ __device__ __forceinline__ void resid_setup(const ResidSmem<T>& sm, const float*
   __syncthreads();
 }
 
-// Forward. kFull: rows of kResidMaxCols columns (every lane has a run in every pass, no guard).
+// Forward. kFull: rows of kResidFullCols columns (every lane has a run in every pass, no guard).
 // With bulk stores, s and out are staged in place of h and x.
 template <typename T, bool kFull>
 __global__ void __launch_bounds__(kResidThreads, W2V_RESID_MIN_BLOCKS)
@@ -282,7 +255,7 @@ resid_fwd_kernel(const T* __restrict__ h, const T* __restrict__ x,
   constexpr bool kRing = kResidFwdRing, kBulkStore = kResidBulkStore && kRing;
   using V = Run16<T>;
   constexpr int N = V::N;
-  constexpr int P = kResidMaxCols / (32 * N);          // passes of 32 runs
+  constexpr int P = resid_passes<N, kFull>();
   extern __shared__ __align__(16) unsigned char resid_smem[];
   const ResidSmem<T> sm{resid_smem, cols};
   resid_setup<T, kRing>(sm, gamma, beta, cols);
@@ -379,7 +352,7 @@ resid_bwd_kernel(const T* __restrict__ g, const T* __restrict__ s,
   constexpr bool kRing = kResidBwdRing, kBulkStore = kResidBulkStore && kRing;
   using V = Run16<T>;
   constexpr int N = V::N;
-  constexpr int P = kResidMaxCols / (32 * N);
+  constexpr int P = resid_passes<N, kFull>();
   constexpr int kSums = kDhSums ? 3 : 2;
   extern __shared__ __align__(16) unsigned char resid_smem[];
   const ResidSmem<T> sm{resid_smem, cols};
@@ -553,11 +526,11 @@ inline cudaError_t resid_launch(K kernel, int smem, int blocks, cudaStream_t st,
 }
 
 // The forward's and the backward's launches: the unguarded instantiation for rows of
-// kResidMaxCols columns, the guarded one for narrower rows.
+// kResidFullCols columns, the guarded one for every other width.
 template <typename T>
 struct ResidFwd {
   static auto kernel(int cols) {
-    return cols == kResidMaxCols ? &resid_fwd_kernel<T, true> : &resid_fwd_kernel<T, false>;
+    return cols == kResidFullCols ? &resid_fwd_kernel<T, true> : &resid_fwd_kernel<T, false>;
   }
   static int smem(int cols) { return resid_smem<T>(kResidFwdRing, false, cols); }
   static int grid(int rows, int cols, int sms) {
@@ -572,7 +545,7 @@ struct ResidFwd {
 template <typename T, bool kDhSums>
 struct ResidBwd {
   static auto kernel(int cols) {
-    return cols == kResidMaxCols ? &resid_bwd_kernel<T, kDhSums, true>
+    return cols == kResidFullCols ? &resid_bwd_kernel<T, kDhSums, true>
                                  : &resid_bwd_kernel<T, kDhSums, false>;
   }
   static int smem(int cols) { return resid_smem<T>(kResidBwdRing, true, cols); }
@@ -585,39 +558,40 @@ struct ResidBwd {
   }
 };
 
-// The row LayerNorm alone, out = (s - mean) * rsqrt(var + eps) * gamma + beta over bf16
-// rows of s (the K4 forward's last pass, after its (B) epilogue formed s): the statistics of
+// The row LayerNorm alone, out = (s - mean) * rsqrt(var + eps) * gamma + beta over rows of s
+// (the K4 forward's last pass, after its (B) epilogue formed s): the statistics of
 // resid_fwd_kernel (float32, var = E[s^2] - E[s]^2 clamped at 0, warp sums in a fixed
-// order). One warp a row; a lane reads runs of 8 columns (16 bytes) at 8 (lane + 32 i), so a
-// row of up to 768 columns, a multiple of 256, is read once into registers.
+// order). One warp a row; a lane reads runs of 16 bytes at N (lane + 32 i), so a row of up to
+// kResidMaxCols columns, a whole number of runs, is read once into registers. kFull as in
+// resid_fwd_kernel: rows of kResidFullCols columns, no guard.
 constexpr int kLnWarps = 4;
 constexpr int kLnThreads = kLnWarps * 32;
-constexpr int kLnMaxRuns = kResidMaxCols / 256;
 
+template <typename T, bool kFull>
 __global__ void __launch_bounds__(kLnThreads)
-ln_rows_kernel(const __nv_bfloat16* __restrict__ s, const float* __restrict__ gamma,
-               const float* __restrict__ beta, __nv_bfloat16* __restrict__ out, int rows,
-               int cols, float eps) {
+ln_rows_kernel(const T* __restrict__ s, const float* __restrict__ gamma,
+               const float* __restrict__ beta, T* __restrict__ out, int rows, int cols,
+               float eps) {
+  using V = Run16<T>;
+  constexpr int N = V::N;
+  constexpr int P = resid_passes<N, kFull>();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int runs = cols >> 8;
+  const int runs = cols / N;
   for (int row = blockIdx.x * kLnWarps + warp; row < rows;
        row += gridDim.x * kLnWarps) {
     const size_t base = static_cast<size_t>(row) * cols;
-    float v[kLnMaxRuns][8];
+    float v[P][N];
     float sum = 0.f, sq = 0.f;
 #pragma unroll
-    for (int i = 0; i < kLnMaxRuns; ++i) {
-      if (i >= runs) break;
-      const uint4 raw = *reinterpret_cast<const uint4*>(s + base + 8 * (lane + 32 * i));
-      const __nv_bfloat162* pair = reinterpret_cast<const __nv_bfloat162*>(&raw);
+    for (int i = 0; i < P; ++i) {
+      const int run = lane + 32 * i;
+      if (!kFull && run >= runs) break;
+      // One 16-byte load into a register first (unpacking through a reference to global
+      // memory splits it into 4-byte loads).
+      const uint4 raw = *reinterpret_cast<const uint4*>(s + base + N * run);
+      V::unpack(raw, v[i]);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 f = __bfloat1622float2(pair[j]);
-        v[i][2 * j] = f.x;
-        v[i][2 * j + 1] = f.y;
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < N; ++j) {
         sum += v[i][j];
         sq += v[i][j] * v[i][j];
       }
@@ -626,17 +600,15 @@ ln_rows_kernel(const __nv_bfloat16* __restrict__ s, const float* __restrict__ ga
     const float var = fmaxf(warp_sum(sq) / cols - mean * mean, 0.f);
     const float rstd = rsqrtf(var + eps);
 #pragma unroll
-    for (int i = 0; i < kLnMaxRuns; ++i) {
-      if (i >= runs) break;
-      const int col = 8 * (lane + 32 * i);
-      uint4 raw;
-      __nv_bfloat162* pair = reinterpret_cast<__nv_bfloat162*>(&raw);
+    for (int i = 0; i < P; ++i) {
+      const int run = lane + 32 * i;
+      if (!kFull && run >= runs) break;
+      const int col = N * run;
+      float o[N];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        pair[j] = __floats2bfloat162_rn(
-            (v[i][2 * j] - mean) * rstd * gamma[col + 2 * j] + beta[col + 2 * j],
-            (v[i][2 * j + 1] - mean) * rstd * gamma[col + 2 * j + 1] + beta[col + 2 * j + 1]);
-      *reinterpret_cast<uint4*>(out + base + col) = raw;
+      for (int j = 0; j < N; ++j)
+        o[j] = (v[i][j] - mean) * rstd * gamma[col + j] + beta[col + j];
+      *reinterpret_cast<uint4*>(out + base + col) = V::pack(o);
     }
   }
 }

@@ -24,7 +24,8 @@
 // phase ahead of its barrier, which a parity wait needs. One producer warp rather than a
 // warpgroup keeps 544 threads an SM within the register file without `setmaxnreg`. TMA
 // fills rows past the matrix with zeros, so a ragged row count needs guards only in the
-// epilogue.
+// epilogue, and the columns past N (or K) are zeros: a width that is not a multiple of a
+// tile needs guards only on the epilogue's columns.
 #pragma once
 
 #include <cuda.h>              // CUtensorMap and its enums: types only, the build needs no -lcuda
@@ -216,13 +217,14 @@ __device__ __forceinline__ void group_sync(int g) {
 // second 64-column box starts 64 columns on); mma(t, kt, wg) is false where warpgroup wg
 // (rows 64 wg .. 64 wg + 63 of the tile) skips the step's products. GemmGrid is the plain
 // product A B^T of [rows, K] and [cols, K] (or [K, cols]): tile t is row tile t / col_tiles
-// and column tile t % col_tiles, every tile takes all of K in both warpgroups.
+// and column tile t % col_tiles, every tile takes all of K in both warpgroups (the last column
+// tile and k step may reach past cols and k: TMA fills zeros there).
 template <bool kTransB>
 struct GemmGrid {
   int col_tiles, tiles, k_tiles;
   __device__ __forceinline__ GemmGrid(int rows, int cols, int k)
-      : col_tiles(cols / kGemmBN), tiles((rows + kGemmBM - 1) / kGemmBM * col_tiles),
-        k_tiles(k / kGemmBK) {}
+      : col_tiles((cols + kGemmBN - 1) / kGemmBN),
+        tiles((rows + kGemmBM - 1) / kGemmBM * col_tiles), k_tiles((k + kGemmBK - 1) / kGemmBK) {}
   __device__ __forceinline__ int steps(int) const { return k_tiles; }
   __device__ __forceinline__ bool mma(int, int, int) const { return true; }
   __device__ __forceinline__ int m0(int t) const { return (t / col_tiles) * kGemmBM; }
@@ -359,7 +361,7 @@ inline int gemm_grid(int rows, int cols) {
   int device = 0, sms = 132;
   if (cudaGetDevice(&device) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const int tiles = (rows + kGemmBM - 1) / kGemmBM * (cols / kGemmBN);
+  const int tiles = (rows + kGemmBM - 1) / kGemmBM * ((cols + kGemmBN - 1) / kGemmBN);
   return tiles < sms ? tiles : sms;
 }
 

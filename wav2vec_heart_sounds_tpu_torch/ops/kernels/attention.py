@@ -29,7 +29,7 @@ gradients of q, k and v (packed ``[B, 3H, T, d]`` for K3b).
 :func:`flash_attention_qkv` and :func:`flash_attention` are the eval forwards (rate 0, no
 autograd); :func:`attention_qkv_train` and :func:`attention_train` the differentiable
 training ops. All take the plain versions only for CPU tensors; CUDA tensors go to the
-kernels or raise.
+kernels, built for the head dims :func:`kernel_takes` names, or raise.
 """
 
 from __future__ import annotations
@@ -41,10 +41,20 @@ import torch
 
 from .. import philox
 from . import build
+from .dropout import on_card
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIM = 64   # wav2vec2-base: 768 hidden / 12 heads; the only width the kernels are built for
+# The head widths the kernels are built for (one instantiation each): wav2vec2-base's and
+# -large's 64, the test config's 16.
+HEAD_DIMS = (16, 32, 64, 128)
 _P, _I, _U32, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+
+
+def kernel_takes(head_dim: int, dtype: torch.dtype) -> bool:
+    """Whether the kernels take heads of ``head_dim`` in ``dtype``: a head dim they are built
+    for, float32 or bfloat16. The wrappers raise on anything else, and on views whose rows are
+    not 16-byte aligned."""
+    return dtype in _DTYPE_CODES and head_dim in HEAD_DIMS
 
 
 def _split(qkv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -115,16 +125,16 @@ def _aligned(x: torch.Tensor) -> bool:
 
 
 def _check(name: str, t: int, *views: torch.Tensor) -> None:
-    """Every view is a CUDA ``[B, H, T, 64]`` tensor of one shape and dtype, d contiguous,
-    its rows 16-byte aligned."""
+    """Every view is a CUDA ``[B, H, T, d]`` tensor of one shape and dtype, d one of
+    :data:`HEAD_DIMS` and contiguous, its rows 16-byte aligned."""
     first = views[0]
-    if not first.is_cuda:
-        raise ValueError(f"{name} needs CUDA tensors, got {first.device}")
     if first.dtype not in _DTYPE_CODES:
         raise TypeError(f"{name} takes float32 or bfloat16, got {first.dtype}")
-    if first.ndim != 4 or first.shape[3] != HEAD_DIM:
-        raise ValueError(f"{name}: expected [B, H, T, {HEAD_DIM}] views, got "
-                         f"{tuple(first.shape)} (the kernels are built for head dim {HEAD_DIM})")
+    if first.ndim != 4 or not kernel_takes(first.shape[3], first.dtype):
+        raise ValueError(f"{name}: expected [B, H, T, d] views with d in {HEAD_DIMS}, got "
+                         f"{tuple(first.shape)}")
+    if not first.is_cuda:
+        raise ValueError(f"{name} needs CUDA tensors, got {first.device}")
     for x in views:
         if x.shape != first.shape or x.dtype != first.dtype or x.device != first.device:
             raise ValueError(f"{name}: every view must be {tuple(first.shape)} {first.dtype} "
@@ -265,9 +275,9 @@ def flash_attention_qkv(qkv: torch.Tensor, t: int | None = None,
         raise NotImplementedError(
             "attention dropout (rate > 0) runs in training, through "
             "attention_qkv_train(qkv, t, rate, seed, site)")
-    if qkv.device.type == "cpu":
-        return attention_qkv_reference(qkv, t)
-    return attention_qkv_fwd(qkv, t)
+    if on_card(qkv):
+        return attention_qkv_fwd(qkv, t)
+    return attention_qkv_reference(qkv, t)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, t: int | None = None,
@@ -280,9 +290,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, t: int | 
         raise NotImplementedError(
             "attention dropout (rate > 0) runs in training, through "
             "attention_train(q, k, v, t, rate, seed, site)")
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, t)
-    return attention_fwd(q, k, v, t)
+    if on_card(q):
+        return attention_fwd(q, k, v, t)
+    return attention_reference(q, k, v, t)
 
 
 def _dense_dout(dout: torch.Tensor) -> torch.Tensor:
@@ -294,10 +304,10 @@ class _AttentionQKV(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, t, rate, seed, site):
         args = (t, rate, seed, site)
-        if qkv.device.type == "cpu":
-            out, lse = attention_qkv_reference(qkv, *args, with_lse=True)
-        else:
+        if on_card(qkv):
             out, lse = attention_qkv_fwd(qkv, *args, with_lse=True)
+        else:
+            out, lse = attention_qkv_reference(qkv, *args, with_lse=True)
         ctx.save_for_backward(qkv, out, lse)
         ctx.args = args
         return out
@@ -305,10 +315,10 @@ class _AttentionQKV(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         qkv, out, lse = ctx.saved_tensors
-        if dout.device.type == "cpu":
-            dqkv = attention_qkv_bwd_reference(qkv, out, dout, lse, *ctx.args)
-        else:
+        if on_card(dout):
             dqkv = attention_qkv_bwd(qkv, out, _dense_dout(dout), lse, *ctx.args)
+        else:
+            dqkv = attention_qkv_bwd_reference(qkv, out, dout, lse, *ctx.args)
         return dqkv, None, None, None, None
 
 
@@ -316,7 +326,7 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, t, rate, seed, site):
         args = (t, rate, seed, site)
-        fwd = attention_reference if q.device.type == "cpu" else attention_fwd
+        fwd = attention_fwd if on_card(q) else attention_reference
         out, lse = fwd(q, k, v, *args, with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = args
@@ -325,10 +335,10 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        if dout.device.type == "cpu":
-            grads = attention_bwd_reference(q, k, v, out, dout, lse, *ctx.args)
-        else:
+        if on_card(dout):
             grads = attention_bwd(q, k, v, out, _dense_dout(dout), lse, *ctx.args)
+        else:
+            grads = attention_bwd_reference(q, k, v, out, dout, lse, *ctx.args)
         return (*grads, None, None, None, None)
 
 

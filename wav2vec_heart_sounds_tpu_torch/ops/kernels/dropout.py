@@ -50,6 +50,19 @@ def check_aligned(name: str, *tensors: torch.Tensor) -> None:
                              f"at {t.data_ptr() % VECTOR_BYTES} bytes past")
 
 
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and starting on 16 bytes (a copy only where it is not): what an
+    autograd op hands the wrappers that :func:`check_aligned`."""
+    t = t.contiguous()
+    return t if t.data_ptr() % VECTOR_BYTES == 0 else t.clone()
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """The route of an op with a kernel, for its input ``t``: the kernel wrapper for a tensor
+    on a CUDA device (which launches or raises), the plain version for a CPU tensor."""
+    return t.device.type != "cpu"
+
+
 @functools.cache
 def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of a CUDA device: the persistent grids' width."""
@@ -82,9 +95,9 @@ def philox_bits_kernel(n: int, seed: int, site: int, device) -> torch.Tensor:
 
 
 def _apply(x: torch.Tensor, seed: int, site: int, rate: float) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return dropout_reference(x, seed, site, rate)
-    return dropout_kernel(x.contiguous(), seed, site, rate)
+    if on_card(x):
+        return dropout_kernel(x.contiguous(), seed, site, rate)
+    return dropout_reference(x, seed, site, rate)
 
 
 class _Dropout(torch.autograd.Function):

@@ -11,14 +11,15 @@ over ``[N, F]`` and ``(seed, s_hid)`` over ``[N, D]``, the same as that route's.
 The kernel pair (``csrc/ffn_mega.cu``) computes the forward's two products and the
 backward's ``dhid W2`` itself; ``dx = dpre W1 + ds``, ``dW1 = dpre^T x`` and
 ``dW2 = dhid^T h`` stay matrix products here, as the JAX package leaves them to XLA.
-In bfloat16 the kernels run as stages, each with its plain version here: (A)
+In both dtypes the kernels run as stages, each with its plain version here: (A)
 :func:`ffn_up_reference`, (B) :func:`ffn_down_reference`, the row LayerNorm
 (:func:`.resid.layer_norm_reference`), (C) :func:`.resid.resid_bwd_reference` and (D)
 :func:`ffn_dgrad_reference`; composed, they are the two plain versions above bit for bit.
 The bfloat16 bodies read their operands with TMA and store 16 bytes at a time, so the
-wrappers take dense rows whose base and row stride are multiples of 16 bytes, and raise
-``ValueError`` otherwise before any CUDA call. :func:`ffn_block` takes the plain versions
-only for CPU tensors; CUDA tensors go to the kernels or raise.
+wrappers take dense rows whose base and row stride are multiples of 16 bytes, and widths
+that :func:`kernel_takes` names, and raise ``ValueError`` otherwise before any CUDA call.
+:func:`ffn_block` takes the plain versions only for CPU tensors; CUDA tensors go to the
+kernels or raise.
 """
 
 from __future__ import annotations
@@ -31,13 +32,21 @@ import torch.nn.functional as F
 
 from .. import philox
 from . import build
-from .dropout import DTYPE_CODES, check_cuda, sm_count
+from .dropout import DTYPE_CODES, check_cuda, on_card, sm_count
 from .ffn import ffn_act_bwd_reference, ffn_act_fwd_reference
-from .resid import dropout_add_reference, resid_bwd_reference, resid_fwd_reference
+from .resid import MAX_COLS, dropout_add_reference, resid_bwd_reference, resid_fwd_reference
 
 _P, _U32, _F, _I = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float, ctypes.c_int
-HIDDEN = 768        # the row width the kernels take (wav2vec2-base's hidden size)
 UP_ROWS = 128       # row tile of (A) and (D): the db1 partials have ceil(N / 128) rows
+
+
+def kernel_takes(hidden: int, ffn: int, dtype: torch.dtype) -> bool:
+    """Whether the kernels take a sublayer of ``hidden`` and ``ffn`` widths in ``dtype``:
+    float32 or bfloat16, both widths multiples of 8 (16-byte rows), the hidden size at most
+    1024 (K2's rows): wav2vec2-base's 768 / 3072, wav2vec2-large's 1024 / 4096, the test
+    config's 32 / 64. The wrappers raise on anything else."""
+    return (dtype in DTYPE_CODES and 0 < hidden <= MAX_COLS and hidden % 8 == 0 and ffn > 0
+            and ffn % 8 == 0)
 
 
 def ffn_mega_fwd_reference(x, w1, b1, w2, b2, weight, bias, seed: int, s_act: int, s_hid: int,
@@ -79,14 +88,16 @@ def ffn_dgrad_reference(dhid, w2, pre, seed: int, s_act: int, rate_act: float):
     return dpre, ffn_act_fwd_reference(pre, seed, s_act, rate_act), db1
 
 
-def _check(name: str, rows_like: torch.Tensor, f: int, *vectors: torch.Tensor) -> int:
-    if rows_like.dim() != 2 or rows_like.shape[1] != HIDDEN or f % 128:
-        raise ValueError(f"{name}: takes [N, {HIDDEN}] rows and an FFN width that is a "
-                         f"multiple of 128, got {tuple(rows_like.shape)} and {f}")
+def _check(name: str, rows_like: torch.Tensor, f: int, *vectors: torch.Tensor) -> tuple[int, int]:
+    """(rows, hidden size) of ``[N, D]`` rows whose widths :func:`kernel_takes`."""
+    if rows_like.dim() != 2 or not kernel_takes(rows_like.shape[1], f, rows_like.dtype):
+        raise ValueError(f"{name}: takes [N, D] rows and an FFN width F, multiples of 8 with D "
+                         f"at most {MAX_COLS}, got {tuple(rows_like.shape)} and {f}")
+    d = rows_like.shape[1]
     for v in vectors:
-        if v.dtype != torch.float32 or tuple(v.shape) != (HIDDEN,):
-            raise ValueError(f"{name}: LayerNorm parameters must be float32 [{HIDDEN}]")
-    return rows_like.shape[0]
+        if v.dtype != torch.float32 or tuple(v.shape) != (d,):
+            raise ValueError(f"{name}: LayerNorm parameters must be float32 [{d}]")
+    return rows_like.shape[0], d
 
 
 def _same(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
@@ -104,13 +115,13 @@ def _same(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
 
 def ffn_mega_fwd_kernel(x, w1, b1, w2, b2, weight, bias, seed: int, s_act: int, s_hid: int,
                         rate_act: float, rate_hid: float, eps: float):
-    """Launch the forward of ``csrc/ffn_mega.cu`` ((A), (B), and in bfloat16 the row
-    LayerNorm); counts calls in ``.launches``. ``x`` is ``[N, 768]``; the weights are
-    ``nn.Linear``'s ``[out, in]``."""
+    """Launch the forward of ``csrc/ffn_mega.cu`` ((A), (B) and the row LayerNorm); counts
+    calls in ``.launches``. ``x`` is ``[N, D]``; the weights are ``nn.Linear``'s
+    ``[out, in]``."""
     f = w1.shape[0]
-    rows = _check("ffn_mega_fwd_kernel", x, f, weight, bias)
-    if tuple(w1.shape) != (f, HIDDEN) or tuple(w2.shape) != (HIDDEN, f):
-        raise ValueError("ffn_mega_fwd_kernel: w1 must be [F, 768] and w2 [768, F]")
+    rows, d = _check("ffn_mega_fwd_kernel", x, f, weight, bias)
+    if tuple(w1.shape) != (f, d) or tuple(w2.shape) != (d, f):
+        raise ValueError(f"ffn_mega_fwd_kernel: w1 must be [F, {d}] and w2 [{d}, F]")
     _same("ffn_mega_fwd_kernel", x.dtype, x, w1, b1, w2, b2)
     check_cuda("ffn_mega_fwd_kernel", x, w1, b1, w2, b2, weight, bias)
     pre = x.new_empty((rows, f))
@@ -120,7 +131,7 @@ def ffn_mega_fwd_kernel(x, w1, b1, w2, b2, weight, bias, seed: int, s_act: int, 
                      (_P,) * 11 + (_I, _I, _I) + (_U32,) * 5 + (_F, _F, _F, _I, _P))
     build.check(fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                    weight.data_ptr(), bias.data_ptr(), pre.data_ptr(), h.data_ptr(),
-                   s.data_ptr(), y.data_ptr(), rows, HIDDEN, f, seed, s_act, s_hid,
+                   s.data_ptr(), y.data_ptr(), rows, d, f, seed, s_act, s_hid,
                    philox.threshold(rate_act), philox.threshold(rate_hid),
                    philox.keep_scale(rate_act), philox.keep_scale(rate_hid), eps,
                    DTYPE_CODES[x.dtype], build.stream(x)), "ffn_mega_fwd_kernel")
@@ -129,13 +140,13 @@ def ffn_mega_fwd_kernel(x, w1, b1, w2, b2, weight, bias, seed: int, s_act: int, 
 
 
 @functools.cache
-def _row_blocks(rows: int, dtype: torch.dtype, device: torch.device) -> int:
+def _row_blocks(rows: int, d: int, dtype: torch.dtype, device: torch.device) -> int:
     """(C)'s persistent grid (K2's backward row pass, ``csrc/resid.cuh``) on ``device``: the
     dgamma, dbeta and db2 partials have this many rows."""
-    fn = build.entry("ffn_mega", "ffn_mega_row_blocks", (_I, _I, _I))
-    blocks = fn(rows, sm_count(device), DTYPE_CODES[dtype])
+    fn = build.entry("ffn_mega", "ffn_mega_row_blocks", (_I, _I, _I, _I))
+    blocks = fn(rows, d, sm_count(device), DTYPE_CODES[dtype])
     if blocks <= 0:
-        raise RuntimeError(f"ffn_mega_row_blocks: no grid for {rows} rows of {dtype}")
+        raise RuntimeError(f"ffn_mega_row_blocks: no grid for {rows} rows of {d} in {dtype}")
     return blocks
 
 
@@ -145,22 +156,22 @@ def ffn_mega_bwd_kernel(g, s, pre, w2, weight, seed: int, s_act: int, s_hid: int
     ``.launches``. Returns what :func:`ffn_mega_bwd_reference` returns; the vector
     gradients are float32."""
     f = pre.shape[-1]
-    rows = _check("ffn_mega_bwd_kernel", g, f, weight)
-    if s.shape != g.shape or tuple(pre.shape) != (rows, f) or tuple(w2.shape) != (HIDDEN, f):
-        raise ValueError("ffn_mega_bwd_kernel: g, s [N, 768], pre [N, F] and w2 [768, F]")
+    rows, d = _check("ffn_mega_bwd_kernel", g, f, weight)
+    if s.shape != g.shape or tuple(pre.shape) != (rows, f) or tuple(w2.shape) != (d, f):
+        raise ValueError(f"ffn_mega_bwd_kernel: g, s [N, {d}], pre [N, F] and w2 [{d}, F]")
     _same("ffn_mega_bwd_kernel", g.dtype, g, s, pre, w2)
     check_cuda("ffn_mega_bwd_kernel", g, s, pre, w2, weight)
-    row_blocks = _row_blocks(rows, g.dtype, g.device)
+    row_blocks = _row_blocks(rows, d, g.dtype, g.device)
     ds, dhid = torch.empty_like(g), torch.empty_like(g)
     dpre, h = torch.empty_like(pre), torch.empty_like(pre)
-    parts = torch.empty((3, row_blocks, HIDDEN), dtype=torch.float32, device=g.device)
+    parts = torch.empty((3, row_blocks, d), dtype=torch.float32, device=g.device)
     db1_parts = torch.empty((-(-rows // UP_ROWS), f), dtype=torch.float32, device=g.device)
     fn = build.entry("ffn_mega", "ffn_mega_bwd",
                      (_P,) * 13 + (_I, _I, _I) + (_U32,) * 5 + (_F, _F, _F, _I, _I, _P))
     build.check(fn(g.data_ptr(), s.data_ptr(), pre.data_ptr(), w2.data_ptr(), weight.data_ptr(),
                    ds.data_ptr(), dhid.data_ptr(), dpre.data_ptr(), h.data_ptr(),
                    parts[0].data_ptr(), parts[1].data_ptr(), parts[2].data_ptr(),
-                   db1_parts.data_ptr(), rows, HIDDEN, f, seed, s_act, s_hid,
+                   db1_parts.data_ptr(), rows, d, f, seed, s_act, s_hid,
                    philox.threshold(rate_act), philox.threshold(rate_hid),
                    philox.keep_scale(rate_act), philox.keep_scale(rate_hid), eps, row_blocks,
                    DTYPE_CODES[g.dtype], build.stream(g)), "ffn_mega_bwd_kernel")
@@ -179,11 +190,11 @@ class _FfnBlock(torch.autograd.Function):
                 eps):
         args = (seed, s_act, s_hid, rate_act, rate_hid, eps)
         x2 = x.reshape(-1, x.shape[-1])
-        if x.device.type == "cpu":
-            y, s, pre = ffn_mega_fwd_reference(x2, w1, b1, w2, b2, weight, bias, *args)
-        else:
+        if on_card(x):
             y, s, pre = ffn_mega_fwd_kernel(x2.contiguous(), w1.contiguous(), b1, w2.contiguous(),
                                             b2, weight, bias, *args)
+        else:
+            y, s, pre = ffn_mega_fwd_reference(x2, w1, b1, w2, b2, weight, bias, *args)
         ctx.save_for_backward(x2, w1, w2, weight, s, pre)
         ctx.args = args
         ctx.dtypes = (b1.dtype, b2.dtype)
@@ -193,12 +204,12 @@ class _FfnBlock(torch.autograd.Function):
     def backward(ctx, g):
         x2, w1, w2, weight, s, pre = ctx.saved_tensors
         g2 = g.reshape(s.shape)
-        if g.device.type == "cpu":
-            ds, dhid, dpre, h, db1, db2, dweight, dbias = ffn_mega_bwd_reference(
-                g2, s, pre, w2, weight, *ctx.args)
-        else:
+        if on_card(g):
             ds, dhid, dpre, h, db1, db2, dweight, dbias = ffn_mega_bwd_kernel(
                 g2.contiguous(), s, pre, w2.contiguous(), weight, *ctx.args)
+        else:
+            ds, dhid, dpre, h, db1, db2, dweight, dbias = ffn_mega_bwd_reference(
+                g2, s, pre, w2, weight, *ctx.args)
         # The three large products, in the decomposed route's forms; a frozen weight (LoRA)
         # or an input that needs no gradient takes none.
         need = ctx.needs_input_grad

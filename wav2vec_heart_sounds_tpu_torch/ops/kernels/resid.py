@@ -4,8 +4,8 @@ Port of ``wav2vec_heart_sounds_tpu/ops/pallas/resid.py::dropout_add_layernorm``.
 rounded to the compute dtype before the float32 statistics and saved for the backward, which
 regenerates the Philox mask of ``(seed, site)`` (:mod:`..philox`) instead of storing it.
 ``weight``/``bias`` are the float32 LayerNorm parameters. :func:`dropout_add_layernorm`
-takes the plain versions only for CPU tensors; CUDA tensors go to ``csrc/resid.cu`` or
-raise.
+takes the plain versions only for CPU tensors; CUDA tensors go to ``csrc/resid.cu``, which
+takes every row width :func:`kernel_takes` names, or raise.
 
 The kernels run a persistent grid (:func:`grid_blocks`: one or two blocks an SM) over tiles
 of consecutive rows, tile t on block ``t % blocks``; the backward writes one float32 partial
@@ -23,10 +23,19 @@ import torch
 
 from .. import philox
 from . import build
-from .dropout import DTYPE_CODES, VECTOR_BYTES, check_aligned, check_cuda, sm_count
+from .dropout import (DTYPE_CODES, VECTOR_BYTES, aligned, check_aligned, check_cuda, on_card,
+                      sm_count)
 
 _P, _U32, _F, _I = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float, ctypes.c_int
-MAX_COLS = 768      # widest row the kernel takes (wav2vec2-base's hidden size)
+MAX_COLS = 1024     # widest row the kernel takes (wav2vec2-large's hidden size)
+
+
+def kernel_takes(cols: int, dtype: torch.dtype) -> bool:
+    """Whether the kernels take rows of ``cols`` in ``dtype``: float32 or bfloat16 rows of
+    whole 16-byte runs (a multiple of 8 columns in bfloat16, of 4 in float32) up to 1024
+    columns. The wrappers raise on anything else."""
+    return (dtype in DTYPE_CODES and 0 < cols <= MAX_COLS
+            and cols * dtype.itemsize % VECTOR_BYTES == 0)
 
 
 def _stats(sf: torch.Tensor, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
@@ -83,9 +92,9 @@ def grid_blocks(rows: int, cols: int, dtype: torch.dtype, device: torch.device,
 
 def _check(name, rows_like: torch.Tensor, *vectors: torch.Tensor) -> tuple[int, int]:
     c = rows_like.shape[-1]
-    if c % 128 or c > MAX_COLS:
-        raise ValueError(f"{name}: row width {c}; the kernel takes multiples of 128 up to "
-                         f"{MAX_COLS}")
+    if not kernel_takes(c, rows_like.dtype):
+        raise ValueError(f"{name}: row width {c} in {rows_like.dtype}; the kernel takes rows "
+                         f"of 16-byte runs up to {MAX_COLS} columns")
     for v in vectors:
         if v.dtype != torch.float32 or not v.is_cuda or tuple(v.shape) != (c,):
             raise ValueError(f"{name}: LayerNorm parameters must be float32 CUDA [{c}]")
@@ -136,20 +145,14 @@ resid_fwd_kernel.launches = 0
 resid_bwd_kernel.launches = 0
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous and starting on 16 bytes (a copy only where it is not)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % VECTOR_BYTES == 0 else t.clone()
-
-
 class _ResidTail(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, x, weight, bias, seed, site, rate, eps):
         args = (seed, site, rate, eps)
-        if h.device.type == "cpu":
-            out, s = resid_fwd_reference(h, x, weight, bias, *args)
+        if on_card(h):
+            out, s = resid_fwd_kernel(aligned(h), aligned(x), weight, bias, *args)
         else:
-            out, s = resid_fwd_kernel(_aligned(h), _aligned(x), weight, bias, *args)
+            out, s = resid_fwd_reference(h, x, weight, bias, *args)
         ctx.save_for_backward(s, weight)
         ctx.args = args
         return out
@@ -157,10 +160,10 @@ class _ResidTail(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         s, weight = ctx.saved_tensors
-        if g.device.type == "cpu":
-            dh, dx, dw, db = resid_bwd_reference(g, s, weight, *ctx.args)
+        if on_card(g):
+            dh, dx, dw, db = resid_bwd_kernel(aligned(g), s, weight, *ctx.args)
         else:
-            dh, dx, dw, db = resid_bwd_kernel(_aligned(g), s, weight, *ctx.args)
+            dh, dx, dw, db = resid_bwd_reference(g, s, weight, *ctx.args)
         need = ctx.needs_input_grad            # frozen LayerNorm parameters (LoRA)
         return (dh, dx if need[1] else None, dw if need[2] else None, db if need[3] else None,
                 None, None, None, None)
@@ -170,3 +173,4 @@ def dropout_add_layernorm(h, x, weight, bias, seed: int, site: int, rate: float,
                           eps: float = 1e-5) -> torch.Tensor:
     """``LayerNorm(x + dropout(h))`` over the last axis, in ``h.dtype``; differentiable."""
     return _ResidTail.apply(h, x.to(h.dtype), weight, bias, seed, site, rate, eps)
+

@@ -38,6 +38,7 @@ autograd, an independent check of the whole op where that form is well condition
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -160,7 +161,15 @@ def _check(name: str, *tensors: torch.Tensor) -> tuple[int, int]:
 
 
 def _window_arg(window):
-    taps = _taps(window)
+    """The C entries' taps argument; a tuple (as :func:`delay_channel` passes) is its own
+    cache key, with no numpy copy."""
+    return _window_array(window if isinstance(window, tuple) else tuple(_taps(window)))
+
+
+@functools.lru_cache(maxsize=16)
+def _window_array(taps: tuple) -> tuple:
+    """The taps as the C entries take them (a ctypes array of float32, rounded as
+    :func:`_taps` rounds, and its length), built once per window."""
     if len(taps) % 2 == 0 or len(taps) > 64:
         raise ValueError(f"the kernel takes an odd number of taps up to 64, got {len(taps)}")
     return (ctypes.c_float * len(taps))(*taps), len(taps)
