@@ -105,7 +105,23 @@ Phases, each of which exits non-zero on failure:
    (hidden 32, head dim 16, FFN 64) on the card, float32, dropout and SpecAugment on, on both
    FFN routes: one eval forward and one training step against the same on the CPU from the
    same state dict and step seed (the loss at 1e-4 relative, each gradient norm at 1e-3
-   relative), every kernel with its exact launches (K1, K2, K3b and K4 or K5).
+   relative), every kernel with its exact launches (K1, K2, K3b and K4 or K5);
+18. the diffusion vocoders at full width (``DiffWaveConfig()``, ``WaveGradConfig()``; they run
+   no port kernel and must launch none): from one seeded state dict on the CPU and the card,
+   float32, B = 2, the forward (1e-4 of the output's largest value) and one loss gradient
+   from injected draws (the loss at 1e-4 relative, each gradient norm at 1e-3 relative);
+   then bench.py's gen modes in audio-s/s, each the median of 3 windows of 10 calls:
+   DiffWave fast sampling (B = 16, 96 frames), WaveGrad 6-step sampling (B = 8, 80 frames)
+   and ``GenerativeTrainer.train_step`` of both (B = 16, 80 frames);
+19. the generative pipeline on phase 8's synthetic CinC directory, once per vocoder:
+   ``cinc_generative_dataset`` -> ``GenerativeTrainer.train`` (one epoch of two batches,
+   validation, the sample WAV) -> ``restore`` of ``weights-best`` (equal to the trained
+   state) -> ``generate_dataset(per_item=2)``: the manifest's rows in order, every WAV at
+   4 kHz, ``hop * 96`` samples, abs-max 1;
+20. ``experiments.synthetic.run`` on a schedule of phase 8's directory and phase 19's
+   DiffWave manifest (the second stage ``letskip``), full-width wav2vec2-base, bf16, 4 s at
+   4125 Hz, B = 64: finite losses, the exact launches of every kernel (K1 2+2, K2, K3b and K4
+   12+12 a step, K3b 12 a validation or test batch), a record with the JAX runner's keys.
 
 Prints the card's name and power limit, one JSON line describing the kernels (launches
 from the ``fit`` of the path that runs each kernel: phase 7's K4 route for the CinC
@@ -124,6 +140,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -2219,8 +2236,6 @@ def phase_fusion_runner() -> None:
     synthetic PCG+ECG directory, host chain (PCG and ECG chains), full width, bfloat16,
     4 s windows at 4125 Hz, one epoch of 2 steps for each of its three trainings (PCG branch,
     ECG branch, fusion): finite losses, finite statistics, a ``big_rnn:2:wav2vec`` record."""
-    import tempfile
-
     from wav2vec_heart_sounds_tpu_torch.experiments import cinc as runner
 
     losses = []
@@ -2563,8 +2578,6 @@ def phase_vest_runner() -> None:
     (``multi_augment``) with cross-entropy, (b) ``device_augment=True`` with the
     contrastive-focal loss. Finite losses and statistics, a results record, and the K6 and
     K7 backward launches of the 2 steps (K7's input gradient: none, the data needs none)."""
-    import tempfile
-
     from wav2vec_heart_sounds_tpu_torch.experiments import multichannel as runner
 
     losses = []
@@ -2637,8 +2650,6 @@ def phase_runner() -> None:
     bfloat16, 16 kHz, one epoch of two steps: (a) the raw wire with augmentation on the
     card, (b) the host chain with one augmented copy per record. Finite losses, fragment
     and patient statistics, a results record, and K4's launches, 12 + 12 per train step."""
-    import tempfile
-
     from wav2vec_heart_sounds_tpu_torch.experiments import cinc as runner
 
     losses = []
@@ -2678,6 +2689,346 @@ def phase_runner() -> None:
                   f"K4 launches in the runner: {got}")
 
 
+# The vocoders at full width (bench.py's gen modes, bench.py:44-205): (name, check frames,
+# sampling batch, frames and sampler arguments, training batch and frames).
+VOCODERS = (("diffwave", 16, 16, 96, {"fast": True}, 16, 80),
+            ("wavegrad", 16, 8, 80, {"num_steps": 6}, 16, 80))
+VOCODER_CHECK_BATCH, VOCODER_WINDOW_CALLS = 2, 10
+# Adam's first update is about lr * sign(g): an element whose gradient is near 0 may take
+# the other sign on the card, so a tensor's update is held to its L2 norm, not per element.
+# The H100 showed 2.1e-4 (DiffWave) and 1.0e-4 (WaveGrad, whose clip acts at a norm of 29).
+VOCODER_UPDATE_GAP = 2e-3
+
+
+def seeded_vocoder(name: str, seed: int = 0):
+    """A full-width vocoder on the CPU from ``seed``, its zero-initialised tensors (DiffWave's
+    output projection, every bias) drawn too so that every layer shapes the output."""
+    from wav2vec_heart_sounds_tpu_torch.models.registry import get_spec
+
+    model = get_spec(name).build_model(2, seed=seed, device="cpu")
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for p in model.parameters():
+            if not p.abs().max():
+                p.normal_(0.0, 0.05, generator=gen)
+    return model
+
+
+def vocoder_inputs(name: str, batch: int, frames: int, seed: int, device="cpu") -> dict:
+    from wav2vec_heart_sounds_tpu_torch.models.registry import get_spec
+
+    spec = get_spec(name)
+    gen = torch.Generator().manual_seed(seed)
+    n_mels = spec.mel("pcg").n_mels
+    b = {"ref_audio": 0.3 * torch.randn(batch, spec.hop_length * frames, generator=gen),
+         "con_spec": torch.rand(batch, n_mels, frames, generator=gen),
+         "label": torch.arange(batch) % 2}
+    return {k: v.to(device) for k, v in b.items()}
+
+
+def vocoder_draws(name: str, ref: torch.Tensor, seed: int) -> tuple:
+    """The loss strategy's draws, made once on the CPU and given to both devices."""
+    gen = torch.Generator().manual_seed(seed)
+    batch = ref.shape[0]
+    noise = torch.randn(ref.shape, generator=gen)
+    if name == "diffwave":
+        return torch.randint(0, 50, (batch,), generator=gen), noise
+    return (torch.randint(1, 1001, (batch,), generator=gen), torch.rand(batch, generator=gen),
+            noise)
+
+
+def trainer_step(model, loss, batch: dict, draws) -> tuple[float, dict, dict]:
+    """One ``GenerativeTrainer.train_step`` of ``model`` with the given draws: the pre-clip
+    global gradient norm, each parameter's Adam first-moment norm, and each parameter's
+    update (on the CPU)."""
+    from wav2vec_heart_sounds_tpu_torch.train.generative import GenerativeTrainer
+
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = GenerativeTrainer(model, loss, tmp, log=lambda line: None)
+        trainer.train_step(batch, draws)
+    norm = torch.linalg.vector_norm(torch.stack([p.grad.norm() for p in model.parameters()]))
+    names = [n for n, _ in model.named_parameters()]
+    moments = {n: m.norm().item() for n, m in zip(names, trainer.optimizer.state[0])}
+    update = {n: (p.detach() - before[n]).float().cpu() for n, p in model.named_parameters()}
+    return norm.item(), moments, update
+
+
+def timed_windows(fn, calls: int = VOCODER_WINDOW_CALLS, windows: int = 3) -> list[float]:
+    """Seconds of ``windows`` windows of ``calls`` calls each (host clock, synchronised)."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def phase_vocoders(card: str) -> None:
+    """Phase 18: DiffWave (``DiffWaveConfig()``: 30 x 64 channels, 80 mels, hop 256) and
+    WaveGrad (``WaveGradConfig()``: 128 mels, hop 300, 15,956,161 parameters) at full width,
+    float32, TF32 off. Each from a seed on the CPU (zero-initialised tensors drawn too), the
+    state dict moved to the card: at B = 2 and 16 frames the forward, card against CPU, at
+    1e-4 of the output's largest value, and one loss with its gradient from the same injected
+    draws: the loss at 1e-4 relative, each parameter's gradient norm at 1e-3 relative (floored
+    at 1e-6 of the largest norm); then one ``GenerativeTrainer.train_step`` on each from those
+    weights and draws: the pre-clip global norm and each Adam first moment's norm at 1e-3
+    relative, and each parameter's update within ``VOCODER_UPDATE_GAP`` of its L2 norm. No
+    port kernel may launch (the vocoders run none). Then
+    bench.py's gen modes on the card, each the median of 3 windows of 10 calls with the
+    spread: DiffWave fast sampling (B = 16, 96 frames, 6 steps), WaveGrad sampling (B = 8, 80
+    frames, 6 steps) and ``GenerativeTrainer.train_step`` of both (B = 16, 80 frames), in
+    audio-s/s (seconds of 4 kHz audio generated, or trained on, per wall second)."""
+    import copy
+    from wav2vec_heart_sounds_tpu_torch.models.registry import get_spec
+    from wav2vec_heart_sounds_tpu_torch.train.generative import GenerativeTrainer
+
+    for name, frames, s_batch, s_frames, s_kw, t_batch, t_frames in VOCODERS:
+        t0 = time.perf_counter()
+        spec = get_spec(name)
+        cpu = seeded_vocoder(name)
+        dev = copy.deepcopy(cpu).to("cuda")
+        b = vocoder_inputs(name, VOCODER_CHECK_BATCH, frames, seed=18)
+        bc = {k: v.cuda() for k, v in b.items()}
+        args = ((b["ref_audio"], torch.tensor([3, 41]), b["con_spec"], b["label"])
+                if name == "diffwave" else
+                (b["ref_audio"], b["con_spec"], torch.tensor([0.3, 0.9]), b["label"]))
+        reset_counts()
+        with torch.no_grad():
+            want = cpu(*args)
+            got = dev(*(a.cuda() for a in args)).cpu()
+        scale = want.abs().max().item()
+        fwd_err = (got - want).abs().max().item()
+        check(scale > 0.1 and fwd_err <= 1e-4 * scale,
+              f"{name} forward card vs CPU: {fwd_err} of {scale}")
+        draws = vocoder_draws(name, b["ref_audio"], seed=19)
+        losses, norms = [], []
+        for model, batch, dev_draws in ((cpu, b, draws), (dev, bc, [d.cuda() for d in draws])):
+            model.zero_grad(set_to_none=True)
+            loss = spec.loss(model, batch, None, dev_draws)
+            loss.backward()
+            losses.append(loss.item())
+            norms.append({n: p.grad.norm().item() for n, p in model.named_parameters()})
+        torch.cuda.synchronize()
+        check(not any(counts().values()), f"{name} launched a port kernel: {counts()}")
+        worst = worst_norm_gap(norms[1], norms[0])
+        print(f"[vocoders] {name} f32 B={VOCODER_CHECK_BATCH}, {frames} frames: forward card vs "
+              f"CPU max_abs_err={fwd_err:.3e} of {scale:.3e} (limit 1e-4 of it); loss card "
+              f"{losses[1]:.7f} vs CPU {losses[0]:.7f}; {len(norms[0])} gradient norms, worst "
+              f"relative difference {worst:.3e} (limit 1e-3); no port kernel launched")
+        check(abs(losses[1] - losses[0]) <= 1e-4 * abs(losses[0]), f"{name} losses differ")
+        check(worst <= 1e-3, f"{name} gradient norms differ between card and CPU: {worst}")
+        steps = [trainer_step(model, spec.loss, b, step_draws)
+                 for model, step_draws in ((cpu, draws), (dev, [d.cuda() for d in draws]))]
+        (cpu_norm, cpu_m, cpu_upd), (dev_norm, dev_m, dev_upd) = steps
+        moment_gap = worst_norm_gap(dev_m, cpu_m)
+        update_gap = max((dev_upd[n] - cpu_upd[n]).norm().item()
+                         / max(cpu_upd[n].norm().item(), 1e-12) for n in cpu_upd)
+        print(f"[vocoders] {name} one GenerativeTrainer.train_step from the same weights and "
+              f"draws: pre-clip global norm card {dev_norm:.6f} vs CPU {cpu_norm:.6f} (clip "
+              f"1.0); Adam's first moment, worst relative difference of a tensor's norm "
+              f"{moment_gap:.3e} (limit 1e-3); the step's update, worst relative L2 difference "
+              f"of a tensor {update_gap:.3e} (limit {VOCODER_UPDATE_GAP:g})")
+        check(abs(dev_norm - cpu_norm) <= 1e-3 * cpu_norm and moment_gap <= 1e-3
+              and update_gap <= VOCODER_UPDATE_GAP,
+              f"{name} train step differs between card and CPU")
+        del cpu, dev
+
+        model = seeded_vocoder(name, seed=1).cuda()
+        sb = vocoder_inputs(name, s_batch, s_frames, seed=20, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        audio, sr = spec.sample(model, sb["con_spec"], sb["label"], gen, **s_kw)
+        check(tuple(audio.shape) == (s_batch, spec.hop_length * s_frames) and sr == 4000
+              and bool(torch.isfinite(audio).all()) and audio.abs().max().item() <= 1.0,
+              f"{name} sampler output {tuple(audio.shape)} at {sr} Hz")
+        runs = timed_windows(lambda: spec.sample(model, sb["con_spec"], sb["label"], gen,
+                                                 **s_kw))
+        seconds = s_batch * VOCODER_WINDOW_CALLS * spec.hop_length * s_frames / sr
+        print(f"[vocoders] {name} sampling {json.dumps(s_kw)}, B={s_batch}, {s_frames} frames: "
+              f"{seconds / np.median(runs):.1f} audio-s/s on {card} (median of 3 windows of "
+              f"{VOCODER_WINDOW_CALLS} calls: {', '.join(f'{r * 1e3:.1f}' for r in runs)} ms; "
+              f"host clock)")
+
+        tb = vocoder_inputs(name, t_batch, t_frames, seed=22)
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer = GenerativeTrainer(model, spec.loss, tmp, log=lambda line: None)
+            torch.cuda.reset_peak_memory_stats()
+            losses = [trainer.train_step(tb) for _ in range(2)]
+            runs = timed_windows(lambda: losses.append(trainer.train_step(tb)))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(all(np.isfinite(losses)), f"{name} training losses {losses}")
+        seconds = t_batch * VOCODER_WINDOW_CALLS * spec.hop_length * t_frames / sr
+        print(f"[vocoders] {name} GenerativeTrainer.train_step, B={t_batch}, {t_frames} frames "
+              f"(clip 1.0, Adam): {np.median(runs) / VOCODER_WINDOW_CALLS * 1e3:.1f} ms a step, "
+              f"{seconds / np.median(runs):.1f} audio-s/s on {card} (median of 3 windows of "
+              f"{VOCODER_WINDOW_CALLS} steps: {', '.join(f'{r * 1e3:.1f}' for r in runs)} ms; "
+              f"host clock, the host-to-device copy included); losses "
+              f"{losses[0]:.5f} .. {losses[-1]:.5f}; peak device memory {peak:.2f} GiB; phase "
+              f"wall {time.perf_counter() - t0:.1f} s")
+        del model, trainer
+
+
+def phase_generative_pipeline(tmp: Path) -> str:
+    """Phase 19: the generative pipeline on phase 8's synthetic CinC directory (written into
+    ``tmp / "cinc"``), once with DiffWave and once with WaveGrad (sampled with
+    ``num_steps=6``): ``cinc_generative_dataset`` (train and valid, 4 kHz, 96 frames) ->
+    ``GenerativeTrainer.train`` (one epoch of two B=2 batches, a validation pass, the sample
+    WAV) -> ``restore`` of ``weights-best`` into a model from another seed, which must equal
+    the trained state -> ``generate_dataset`` with ``per_item=2``. The manifest has items x 2
+    rows in order (``<patient>_<idx>_<copy>.wav``), and every WAV is at 4 kHz, ``hop * 96``
+    samples long, float32 with abs-max 1. Returns DiffWave's output directory."""
+    import csv
+
+    from scipy.io import wavfile
+
+    from wav2vec_heart_sounds_tpu_torch.data.generative import cinc_generative_dataset
+    from wav2vec_heart_sounds_tpu_torch.models.registry import get_spec
+    from wav2vec_heart_sounds_tpu_torch.train.generate import generate_dataset
+    from wav2vec_heart_sounds_tpu_torch.train.generative import GenBatcher, GenerativeTrainer
+
+    real = tmp / "cinc"
+    real.mkdir()
+    csv_path = synthetic_cinc(real)
+    outputs = {}
+    for name, kwargs in (("diffwave", {"fast": True}), ("wavegrad", {"num_steps": 6})):
+        t0 = time.perf_counter()
+        spec = get_spec(name)
+        data = {subset: cinc_generative_dataset(
+            str(real), csv_path, subset, fs=spec.sample_rate, mel=spec.mel("pcg"),
+            crop_frames=spec.crop_frames, hop_length=spec.hop_length)
+            for subset in ("train", "valid")}
+        model = spec.build_model(2, seed=0, device="cuda")
+        lines = []
+        trainer = GenerativeTrainer(model, spec.loss, str(tmp / f"{name}-model"),
+                                    sampler=spec.sample, sample_every=1,
+                                    log_dir=str(tmp / f"{name}-logs"), log=lines.append)
+        trainer.train(GenBatcher(data["train"], 2, shuffle=True), 1,
+                      GenBatcher(data["valid"], 2, shuffle=False), max_train_batches=2)
+        trained = {k: v.clone() for k, v in model.state_dict().items()}
+        fresh = spec.build_model(2, seed=9, device="cuda")
+        restored = GenerativeTrainer(fresh, spec.loss, str(tmp / f"{name}-restored"),
+                                     log=lambda line: None)
+        check(restored.restore(str(tmp / f"{name}-model" / "weights-best.pt"))
+              and restored.step == trainer.step == 2, f"{name}: weights-best did not restore")
+        check(all(torch.equal(fresh.state_dict()[k], v) for k, v in trained.items()),
+              f"{name}: the restored weights-best is not the trained state")
+        check((tmp / f"{name}-logs" / "sample_e1.wav").exists(), f"{name}: no sample WAV")
+        out = tmp / f"{name}-generated"
+        manifest = generate_dataset(fresh, spec, data["train"], str(out), per_item=2,
+                                    sampler_kwargs=kwargs)
+        with open(manifest, newline="") as fh:
+            rows = list(csv.reader(fh))
+        items = len(data["train"])
+        want = [["patient", "label", "file"]] + [
+            [data["train"][i]["patient"], str(data["train"][i]["label"]),
+             f"{data['train'][i]['patient']}_{i}_{c}.wav"] for i in range(items) for c in (0, 1)]
+        check(items > 0 and rows == want, f"{name} manifest rows {rows}")
+        for _, _, file in rows[1:]:
+            sr, wave = wavfile.read(out / file)
+            check(sr == 4000 and wave.shape == (spec.hop_length * 96,) and
+                  wave.dtype == np.float32 and np.abs(wave).max() == 1.0,
+                  f"{name} {file}: {sr} Hz, {wave.shape}, abs-max {np.abs(wave).max()}")
+        print(f"[pipeline] {name}: {items} train items, {len(data['valid'])} valid; "
+              f"{'; '.join(lines)}; weights-best restored equal (step {restored.step}); "
+              f"generate_dataset {json.dumps(kwargs)} per_item=2: {len(rows) - 1} WAVs of "
+              f"{spec.hop_length * 96} samples at 4 kHz, abs-max 1; "
+              f"{time.perf_counter() - t0:.1f} s")
+        outputs[name] = str(out)
+        del model, fresh, trainer, restored
+    return outputs["diffwave"]
+
+
+SYNTHETIC_RECORD_KEYS = {"schedule", "fs", "random_init", "run_label", "skipped_stages",
+                         "fragment", "patient"}     # the JAX runner's record
+
+
+def phase_synthetic_runner(tmp: Path, generated: str) -> None:
+    """Phase 20: ``experiments.synthetic.run`` on a schedule of phase 8's real directory and
+    phase 19's DiffWave manifest (real, then generated with ``letskip``; the real valid and
+    test splits), full-width wav2vec2-base, random init, bf16, 4 s at 4125 Hz (51 frames),
+    B = 64 (one bootstrap batch a stage): finite losses, every kernel's exact launches (K1 2+2,
+    K2, K3b and K4 12+12 a train step; K3b 12 a validation or test batch; no other kernel),
+    and a record with the JAX runner's keys."""
+    from wav2vec_heart_sounds_tpu_torch.experiments import synthetic as runner
+
+    real = tmp / "cinc"
+    real_set = {"path": str(real), "split": str(real / "split.csv"), "segment": "",
+                "gen_data": False, "augment_num": 0}
+    schedule = {"test_set": {"data": str(real), "split": str(real / "split.csv"), "segment": ""},
+                "valid_set": {"data": str(real), "split": str(real / "split.csv"),
+                              "segment": ""},
+                "datasets": {"real": real_set,
+                             "generated": {"path": generated, "split": "", "segment": "",
+                                           "gen_data": True, "augment_num": 0}},
+                "schedule": [{"key": "real", "epochs": 1},
+                             {"key": "generated", "epochs": 1, "letskip": True}]}
+    path = tmp / "schedule.json"
+    path.write_text(json.dumps(schedule))
+    losses, evals = [], [0]
+
+    class RecordingTrainer(runner.SupervisedTrainer):
+        def _train_step(self, *args):
+            loss, preds = super()._train_step(*args)
+            losses.append(loss)
+            return loss, preds
+
+        def _eval_step(self, *args):
+            evals[0] += 1
+            return super()._eval_step(*args)
+
+    apply_fn = runner.make_apply_fn
+
+    def counted_apply_fn(model):
+        fn = apply_fn(model)
+
+        def apply(x):
+            evals[0] += 1
+            return fn(x)
+
+        return apply
+
+    results = tmp / "synthetic.json"
+    with mock.patch.object(runner, "SupervisedTrainer", RecordingTrainer), \
+            mock.patch.object(runner, "make_apply_fn", counted_apply_fn):
+        reset_counts()
+        t0 = time.perf_counter()
+        record = runner.run(str(path), fs=FUSION_FS, window_s=WINDOW_S, random_init=True,
+                            batch_size=FUSION_BATCH, results_json=str(results),
+                            run_label="chip_smoke")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    got = counts()
+    values = [float(v) for v in losses]
+    steps = len(values)
+    stats = [v for level in ("fragment", "patient") for v in record[level].values()]
+    print(f"[synthetic] experiments.synthetic.run (real, then generated with letskip; skipped "
+          f"{record['skipped_stages']}): {seconds:.1f} s; {steps} train steps of B="
+          f"{FUSION_BATCH}, {evals[0]} validation/test batches; losses "
+          f"{', '.join(f'{v:.5f}' for v in values)}; fragment {json.dumps(record['fragment'])}; "
+          f"patient {json.dumps(record['patient'])}; launches {json.dumps(got)}")
+    check(steps >= 1 and all(np.isfinite(values)), f"synthetic runner losses {values}")
+    check(set(record) == SYNTHETIC_RECORD_KEYS, f"synthetic record keys {sorted(record)}")
+    check(all(np.isfinite(v) for v in stats), "synthetic runner statistics not finite")
+    check(json.loads(results.read_text())[-1]["run_label"] == "chip_smoke",
+          "the synthetic results record is missing")
+    for name in kernel_wrappers():
+        f, b = PER_STEP.get(name, (0, 0))
+        want = (f + b) * steps + EVAL_PER_BATCH.get(name, 0) * evals[0]
+        check(got[name] == want, f"synthetic {name}: {got[name]} launches, expected {want}")
+
+
+def timed(phase, *args):
+    """``phase(*args)``, printing its wall seconds."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"[wall] {phase.__name__}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -2693,26 +3044,32 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False      # f32 phases compare at 1e-5 .. 2e-4
     torch.backends.cudnn.allow_tf32 = False
 
+    start = time.perf_counter()
     kernel_wrappers()
-    phase_build()
-    phase_kernel_vs_plain()
-    phase_tiny()
-    phase_full_width()
-    phase_serving(card)
-    measured = {**phase_training_kernels(), **phase_megakernel()}
-    phase_train_step()
-    launches = phase_training(card)
-    phase_runner()
-    measured.update(phase_vest_kernels())
-    input_grad_launches = phase_vest_step()
-    vest_launches = {**phase_vest_training(card),
+    timed(phase_build)
+    timed(phase_kernel_vs_plain)
+    timed(phase_tiny)
+    timed(phase_full_width)
+    timed(phase_serving, card)
+    measured = {**timed(phase_training_kernels), **timed(phase_megakernel)}
+    timed(phase_train_step)
+    launches = timed(phase_training, card)
+    timed(phase_runner)
+    measured.update(timed(phase_vest_kernels))
+    input_grad_launches = timed(phase_vest_step)
+    vest_launches = {**timed(phase_vest_training, card),
                      "sinc_delay_grad_x": input_grad_launches["sinc_delay_grad_x"]}
-    phase_vest_runner()
-    measured.update(phase_unpacked_attention())
-    measured.update(phase_conv_kernel())
-    phase_gated_step()
-    phase_fusion_training(card)
-    phase_fusion_runner()
+    timed(phase_vest_runner)
+    measured.update(timed(phase_unpacked_attention))
+    measured.update(timed(phase_conv_kernel))
+    timed(phase_gated_step)
+    timed(phase_fusion_training, card)
+    timed(phase_fusion_runner)
+    timed(phase_vocoders, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        generated = timed(phase_generative_pipeline, Path(tmp))
+        timed(phase_synthetic_runner, Path(tmp), generated)
+    print(f"[wall] all phases: {time.perf_counter() - start:.1f} s")
     print(card)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": CSRC + source, "replaces": PALLAS + replaces,

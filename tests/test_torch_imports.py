@@ -20,7 +20,16 @@ from wav2vec_heart_sounds_tpu.data.fragments import Fragment as JaxFragment
 from wav2vec_heart_sounds_tpu.data.fragments import FragmentDataset as JaxDataset
 from wav2vec_heart_sounds_tpu.data import cinc as jax_data_cinc
 from wav2vec_heart_sounds_tpu.data import common as jax_data_common
+from wav2vec_heart_sounds_tpu.data import generated as jax_generated
+from wav2vec_heart_sounds_tpu.data import generative as jax_generative_data
 from wav2vec_heart_sounds_tpu.data import vest as jax_vest
+from wav2vec_heart_sounds_tpu.experiments import synthetic as jax_synthetic
+from wav2vec_heart_sounds_tpu.models import registry as jax_registry
+from wav2vec_heart_sounds_tpu.models.diffusion import diffwave as jax_diffwave
+from wav2vec_heart_sounds_tpu.models.diffusion import samplers as jax_samplers
+from wav2vec_heart_sounds_tpu.models.diffusion import schedules as jax_schedules
+from wav2vec_heart_sounds_tpu.models.diffusion import wavegrad as jax_wavegrad
+from wav2vec_heart_sounds_tpu.train import generative as jax_generative
 from wav2vec_heart_sounds_tpu.experiments import common as jax_common
 from wav2vec_heart_sounds_tpu.utils import observe as jax_observe
 from wav2vec_heart_sounds_tpu.signal import filters as jax_filters
@@ -28,11 +37,16 @@ from wav2vec_heart_sounds_tpu.train.metrics import ConfusionMatrix as JaxConfusi
 from wav2vec_heart_sounds_tpu_torch import config
 from wav2vec_heart_sounds_tpu_torch.data import cinc as data_cinc
 from wav2vec_heart_sounds_tpu_torch.data import common as data_common
+from wav2vec_heart_sounds_tpu_torch.data import generated
+from wav2vec_heart_sounds_tpu_torch.data import generative as generative_data
 from wav2vec_heart_sounds_tpu_torch.data import vest
 from wav2vec_heart_sounds_tpu_torch.data import loader
 from wav2vec_heart_sounds_tpu_torch.data.fragments import Fragment, FragmentDataset
-from wav2vec_heart_sounds_tpu_torch.experiments import common
+from wav2vec_heart_sounds_tpu_torch.experiments import common, synthetic
+from wav2vec_heart_sounds_tpu_torch.models import registry
+from wav2vec_heart_sounds_tpu_torch.models.diffusion import diffwave, samplers, schedules, wavegrad
 from wav2vec_heart_sounds_tpu_torch.ops.kernels import build
+from wav2vec_heart_sounds_tpu_torch.train import generative
 from wav2vec_heart_sounds_tpu_torch.train.metrics import ConfusionMatrix
 from wav2vec_heart_sounds_tpu_torch.utils import observe
 
@@ -83,6 +97,26 @@ fusion = build_two_branch(branch, branch, device="cpu", train=True)
 pair = {{"waveform": np.random.default_rng(2).normal(size=(2, 1000, 2)).astype(np.float32),
         "label": np.array([0, 1]), "valid": np.ones(2, bool)}}
 SupervisedTrainer(fusion, optimizer_name="adamw", log=lambda s: None).fit([pair], [pair], 1)
+import tempfile
+from wav2vec_heart_sounds_tpu_torch.experiments import synthetic
+from wav2vec_heart_sounds_tpu_torch.models.diffusion import (DiffWaveConfig, build_diffwave,
+                                                             diffwave_sample)
+from wav2vec_heart_sounds_tpu_torch.models.registry import get_spec
+from wav2vec_heart_sounds_tpu_torch.train.generate import generate_dataset
+from wav2vec_heart_sounds_tpu_torch.train.generative import GenerativeTrainer, diffwave_loss
+vocoder = build_diffwave(DiffWaveConfig(residual_layers=2, residual_channels=8, n_mels=16,
+                                        hop_length=64, step_hidden=32), device="cpu")
+gen_rng = np.random.default_rng(3)
+gen_batch = {{"ref_audio": gen_rng.normal(size=(2, 256)).astype(np.float32),
+             "con_spec": gen_rng.uniform(size=(2, 16, 4)).astype(np.float32),
+             "label": np.array([0, 1], np.int32)}}
+with tempfile.TemporaryDirectory() as tmp:
+    gen_trainer = GenerativeTrainer(vocoder, diffwave_loss, tmp, log=lambda s: None)
+    assert np.isfinite(gen_trainer.train_step(gen_batch)) and gen_trainer.step == 1
+    items = [{{"con_spec": gen_batch["con_spec"][0], "label": 1, "patient": "g"}}]
+    generate_dataset(vocoder, get_spec("diffwave"), items, tmp)
+audio, sr = diffwave_sample(vocoder, gen_batch["con_spec"], 0, torch.Generator())
+assert audio.shape == (2, 256) and sr == 4000 and callable(synthetic.run)
 print("PORT_OK", sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}
                         and sys.modules[m] is not None))
 """
@@ -217,7 +251,20 @@ def _code(fn) -> str:
     (vest.build_fragments, jax_vest.build_fragments),
     (vest.multi_augment, jax_vest.multi_augment),
     (vest.multi_augment_host_residual, jax_vest.multi_augment_host_residual),
-    (vest.vest_dataset, jax_vest.vest_dataset)])
+    (vest.vest_dataset, jax_vest.vest_dataset),
+    *((getattr(ours, name), getattr(theirs, name)) for ours, theirs, names in (
+        (generative_data, jax_generative_data, ("GenRecord", "edge_fade", "rearranged_pair",
+                                                "framed", "pinned_mel", "GenerativeDataset",
+                                                "cinc_generative_dataset")),
+        (generated, jax_generated, ("read_manifest", "subsample", "generated_fragments")),
+        (schedules, jax_schedules, ("NoiseSchedule", "step_embedding_table")),
+        (samplers, jax_samplers, ("align_fast_steps", "_sigmas")),
+        (diffwave, jax_diffwave, ("DiffWaveConfig",)),
+        (wavegrad, jax_wavegrad, ("WaveGradConfig",)),
+        (registry, jax_registry, ("MelRecipe",)),
+        (generative, jax_generative, ("GenBatcher",)),
+        (synthetic, jax_synthetic, ("subsample_patients", "source_fragments")))
+      for name in names)])
 def test_copied_functions_have_the_originals_code(ours, theirs):
     assert _code(ours) == _code(theirs)
 
@@ -232,7 +279,8 @@ def _module_code(module) -> str:
 
 COPIED_MODULES = ("data.wfdb_io", "signal.despike", "signal.normalize", "signal.resample",
                   "signal.filters", "signal.preprocess", "augment.pipelines",
-                  "augment.primitives", "augment.dsp", "augment.noise_sources", "train.svm")
+                  "augment.primitives", "augment.dsp", "augment.noise_sources", "train.svm",
+                  "signal.spectrogram", "data.labels", "data.heart_cycles", "data.schedule")
 
 
 @pytest.mark.parametrize("name", COPIED_MODULES)

@@ -5,8 +5,11 @@ counterpart is easy to find, but imports only ``torch``, ``numpy`` and ``scipy``
 imports JAX, Flax, pandas or the JAX package, so it runs on a machine that has none of them.
 
 Ported so far: the scoring path (raw PCG windows -> preprocessing -> wav2vec2-base ->
-fragment and patient verdicts), the training step (``train.classifier.SupervisedTrainer``)
-and the CinC runner (``experiments.cinc.run``), with every TPU kernel on those paths as a
-hand-written CUDA kernel in ``csrc/``. Entry points run on the card unless the caller asks
-for the CPU.
+fragment and patient verdicts), the training step (``train.classifier.SupervisedTrainer``),
+the CinC, vest and fusion runners (``experiments.cinc.run``, ``experiments.multichannel.run``),
+with every TPU kernel on those paths as a hand-written CUDA kernel in ``csrc/``; and the
+generative half: the DiffWave and WaveGrad vocoders with their samplers
+(``models.diffusion``), their trainer and dataset writer (``train.generative``,
+``train.generate``) and the synthetic-schedule runner (``experiments.synthetic.run``).
+Entry points run on the card unless the caller asks for the CPU.
 """

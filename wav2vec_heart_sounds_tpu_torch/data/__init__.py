@@ -1,1 +1,2 @@
-"""Fragments and host batching (numpy copies of the JAX package's data layer)."""
+"""Fragments, host batching, the dataset builders and the generator datasets (numpy copies
+and ports of the JAX package's data layer)."""

@@ -13,6 +13,7 @@ from typing import Iterable, Iterator
 import numpy as np
 
 from ..config import WIRE_SCALE
+from .labels import balance_weights
 
 
 def pad_batch(waves: list[np.ndarray], target_len: int | None = None) -> np.ndarray:
@@ -26,14 +27,6 @@ def pad_batch(waves: list[np.ndarray], target_len: int | None = None) -> np.ndar
         n = min(w.shape[0], length)
         out[i, :n] = w[:n]
     return out
-
-
-def balance_weights(labels) -> np.ndarray:
-    """Per-item sampling weights under which every class is drawn equally often
-    (copy of ``wav2vec_heart_sounds_tpu/data/labels.py::balance_weights``)."""
-    labels = np.asarray(list(labels), dtype=np.int64)
-    inv = 1.0 / np.maximum(np.bincount(labels), 1).astype(np.float64)
-    return inv[labels]
 
 
 class Batcher:

@@ -1,1 +1,2 @@
-"""Runners: the CinC scoring path, and the loader helper of the training runners."""
+"""Runners: CinC (scoring and training), the vest, the synthetic schedule, and the loader
+helper of the training runners."""

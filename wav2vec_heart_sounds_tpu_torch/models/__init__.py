@@ -1,1 +1,2 @@
-"""wav2vec2-base and the classifier in PyTorch (eval mode), with weight converters."""
+"""wav2vec2-base and the classifier in PyTorch, the diffusion vocoders and their registry,
+with weight converters."""

@@ -7,7 +7,12 @@ each a classifier tree) maps leaf by leaf to the port's keys: dense kernels ``[i
 transpose to ``weight [out, in]``, conv kernels ``[k, in, out]`` to ``weight [out, in, k]``,
 norm ``scale`` becomes ``weight``, LoRA ``lora_a``/``lora_b`` keep their flax layout, and the
 delay predictor's attention kernels (``[32, 4, 8]`` for query/key/value, ``[4, 8, 32]``
-for out, biases ``[4, 8]``) flatten to ``[32, 32]`` linears. :func:`to_jax` is the exact
+for out, biases ``[4, 8]``) flatten to ``[32, 32]`` linears. The diffusion vocoders' trees
+(``DiffWave``: top key ``mel_upsampler``; ``WaveGrad``: top key ``first_conv``) map the same
+way onto their channels-first modules: a ``Dense`` over channels becomes a 1x1 conv
+(``[in, out]`` -> ``[out, in, 1]``), an ``Embed`` table keeps its layout, and DiffWave's
+upsampler kernel ``(3, 2f, 1, 1)`` becomes the ``ConvTranspose2d`` weight ``[1, 1, 3, 2f]``
+unflipped (the JAX module flips it itself). :func:`to_jax` is the exact
 inverse (it takes each leaf's shape from ``params_like``). The tree is plain nested dicts
 of arrays; nothing here imports JAX.
 """
@@ -19,7 +24,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-_DENSE, _CONV, _SAME = "dense", "conv", "same"
+_DENSE, _CONV, _SAME, _DENSE_1X1, _UPSAMPLE = "dense", "conv", "same", "dense_1x1", "upsample"
 _HEADS_IN, _HEADS_OUT, _FLAT = "heads_in", "heads_out", "flat"
 
 
@@ -90,8 +95,55 @@ def _head_layout(head: dict) -> list[tuple[tuple[str, ...], str, str]]:
     return [m for name in names for m in _dense(("head", name), f"head.{name}")]
 
 
+def _diffwave_layout(params: dict) -> list[tuple[tuple[str, ...], str, str]]:
+    up = params["mel_upsampler"]
+    out = _dense(("input_projection",), "input_projection", _DENSE_1X1)
+    out += _dense(("step_embedding", "proj1"), "step_embedding.proj1")
+    out += _dense(("step_embedding", "proj2"), "step_embedding.proj2")
+    for i in range(_count(up, "kernel_")):
+        out += [(("mel_upsampler", f"kernel_{i}"), f"mel_upsampler.convs.{i}.weight", _UPSAMPLE),
+                (("mel_upsampler", f"bias_{i}"), f"mel_upsampler.convs.{i}.bias", _SAME)]
+    out.append((("label_embedding", "embedding"), "label_embedding.weight", _SAME))
+    for i in range(_count(params, "residual_")):
+        jp, tp = (f"residual_{i}",), f"residual_layers.{i}"
+        out += _dense(jp + ("step_proj",), f"{tp}.step_proj")
+        out += _dense(jp + ("dilated",), f"{tp}.dilated", _CONV)
+        out += _dense(jp + ("label_proj",), f"{tp}.label_proj")
+        for name in ("cond_proj", "out_proj"):
+            out += _dense(jp + (name,), f"{tp}.{name}", _DENSE_1X1)
+    for name in ("skip_projection", "output_projection"):
+        out += _dense((name,), name, _DENSE_1X1)
+    return out
+
+
+def _wavegrad_layout(params: dict) -> list[tuple[tuple[str, ...], str, str]]:
+    def conv(path, key):
+        return _dense(path, key, _CONV)
+
+    out = conv(("init_conv",), "init_conv") + conv(("first_conv",), "first_conv")
+    out += conv(("last_conv",), "last_conv")
+    for i in range(_count(params, "down_")):
+        jp, tp = f"down_{i}", f"downs.{i}"
+        out += conv((jp, "residual"), f"{tp}.residual")
+        out += [m for j in range(3) for m in conv((jp, f"conv_{j}"), f"{tp}.convs.{j}")]
+    for i in range(_count(params, "film_")):
+        jp, tp = f"film_{i}", f"films.{i}"
+        out.append(((jp, "label_embedding", "embedding"), f"{tp}.label_embedding.weight", _SAME))
+        out += _dense((jp, "label_proj"), f"{tp}.label_proj")
+        out += conv((jp, "input_conv"), f"{tp}.input_conv")
+        out += conv((jp, "output_conv"), f"{tp}.output_conv")
+    for i in range(_count(params, "up_")):
+        out += [m for name in ("skip", "conv_a0", "conv_a1", "conv_b0", "conv_b1")
+                for m in conv((f"up_{i}", name), f"ups.{i}.{name}")]
+    return out
+
+
 def layout(params: dict) -> list[tuple[tuple[str, ...], str, str]]:
-    """Leaf mapping for a flax encoder, classifier or fusion tree."""
+    """Leaf mapping for a flax encoder, classifier, fusion, DiffWave or WaveGrad tree."""
+    if "mel_upsampler" in params:
+        return _diffwave_layout(params)
+    if "first_conv" in params:
+        return _wavegrad_layout(params)
     if "branch_0" in params:
         out = []
         for i in range(_count(params, "branch_")):
@@ -123,6 +175,7 @@ def _leaves(tree: dict, prefix=()) -> dict[tuple[str, ...], np.ndarray]:
 
 def _to_port(a: np.ndarray, kind: str) -> np.ndarray:
     return {_DENSE: lambda x: x.T, _CONV: lambda x: x.transpose(2, 1, 0),
+            _DENSE_1X1: lambda x: x.T[:, :, None], _UPSAMPLE: lambda x: x.transpose(2, 3, 0, 1),
             _SAME: lambda x: x, _HEADS_IN: lambda x: x.reshape(x.shape[0], -1).T,
             _HEADS_OUT: lambda x: x.reshape(-1, x.shape[-1]).T,
             _FLAT: lambda x: x.reshape(-1)}[kind](a)
@@ -130,7 +183,7 @@ def _to_port(a: np.ndarray, kind: str) -> np.ndarray:
 
 def _to_flax(a: np.ndarray, kind: str, shape: tuple[int, ...]) -> np.ndarray:
     """Inverse of :func:`_to_port` onto a flax leaf of ``shape``."""
-    if kind in (_HEADS_IN, _HEADS_OUT, _FLAT):
+    if kind in (_HEADS_IN, _HEADS_OUT, _FLAT, _DENSE_1X1):
         return (a if kind == _FLAT else a.T).reshape(shape)
     return _to_port(a, kind)                   # the other transforms are involutions
 

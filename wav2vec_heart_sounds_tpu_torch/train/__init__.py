@@ -1,1 +1,2 @@
-"""Training (losses, the float32-master optimizer, the supervised trainer), evaluation and metrics."""
+"""Training (losses, the float32-master optimizer, the supervised and generative trainers),
+synthetic-dataset generation, evaluation and metrics."""

@@ -46,13 +46,16 @@ def lr_schedule(name: str, lr: float):
 
 
 class MasterOptimizer:
-    """sgd / adam / adamw over ``params`` with a float32 master and a global-norm clip."""
+    """sgd / adam / adamw over ``params`` with a float32 master and a global-norm clip
+    at ``max_grad_norm``. The generative trainer takes plain Adam (decay 0) behind a clip at
+    1.0, as its JAX counterpart's optax chain."""
 
-    def __init__(self, params, name: str = "sgd", weight_decay: float = 1e-5):
+    def __init__(self, params, name: str = "sgd", weight_decay: float = 1e-5,
+                 max_grad_norm: float = MAX_GRAD_NORM):
         if name not in NAMES:
             raise ValueError(f"Unknown optimizer '{name}'")
         self.params = [p for p in params]
-        self.name, self.weight_decay = name, weight_decay
+        self.name, self.weight_decay, self.max_grad_norm = name, weight_decay, max_grad_norm
         self.master = [p.detach() if p.dtype == torch.float32 else p.detach().float()
                        for p in self.params]
         # live parameters that are not their own master, with their masters
@@ -82,9 +85,9 @@ class MasterOptimizer:
     def step(self, lr: float) -> None:
         grads = self._grads()
         norm = self.global_norm(grads)
-        clip = norm >= MAX_GRAD_NORM
+        clip = norm >= self.max_grad_norm
         torch._foreach_div_(grads, torch.where(clip, norm, 1.0))
-        torch._foreach_mul_(grads, torch.where(clip, MAX_GRAD_NORM, 1.0))
+        torch._foreach_mul_(grads, torch.where(clip, self.max_grad_norm, 1.0))
         wd, master = self.weight_decay, self.master
         if self.name == "sgd":
             torch._foreach_add_(grads, master, alpha=wd)
@@ -109,6 +112,25 @@ class MasterOptimizer:
             if self.name == "adamw":
                 torch._foreach_add_(upd, master, alpha=wd)
             torch._foreach_add_(master, upd, alpha=-lr)
+        if self._copied:
+            torch._foreach_copy_([p.data for p, _ in self._copied],
+                                 [m for _, m in self._copied])
+
+    def state_dict(self) -> dict:
+        """The step count, the float32 master and the moments (or momentum), for a
+        checkpoint."""
+        return {"count": self.count, "master": self.master, "state": self.state}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a :meth:`state_dict` in place and rewrite the live parameters from the
+        master."""
+        self.count = int(state["count"])
+        torch._foreach_copy_(self.master, list(state["master"]))
+        moments = self.state if self.name == "sgd" else [*self.state[0], *self.state[1]]
+        saved = state["state"] if self.name == "sgd" else [*state["state"][0],
+                                                            *state["state"][1]]
+        torch._foreach_copy_(moments, list(saved))
         if self._copied:
             torch._foreach_copy_([p.data for p, _ in self._copied],
                                  [m for _, m in self._copied])
