@@ -110,9 +110,11 @@ Phases, each of which exits non-zero on failure:
    no port kernel and must launch none): from one seeded state dict on the CPU and the card,
    float32, B = 2, the forward (1e-4 of the output's largest value) and one loss gradient
    from injected draws (the loss at 1e-4 relative, each gradient norm at 1e-3 relative);
+   the bf16 arm: the same weights at the bf16 compute dtype keep float32 parameters through
+   a ``train_step`` and give a forward within 0.2 of the float32 one's largest value;
    then bench.py's gen modes in audio-s/s, each the median of 3 windows of 10 calls:
    DiffWave fast sampling (B = 16, 96 frames), WaveGrad 6-step sampling (B = 8, 80 frames)
-   and ``GenerativeTrainer.train_step`` of both (B = 16, 80 frames);
+   and ``GenerativeTrainer.train_step`` of both (B = 16, 80 frames), float32 and bf16;
 19. the generative pipeline on phase 8's synthetic CinC directory, once per vocoder:
    ``cinc_generative_dataset`` -> ``GenerativeTrainer.train`` (one epoch of two batches,
    validation, the sample WAV) -> ``restore`` of ``weights-best`` (equal to the trained
@@ -121,7 +123,15 @@ Phases, each of which exits non-zero on failure:
 20. ``experiments.synthetic.run`` on a schedule of phase 8's directory and phase 19's
    DiffWave manifest (the second stage ``letskip``), full-width wav2vec2-base, bf16, 4 s at
    4125 Hz, B = 64: finite losses, the exact launches of every kernel (K1 2+2, K2, K3b and K4
-   12+12 a step, K3b 12 a validation or test batch), a record with the JAX runner's keys.
+   12+12 a step, K3b 12 a validation or test batch), a record with the JAX runner's keys;
+21. the command line: ``python -m wav2vec_heart_sounds_tpu_torch.cli --help`` in a
+   subprocess, then through ``cli.main`` on phase 8's CinC directory and a synthetic vest
+   directory ``make-splits``, ``classify-cinc`` (raw wire), ``classify-vest``, ``gen-train``
+   (DiffWave, bf16 compute), ``gen-sample``, ``classify-synthetic`` and ``summarize``: each
+   record with the JAX runner's keys and finite statistics, every kernel's exact launches
+   (K1-K4 on the ``classify-*`` commands, K6 and K7 on the vest, none on the vocoders), the
+   host chain taken by the C++ library (its seconds, its gap to the NumPy oracle), and
+   ``preprocess_ecg``, the normalisers and ``segment`` on the card against the CPU.
 
 Prints the card's name and power limit, one JSON line describing the kernels (launches
 from the ``fit`` of the path that runs each kernel: phase 7's K4 route for the CinC
@@ -2698,6 +2708,11 @@ VOCODER_CHECK_BATCH, VOCODER_WINDOW_CALLS = 2, 10
 # the other sign on the card, so a tensor's update is held to its L2 norm, not per element.
 # The H100 showed 2.1e-4 (DiffWave) and 1.0e-4 (WaveGrad, whose clip acts at a norm of 29).
 VOCODER_UPDATE_GAP = 2e-3
+# The bf16 compute dtype against float32 from one state dict, as a share of the float32
+# output's largest value: the H100 measured 7.8e-3 (DiffWave) and 6.5e-2 (WaveGrad, whose
+# U-net rounds to bf16 at every layer), the CPU 1.0e-2 and 4.7e-2; the bar is 3x the
+# largest. A layer left in the wrong dtype or a weight that did not load is off by O(1).
+VOCODER_BF16_FORWARD = 0.2
 
 
 def seeded_vocoder(name: str, seed: int = 0):
@@ -2778,11 +2793,14 @@ def phase_vocoders(card: str) -> None:
     at 1e-6 of the largest norm); then one ``GenerativeTrainer.train_step`` on each from those
     weights and draws: the pre-clip global norm and each Adam first moment's norm at 1e-3
     relative, and each parameter's update within ``VOCODER_UPDATE_GAP`` of its L2 norm. No
-    port kernel may launch (the vocoders run none). Then
+    port kernel may launch (the vocoders run none). The bf16 arm (``bf16_arm``): the same
+    weights built at the bf16 compute dtype keep float32 parameters through a ``train_step``,
+    and their forward is within ``VOCODER_BF16_FORWARD`` of the float32 one. Then
     bench.py's gen modes on the card, each the median of 3 windows of 10 calls with the
     spread: DiffWave fast sampling (B = 16, 96 frames, 6 steps), WaveGrad sampling (B = 8, 80
     frames, 6 steps) and ``GenerativeTrainer.train_step`` of both (B = 16, 80 frames), in
-    audio-s/s (seconds of 4 kHz audio generated, or trained on, per wall second)."""
+    float32 and at the bf16 compute dtype (``gen-train``'s default), in audio-s/s (seconds
+    of 4 kHz audio generated, or trained on, per wall second)."""
     import copy
     from wav2vec_heart_sounds_tpu_torch.models.registry import get_spec
     from wav2vec_heart_sounds_tpu_torch.train.generative import GenerativeTrainer
@@ -2806,6 +2824,7 @@ def phase_vocoders(card: str) -> None:
         check(scale > 0.1 and fwd_err <= 1e-4 * scale,
               f"{name} forward card vs CPU: {fwd_err} of {scale}")
         draws = vocoder_draws(name, b["ref_audio"], seed=19)
+        bf16_arm(name, spec, cpu, args, got, draws)
         losses, norms = [], []
         for model, batch, dev_draws in ((cpu, b, draws), (dev, bc, [d.cuda() for d in draws])):
             model.zero_grad(set_to_none=True)
@@ -2867,9 +2886,57 @@ def phase_vocoders(card: str) -> None:
               f"{seconds / np.median(runs):.1f} audio-s/s on {card} (median of 3 windows of "
               f"{VOCODER_WINDOW_CALLS} steps: {', '.join(f'{r * 1e3:.1f}' for r in runs)} ms; "
               f"host clock, the host-to-device copy included); losses "
-              f"{losses[0]:.5f} .. {losses[-1]:.5f}; peak device memory {peak:.2f} GiB; phase "
-              f"wall {time.perf_counter() - t0:.1f} s")
-        del model, trainer
+              f"{losses[0]:.5f} .. {losses[-1]:.5f}; peak device memory {peak:.2f} GiB")
+
+        bf16 = spec.build_model(2, device="cuda", dtype=torch.bfloat16)
+        bf16.load_state_dict(model.state_dict())
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer = GenerativeTrainer(bf16, spec.loss, tmp, log=lambda line: None)
+            losses = [trainer.train_step(tb) for _ in range(2)]
+            runs = timed_windows(lambda: losses.append(trainer.train_step(tb)))
+        check(all(np.isfinite(losses)) and not float32_gaps(bf16),
+              f"{name} bf16 training: losses {losses}, parameters {float32_gaps(bf16)}")
+        print(f"[vocoders] {name} GenerativeTrainer.train_step at the bf16 compute dtype (gen-train's "
+              f"default; float32 parameters), B={t_batch}, {t_frames} frames: "
+              f"{np.median(runs) / VOCODER_WINDOW_CALLS * 1e3:.1f} ms a step, "
+              f"{seconds / np.median(runs):.1f} audio-s/s on {card} (median of 3 windows of "
+              f"{VOCODER_WINDOW_CALLS} steps: {', '.join(f'{r * 1e3:.1f}' for r in runs)} ms; "
+              f"host clock); losses {losses[0]:.5f} .. {losses[-1]:.5f}; phase wall "
+              f"{time.perf_counter() - t0:.1f} s")
+        del model, bf16, trainer
+
+
+def float32_gaps(model) -> list[str]:
+    """The parameters of ``model`` that are not float32."""
+    return [n for n, p in model.named_parameters() if p.dtype != torch.float32]
+
+
+def bf16_arm(name: str, spec, cpu, args: tuple, f32_out: torch.Tensor, draws) -> None:
+    """The vocoder built at the bf16 compute dtype from the float32 CPU state dict, on the
+    card: every parameter float32 after the build and after one ``train_step``, and its
+    forward within ``VOCODER_BF16_FORWARD`` of the float32 card forward's largest value."""
+    from wav2vec_heart_sounds_tpu_torch.train.generative import GenerativeTrainer
+
+    model = spec.build_model(2, device="cuda", dtype=torch.bfloat16)
+    model.load_state_dict(cpu.state_dict())
+    built = float32_gaps(model)
+    with torch.no_grad():
+        out = model(*(a.cuda() for a in args)).cpu()
+    scale = f32_out.abs().max().item()
+    err = (out - f32_out).abs().max().item()
+    batch = vocoder_inputs(name, args[0].shape[0], args[0].shape[1] // spec.hop_length, seed=18)
+    with tempfile.TemporaryDirectory() as tmp:
+        loss = GenerativeTrainer(model, spec.loss, tmp, log=lambda line: None).train_step(
+            batch, [d.cuda() for d in draws])
+    stepped = float32_gaps(model)
+    print(f"[vocoders] {name} bf16 compute dtype: forward vs the float32 card forward "
+          f"max_abs_err={err:.3e} of {scale:.3e} (limit {VOCODER_BF16_FORWARD:g} of it); "
+          f"parameters not float32 after the build: {built}, after one train_step (loss "
+          f"{loss:.5f}): {stepped}")
+    check(out.dtype == torch.float32 and err <= VOCODER_BF16_FORWARD * scale,
+          f"{name} bf16 forward: {err} of {scale}")
+    check(not built and not stepped and np.isfinite(loss),
+          f"{name} bf16 parameters {built} / {stepped}, loss {loss}")
 
 
 def phase_generative_pipeline(tmp: Path) -> str:
@@ -2968,6 +3035,36 @@ def phase_synthetic_runner(tmp: Path, generated: str) -> None:
                              {"key": "generated", "epochs": 1, "letskip": True}]}
     path = tmp / "schedule.json"
     path.write_text(json.dumps(schedule))
+    results = tmp / "synthetic.json"
+    with counted_runner(runner) as (losses, evals):
+        reset_counts()
+        t0 = time.perf_counter()
+        record = runner.run(str(path), fs=FUSION_FS, window_s=WINDOW_S, random_init=True,
+                            batch_size=FUSION_BATCH, results_json=str(results),
+                            run_label="chip_smoke")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    got = counts()
+    values = [float(v) for v in losses]
+    steps = len(values)
+    stats = [v for level in ("fragment", "patient") for v in record[level].values()]
+    print(f"[synthetic] experiments.synthetic.run (real, then generated with letskip; skipped "
+          f"{record['skipped_stages']}): {seconds:.1f} s; {steps} train steps of B="
+          f"{FUSION_BATCH}, {evals[0]} validation/test batches; losses "
+          f"{', '.join(f'{v:.5f}' for v in values)}; fragment {json.dumps(record['fragment'])}; "
+          f"patient {json.dumps(record['patient'])}; launches {json.dumps(got)}")
+    check(steps >= 1 and all(np.isfinite(values)), f"synthetic runner losses {values}")
+    check(set(record) == SYNTHETIC_RECORD_KEYS, f"synthetic record keys {sorted(record)}")
+    check(all(np.isfinite(v) for v in stats), "synthetic runner statistics not finite")
+    check(json.loads(results.read_text())[-1]["run_label"] == "chip_smoke",
+          "the synthetic results record is missing")
+    check_launches("synthetic", got, steps, evals[0], PER_STEP, EVAL_PER_BATCH)
+
+
+@contextlib.contextmanager
+def counted_runner(runner):
+    """``runner``'s trainer and apply function recording each train step's loss and counting
+    eval batches (validation and test); yields ``(losses, [evals])``."""
     losses, evals = [], [0]
 
     class RecordingTrainer(runner.SupervisedTrainer):
@@ -2991,34 +3088,230 @@ def phase_synthetic_runner(tmp: Path, generated: str) -> None:
 
         return apply
 
-    results = tmp / "synthetic.json"
     with mock.patch.object(runner, "SupervisedTrainer", RecordingTrainer), \
             mock.patch.object(runner, "make_apply_fn", counted_apply_fn):
-        reset_counts()
-        t0 = time.perf_counter()
-        record = runner.run(str(path), fs=FUSION_FS, window_s=WINDOW_S, random_init=True,
-                            batch_size=FUSION_BATCH, results_json=str(results),
-                            run_label="chip_smoke")
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-    got = counts()
-    values = [float(v) for v in losses]
-    steps = len(values)
-    stats = [v for level in ("fragment", "patient") for v in record[level].values()]
-    print(f"[synthetic] experiments.synthetic.run (real, then generated with letskip; skipped "
-          f"{record['skipped_stages']}): {seconds:.1f} s; {steps} train steps of B="
-          f"{FUSION_BATCH}, {evals[0]} validation/test batches; losses "
-          f"{', '.join(f'{v:.5f}' for v in values)}; fragment {json.dumps(record['fragment'])}; "
-          f"patient {json.dumps(record['patient'])}; launches {json.dumps(got)}")
-    check(steps >= 1 and all(np.isfinite(values)), f"synthetic runner losses {values}")
-    check(set(record) == SYNTHETIC_RECORD_KEYS, f"synthetic record keys {sorted(record)}")
-    check(all(np.isfinite(v) for v in stats), "synthetic runner statistics not finite")
-    check(json.loads(results.read_text())[-1]["run_label"] == "chip_smoke",
-          "the synthetic results record is missing")
+        yield losses, evals
+
+
+def check_launches(label: str, got: dict, steps: int, evals: int, per_step: dict,
+                   per_eval: dict) -> None:
+    """Every kernel launched exactly ``per_step`` (forward, backward) a train step and
+    ``per_eval`` an eval batch."""
     for name in kernel_wrappers():
-        f, b = PER_STEP.get(name, (0, 0))
-        want = (f + b) * steps + EVAL_PER_BATCH.get(name, 0) * evals[0]
-        check(got[name] == want, f"synthetic {name}: {got[name]} launches, expected {want}")
+        f, b = per_step.get(name, (0, 0))
+        want = (f + b) * steps + per_eval.get(name, 0) * evals
+        check(got[name] == want, f"{label} {name}: {got[name]} launches, expected {want}")
+
+
+CLI_COMMANDS = ("make-splits", "summarize", "gen-train", "gen-sample", "classify-cinc",
+                "classify-vest", "classify-synthetic", "classify-lsdo")
+# The JAX runners' records (``experiments/cinc.py::run``, ``multichannel.py::run`` without
+# the SVM probe).
+CINC_RECORD_KEYS = {"mode", "dataset", "fs", "epochs", "train_epochs", "augment", "augment_num",
+                    "random_init", "reference_train_rnn", "topology", "fold", "run_label",
+                    "wire", "fragment", "patient"}
+VEST_RECORD_KEYS = {"channels", "fs", "epochs", "augment", "random_init", "lora",
+                    "freeze_encoder", "loss", "fold", "run_label", "mlp"}
+# The vest without LoRA (``--random-init`` turns it off): K1 at the feature projection and
+# the encoder input only.
+PER_STEP_VEST_NO_LORA = {**PER_STEP_VEST, "dropout": PER_STEP["dropout"]}
+
+
+def run_cli(argv: list[str]) -> tuple[str, float]:
+    """``cli.main(argv)`` in this process; its standard output and wall seconds."""
+    import io
+
+    from wav2vec_heart_sounds_tpu_torch import cli
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    torch.cuda.synchronize()
+    return out.getvalue(), time.perf_counter() - t0
+
+
+def echoed_record(text: str) -> dict:
+    """The record a ``classify-*`` command prints last (``json.dumps(indent=2)``)."""
+    text = "\n" + text
+    return json.loads(text[text.rindex("\n{\n") + 1:])
+
+
+def check_record(label: str, text: str, results: Path, keys: set, levels) -> dict:
+    """The echoed record: the JAX runner's keys, finite statistics, and the same record as
+    the last one the command appended to its results JSON."""
+    record = echoed_record(text)
+    stats = [v for level in levels for v in level(record).values()]
+    check(set(record) == keys, f"{label} record keys {sorted(record)}")
+    check(len(stats) > 0 and all(np.isfinite(v) for v in stats),
+          f"{label} statistics not finite: {stats}")
+    check(json.loads(results.read_text())[-1] == record, f"{label}: the results record differs")
+    return record
+
+
+def phase_cli(tmp: Path) -> None:
+    """Phase 21: the command line on the card. ``python -m wav2vec_heart_sounds_tpu_torch.cli
+    --help`` in a subprocess lists the eight commands; then, in this process through
+    ``cli.main`` (so launches count), on phase 8's synthetic CinC directory and a synthetic
+    vest directory: ``make-splits`` (a ``REFERENCE.csv`` of the CinC records), ``classify-cinc``
+    (raw wire), ``classify-vest`` (random init, so no LoRA), ``gen-train`` (DiffWave, at the
+    default ``--bf16``), ``gen-sample``, ``classify-synthetic`` on the real directory and that
+    manifest, and ``summarize`` over the three records. Each record has the JAX runner's keys
+    and finite statistics, and every kernel launches exactly as phases 8, 12 and 20 count for
+    those runners; the vocoder commands launch none. The host chain is the C++ library
+    (``native.available()``, and the dataset builds called it): its seconds and its largest
+    difference from the NumPy oracle on one record. Then ``preprocess_ecg``, the three
+    normalisers and ``segment`` on the card against the CPU at 1e-4 max-abs."""
+    from wav2vec_heart_sounds_tpu_torch import native
+    from wav2vec_heart_sounds_tpu_torch.data import splits, wfdb_io
+    from wav2vec_heart_sounds_tpu_torch.experiments import cinc, multichannel, synthetic
+    from wav2vec_heart_sounds_tpu_torch.signal import preprocess
+
+    help_text = subprocess.run([sys.executable, "-m", "wav2vec_heart_sounds_tpu_torch.cli",
+                                "--help"], cwd=ROOT, capture_output=True, text=True, check=True)
+    check(all(name in help_text.stdout for name in CLI_COMMANDS),
+          f"cli --help: {help_text.stdout}")
+    check(native.available(), "the C++ host library did not build")
+
+    real, vest = tmp / "cinc", tmp / "cli-vest"
+    vest.mkdir()
+    vest_csv = synthetic_vest(vest)
+    with open(real / "split.csv") as fh:
+        rows = [line.strip().split(",") for line in fh if line[0] not in "#p"]
+    (real / "REFERENCE.csv").write_text("".join(f"{r[0]},{r[1]}\n" for r in rows))
+    results = tmp / "cli-results.json"
+    chain = {"calls": 0, "seconds": 0.0}
+    native_pcg = native.preprocess_pcg
+
+    def timed_chain(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = native_pcg(*args, **kwargs)
+        chain["calls"] += 1
+        chain["seconds"] += time.perf_counter() - t0
+        return out
+
+    walls = {}
+    with mock.patch.object(native, "preprocess_pcg", timed_chain):
+        text, walls["make-splits"] = run_cli(["make-splits", "--data-dir", str(real), "--out",
+                                              str(tmp / "splits.csv"), "--folds", "2"])
+        table = splits.make_splits_from_dirs([str(real)], folds=2)
+        check(text.startswith(f"Wrote {len(rows)} records x 2 fold(s)") and
+              (tmp / "splits.csv").read_text().splitlines()[0] == "patient,label,split,split2"
+              and json.loads(text.split("\n", 1)[1]) == splits.split_counts(table),
+              f"make-splits: {text}")
+
+        for name, argv, runner, per_step, per_eval, keys, levels in (
+                ("classify-cinc", ["--data-dir", str(real), "--csv", str(real / "split.csv"),
+                                   "--wire", "raw"], cinc, PER_STEP, EVAL_PER_BATCH,
+                 CINC_RECORD_KEYS, (lambda r: r["fragment"], lambda r: r["patient"])),
+                ("classify-vest", ["--data-dir", str(vest), "--csv", vest_csv, "--no-svm"],
+                 multichannel, PER_STEP_VEST_NO_LORA, EVAL_PER_BATCH_VEST, VEST_RECORD_KEYS,
+                 (lambda r: r["mlp"]["fragment"], lambda r: r["mlp"]["patient"]))):
+            with counted_runner(runner) as (losses, evals):
+                reset_counts()
+                text, walls[name] = run_cli([
+                    name, *argv, "--random-init", "--no-augment", "--epochs", "1",
+                    "--max-batches", "2" if name == "classify-cinc" else "1",
+                    "--results-json", str(results)])
+            got = counts()
+            values = [float(v) for v in losses]
+            record = check_record(name, text, results, keys, levels)
+            print(f"[cli] {name}: {walls[name]:.1f} s; {len(values)} train steps, {evals[0]} "
+                  f"validation/test batches; losses {', '.join(f'{v:.5f}' for v in values)}; "
+                  f"{json.dumps(levels[0](record))}; launches {json.dumps(got)}")
+            check(len(values) >= 1 and all(np.isfinite(values)), f"{name} losses {values}")
+            check_launches(name, got, len(values), evals[0], per_step, per_eval)
+
+        model_dir, generated = tmp / "cli-diffwave", tmp / "cli-generated"
+        gen = ["--model", "diffwave", "--data-dir", str(real), "--csv", str(real / "split.csv")]
+        reset_counts()
+        text, walls["gen-train"] = run_cli(["gen-train", *gen, "--output-dir", str(model_dir),
+                                            "--epochs", "1", "--max-train-batches", "2"])
+        saved = torch.load(model_dir / "weights.pt", map_location="cpu", weights_only=True)
+        check(text.endswith(f"Saved generator to {model_dir}/weights.pt\n") and
+              all(v.dtype == torch.float32 for v in saved["model"].values()),
+              f"gen-train: {text}")
+        text, walls["gen-sample"] = run_cli(["gen-sample", *gen, "--weights",
+                                             str(model_dir / "weights.pt"), "--output-dir",
+                                             str(generated)])
+        manifest = generated / "REFERENCE.csv"
+        check(text == f"Wrote manifest {manifest}\n" and len(manifest.read_text().splitlines())
+              == len(rows) + 1, f"gen-sample: {text}")
+        check(not any(counts().values()), f"the vocoder commands launched {counts()}")
+        print(f"[cli] gen-train (DiffWave, bf16 compute, float32 checkpoint, step "
+              f"{saved['step']}): {walls['gen-train']:.1f} s; gen-sample: "
+              f"{walls['gen-sample']:.1f} s, {len(rows)} WAVs")
+
+        schedule = {"test_set": {"data": str(real), "split": str(real / "split.csv"),
+                                 "segment": ""},
+                    "valid_set": {"data": str(real), "split": str(real / "split.csv"),
+                                  "segment": ""},
+                    "datasets": {"real": {"path": str(real), "split": str(real / "split.csv"),
+                                          "segment": "", "gen_data": False, "augment_num": 0},
+                                 "generated": {"path": str(generated), "split": "",
+                                               "segment": "", "gen_data": True,
+                                               "augment_num": 0}},
+                    "schedule": [{"key": "real", "epochs": 1},
+                                 {"key": "generated", "epochs": 1}]}
+        (tmp / "cli-schedule.json").write_text(json.dumps(schedule))
+        with counted_runner(synthetic) as (losses, evals):
+            reset_counts()
+            text, walls["classify-synthetic"] = run_cli([
+                "classify-synthetic", "--schedule", str(tmp / "cli-schedule.json"),
+                "--random-init", "--max-batches", "2", "--results-json", str(results)])
+        got = counts()
+        values = [float(v) for v in losses]
+        record = check_record("classify-synthetic", text, results, SYNTHETIC_RECORD_KEYS,
+                              (lambda r: r["fragment"], lambda r: r["patient"]))
+        print(f"[cli] classify-synthetic: {walls['classify-synthetic']:.1f} s; {len(values)} "
+              f"train steps, {evals[0]} validation/test batches; skipped "
+              f"{record['skipped_stages']}; launches {json.dumps(got)}")
+        check(len(values) >= 1 and all(np.isfinite(values)), f"synthetic losses {values}")
+        check_launches("classify-synthetic", got, len(values), evals[0], PER_STEP,
+                       EVAL_PER_BATCH)
+
+    text, walls["summarize"] = run_cli(["summarize", str(results)])
+    check(text.startswith("| condition | n |") and len(text.splitlines()) == 3,
+          f"summarize: {text}")
+    check(chain["calls"] > 0, "the dataset builds did not take the C++ host chain")
+    record = wfdb_io.read_record(str(real / "a0000"))
+    signal, fs = record.p_signal, record.fs
+    t0 = time.perf_counter()
+    fast = native_pcg(signal[:, 0], fs, 4125)
+    one = time.perf_counter() - t0
+    gap = np.abs(fast - preprocess.preprocess_pcg(signal[:, 0], fs, 4125)).max()
+    print(f"[cli] the host chain: the C++ library ({native.BUILD_DIR}), {chain['calls']} PCG "
+          f"records in {chain['seconds']:.3f} s across the commands; one 12 s record at "
+          f"{fs} Hz -> 4125 Hz {one * 1e3:.2f} ms, max |C++ - NumPy oracle| = {gap:.3e}")
+    check(gap < 1e-9, f"the C++ chain differs from the oracle by {gap}")
+    signal_ops_on_card()
+    print(f"[cli] wall by command: {json.dumps({k: round(v, 1) for k, v in walls.items()})}")
+
+
+def signal_ops_on_card() -> None:
+    """``preprocess_ecg``, the three normalisers and ``segment`` on the card against the
+    same functions on the CPU, at 1e-4 max-abs."""
+    from wav2vec_heart_sounds_tpu_torch.config import WindowSpec
+    from wav2vec_heart_sounds_tpu_torch.ops import normalize, segment
+    from wav2vec_heart_sounds_tpu_torch.signal import torchproc
+
+    gen = torch.Generator().manual_seed(21)
+    t = torch.arange(4 * FS_WIRE) / FS_WIRE
+    ecg = torch.sin(2 * np.pi * (1.0 + torch.rand(8, 1, generator=gen)) * t) ** 15 \
+        + 0.05 * torch.randn(8, t.numel(), generator=gen)
+    x = torch.randn(8, 16500, generator=gen) * 3.0 + 0.5
+    for label, fn, arg in (
+            ("preprocess_ecg", lambda v: torchproc.preprocess_ecg(v, FS_WIRE, 4125), ecg),
+            ("minmax_normalise", normalize.minmax_normalise, x),
+            ("z_normalise", normalize.z_normalise, x),
+            ("kpeak_normalise", normalize.kpeak_normalise, x),
+            ("segment", lambda v: segment.segment(v, 4125, WindowSpec(window_s=2.0)), x)):
+        want = fn(arg)
+        got = fn(arg.cuda()).cpu()
+        err = (got - want).abs().max().item()
+        print(f"[cli] {label} {tuple(arg.shape)} card vs CPU: max_abs_err={err:.3e} "
+              f"(limit 1e-4)")
+        check(got.shape == want.shape and err <= 1e-4, f"{label} card vs CPU: {err}")
 
 
 def timed(phase, *args):
@@ -3069,6 +3362,7 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         generated = timed(phase_generative_pipeline, Path(tmp))
         timed(phase_synthetic_runner, Path(tmp), generated)
+        timed(phase_cli, Path(tmp))
     print(f"[wall] all phases: {time.perf_counter() - start:.1f} s")
     print(card)
     print(json.dumps({"kernels": [

@@ -3,7 +3,8 @@
 The two draw from different generators, so each JAX transform runs with its random draws
 injected: ``jax.random`` inside ``jaxaug`` is replaced by a stub that hands out, in call
 order, the same unit draws the port's ``draws`` dict carries. Each transform's
-deterministic core then agrees within 1e-5 (float32; the EQ's partial fractions are
+deterministic core (the two standalone transforms, ``baseline_wander`` and ``amplitude_warp``,
+too) then agrees within 1e-5 (float32; the EQ's partial fractions are
 float64 host math in the port and float32 in JAX), and so does the whole stage
 composition. Rows that do not participate are bit-identical to the input, and the
 participation fraction under ``pristine_prob`` stays within four binomial standard
@@ -125,6 +126,23 @@ def test_parametric_eq_core(inject, fs):
     inject(_queue("eq", d)[:-1])
     _close(torchaug.parametric_eq(torch.from_numpy(x), fs, _torch(d)),
            jaxaug.parametric_eq(None, jnp.asarray(x), fs, *torchaug.EQ_RANGE))
+
+
+def test_baseline_wander_core(inject):
+    x, d = _x(7), _envelope(np.random.default_rng(8))
+    inject(_queue("envelope", d)[:-1])
+    _close(torchaug.baseline_wander(torch.from_numpy(x), FS, _torch(d)),
+           jaxaug.baseline_wander(None, jnp.asarray(x), FS))
+
+
+@pytest.mark.parametrize("num_points,kernel", [(12, 65), (5, 33)])
+def test_amplitude_warp_core(inject, num_points, kernel):
+    x = _x(9)
+    amps = np.random.default_rng(10).random((B, num_points), dtype=np.float32)
+    inject([amps])
+    _close(torchaug.amplitude_warp(torch.from_numpy(x), {"amps": torch.from_numpy(amps)},
+                                   num_points, kernel),
+           jaxaug.amplitude_warp(None, jnp.asarray(x), num_points, kernel))
 
 
 def test_blend_core(inject):

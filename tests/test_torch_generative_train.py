@@ -243,7 +243,7 @@ def test_registry_matches_jax(name):
     assert model.config.num_classes == 3
     first, out = ((model.input_projection, model.output_projection) if name == "diffwave"
                   else (model.init_conv, model.last_conv))
-    assert first.weight.dtype == torch.bfloat16 and out.weight.dtype == torch.float32
-    assert all(b.dtype == torch.float32 for b in model.buffers())
+    assert first.compute_dtype == torch.bfloat16 and out.compute_dtype == torch.float32
+    assert all(t.dtype == torch.float32 for t in (*model.parameters(), *model.buffers()))
     with pytest.raises(ValueError, match="Unknown generator"):
         registry.get_spec("nope")

@@ -1,5 +1,7 @@
-"""The port stands alone: no JAX, flax, optax, pandas or JAX-package import anywhere in it,
-and its numpy copies of the JAX package's host layers give identical results."""
+"""The port stands alone: no JAX, flax, optax, pandas, click or JAX-package import anywhere in
+it (with them blocked it imports, trains, samples and runs ``make-splits`` and ``summarize``
+through its CLI), and its numpy copies of the JAX package's host layers give identical
+results."""
 
 import ast
 import importlib
@@ -32,6 +34,8 @@ from wav2vec_heart_sounds_tpu.models.diffusion import wavegrad as jax_wavegrad
 from wav2vec_heart_sounds_tpu.train import generative as jax_generative
 from wav2vec_heart_sounds_tpu.experiments import common as jax_common
 from wav2vec_heart_sounds_tpu.utils import observe as jax_observe
+from wav2vec_heart_sounds_tpu import native as jax_native
+from wav2vec_heart_sounds_tpu.data import splits as jax_splits
 from wav2vec_heart_sounds_tpu.signal import filters as jax_filters
 from wav2vec_heart_sounds_tpu.train.metrics import ConfusionMatrix as JaxConfusionMatrix
 from wav2vec_heart_sounds_tpu_torch import config
@@ -49,6 +53,8 @@ from wav2vec_heart_sounds_tpu_torch.ops.kernels import build
 from wav2vec_heart_sounds_tpu_torch.train import generative
 from wav2vec_heart_sounds_tpu_torch.train.metrics import ConfusionMatrix
 from wav2vec_heart_sounds_tpu_torch.utils import observe
+from wav2vec_heart_sounds_tpu_torch import native
+from wav2vec_heart_sounds_tpu_torch.data import splits
 
 # the JAX package's signal/__init__ re-exports a function named ``segment``
 jax_segment = importlib.import_module("wav2vec_heart_sounds_tpu.signal.segment")
@@ -56,7 +62,7 @@ segment = importlib.import_module("wav2vec_heart_sounds_tpu_torch.signal.segment
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "wav2vec_heart_sounds_tpu_torch"
-BLOCKED = ("jax", "flax", "optax", "pandas", "wav2vec_heart_sounds_tpu")
+BLOCKED = ("jax", "flax", "optax", "pandas", "click", "wav2vec_heart_sounds_tpu")
 
 _ISOLATED = f"""
 import sys
@@ -117,6 +123,20 @@ with tempfile.TemporaryDirectory() as tmp:
     generate_dataset(vocoder, get_spec("diffwave"), items, tmp)
 audio, sr = diffwave_sample(vocoder, gen_batch["con_spec"], 0, torch.Generator())
 assert audio.shape == (2, 256) and sr == 4000 and callable(synthetic.run)
+import contextlib, io, json, os
+from wav2vec_heart_sounds_tpu_torch import cli
+with tempfile.TemporaryDirectory() as tmp:
+    with open(os.path.join(tmp, "REFERENCE.csv"), "w") as fh:
+        fh.write("".join(f"r{{i}},{{1 if i % 3 else -1}}\\n" for i in range(12)))
+    results = os.path.join(tmp, "results.json")
+    with open(results, "w") as fh:
+        json.dump([{{"run_label": "x", "patient": {{"mcc": 0.5}}}}], fh)
+    echo = io.StringIO()
+    with contextlib.redirect_stdout(echo):
+        cli.main(["make-splits", "--data-dir", tmp, "--out", os.path.join(tmp, "s.csv")])
+        cli.main(["summarize", results])
+    assert "Wrote 12 records x 5 fold(s)" in echo.getvalue(), echo.getvalue()
+    assert "| run_label=x | 1 | 0.5000±0.0000 |" in echo.getvalue(), echo.getvalue()
 print("PORT_OK", sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}
                         and sys.modules[m] is not None))
 """
@@ -230,6 +250,9 @@ def _code(fn) -> str:
     (common.make_loader, jax_common.make_loader),
     (common.append_result, jax_common.append_result),
     (observe.ScalarLogger, jax_observe.ScalarLogger),
+    (observe.stopwatch, jax_observe.stopwatch),
+    (splits.SplitRatios, jax_splits.SplitRatios),
+    (splits.read_cinc_labels, jax_splits.read_cinc_labels),
     (segment.window_starts, jax_segment.window_starts),
     (segment.pad_or_crop, jax_segment.pad_or_crop),
     (segment.segment, jax_segment.segment),
@@ -263,7 +286,10 @@ def _code(fn) -> str:
         (wavegrad, jax_wavegrad, ("WaveGradConfig",)),
         (registry, jax_registry, ("MelRecipe",)),
         (generative, jax_generative, ("GenBatcher",)),
-        (synthetic, jax_synthetic, ("subsample_patients", "source_fragments")))
+        (synthetic, jax_synthetic, ("subsample_patients", "source_fragments")),
+        (native, jax_native, ("available", "_resample_plan", "_band_sos", "resample",
+                              "remove_spikes", "_preprocess", "preprocess_pcg",
+                              "preprocess_ecg", "preprocess_pcg_batch")))
       for name in names)])
 def test_copied_functions_have_the_originals_code(ours, theirs):
     assert _code(ours) == _code(theirs)
@@ -280,7 +306,8 @@ def _module_code(module) -> str:
 COPIED_MODULES = ("data.wfdb_io", "signal.despike", "signal.normalize", "signal.resample",
                   "signal.filters", "signal.preprocess", "augment.pipelines",
                   "augment.primitives", "augment.dsp", "augment.noise_sources", "train.svm",
-                  "signal.spectrogram", "data.labels", "data.heart_cycles", "data.schedule")
+                  "signal.spectrogram", "data.labels", "data.heart_cycles", "data.schedule",
+                  "reporting", "train.params", "signal.envelopes")
 
 
 @pytest.mark.parametrize("name", COPIED_MODULES)

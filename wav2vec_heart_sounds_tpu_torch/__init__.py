@@ -2,7 +2,8 @@
 
 The JAX package stays the reference. This package mirrors its module names so each
 counterpart is easy to find, but imports only ``torch``, ``numpy`` and ``scipy``: it never
-imports JAX, Flax, pandas or the JAX package, so it runs on a machine that has none of them.
+imports JAX, Flax, pandas, click or the JAX package, so it runs on a machine that has none of
+them.
 
 Ported so far: the scoring path (raw PCG windows -> preprocessing -> wav2vec2-base ->
 fragment and patient verdicts), the training step (``train.classifier.SupervisedTrainer``),
@@ -10,6 +11,8 @@ the CinC, vest and fusion runners (``experiments.cinc.run``, ``experiments.multi
 with every TPU kernel on those paths as a hand-written CUDA kernel in ``csrc/``; and the
 generative half: the DiffWave and WaveGrad vocoders with their samplers
 (``models.diffusion``), their trainer and dataset writer (``train.generative``,
-``train.generate``) and the synthetic-schedule runner (``experiments.synthetic.run``).
-Entry points run on the card unless the caller asks for the CPU.
+``train.generate``) and the synthetic-schedule runner (``experiments.synthetic.run``); and
+the command line (``cli``: ``python -m wav2vec_heart_sounds_tpu_torch.cli``) with the data
+splits, reporting, presets, the C++ host chain (``native``) and the rest of the signal
+surface. Entry points run on the card unless the caller asks for the CPU.
 """

@@ -13,7 +13,9 @@ each gated once per sample and shared across its microphones so inter-channel ph
 kept; wander and recorded noise renormalise, white noise does not.
 
 Rows that do not participate at all (``row_mask`` / ``pristine_prob``) pass through
-bit-identically.
+bit-identically. :func:`baseline_wander` and :func:`amplitude_warp` are ports of the JAX
+module's standalone transforms (no pipeline stage calls them), taking their draws as the
+others do.
 
 Randomness is split from the arithmetic so both can be tested: :func:`draw_pcg_batch`
 takes every draw from a CPU ``torch.Generator`` in a fixed order (small per-row
@@ -28,7 +30,9 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
+from ..ops import full_fp32
 from ..ops.iir import biquad_dynamic, butter1_bandpass_coeffs
 from ..ops.normalize import abs_max_normalise as _normalise
 from .pipelines import (MULTI_PROB_NOISE, MULTI_PROB_REAL_NOISE, MULTI_PROB_WANDER,
@@ -113,6 +117,32 @@ def two_band_sines(t: torch.Tensor, d: dict, amp_lo: float, amp_span: float) -> 
 def sinusoidal_envelope(x: torch.Tensor, fs: int, d: dict) -> torch.Tensor:
     t = torch.arange(x.shape[-1], dtype=x.dtype, device=x.device) / fs
     return x * (1.0 + two_band_sines(t, d, 0.01, 0.24))
+
+
+def baseline_wander(x: torch.Tensor, fs: int, d: dict) -> torch.Tensor:
+    """Add per-row fast and slow random sinusoids; ``d`` holds unit uniforms ``amp``,
+    ``freq`` and ``phase``, each ``[2, B]`` (one row per band), as the envelope's."""
+    t = torch.arange(x.shape[-1], dtype=x.dtype, device=x.device) / fs
+    return x + two_band_sines(t, d, 0.01, 0.19)
+
+
+def amplitude_warp(x: torch.Tensor, d: dict, num_points: int = 12,
+                   kernel: int = 65) -> torch.Tensor:
+    """Per-sample smooth unit-sum gain curve applied as a depthwise 1-D convolution of the
+    reflect-padded ``[B, T]`` rows; ``d["amps"]`` holds ``[B, num_points]`` unit uniforms,
+    the curve's control points."""
+    b, t = x.shape
+    amps = 0.7 + d["amps"].to(x.device, x.dtype) * 0.6
+    grid = torch.arange(kernel, dtype=x.dtype, device=x.device) / (kernel - 1) * (num_points - 1)
+    lo = torch.floor(grid).long().clamp(0, num_points - 1)
+    hi = torch.ceil(grid).long().clamp(0, num_points - 1)
+    frac = grid - lo
+    curve = amps[:, lo] + (amps[:, hi] - amps[:, lo]) * frac[None, :]       # [B, K]
+    curve = curve / curve.sum(dim=-1, keepdim=True)
+    padded = F.pad(x[None], (kernel // 2, kernel // 2), mode="reflect")    # [1, B, T + K - 1]
+    with full_fp32():
+        out = F.conv1d(padded, curve[:, None, :], groups=b)
+    return out[0, :, :t]
 
 
 def eq_edges(d: dict, fs: float, low: float = EQ_RANGE[0],

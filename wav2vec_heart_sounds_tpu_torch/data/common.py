@@ -10,15 +10,17 @@ holds ints (a float column floats, anything else strings), so ``str(patient)`` a
 label ints come out as pandas gives them. ``balanced_copy_counts`` and ``progress`` are
 copies, held to the originals by ``tests/test_torch_imports.py``.
 
-Preprocessing (:func:`pcg_chain`, :func:`ecg_chain`) runs the NumPy oracle
-(:mod:`..signal.preprocess`); the JAX package's C++ host library (``native/fastproc.cpp``)
-is not ported yet. ``stack_min_length`` is a copy too.
+Preprocessing (:func:`pcg_chain`, :func:`ecg_chain`) runs the C++ host library
+(:mod:`..native`, ``native/fastproc.cpp``) when it builds, and the NumPy oracle
+(:mod:`..signal.preprocess`) otherwise or under ``W2VHS_NO_NATIVE=1``, as the JAX package's
+does. ``stack_min_length`` is a copy too.
 """
 
 from __future__ import annotations
 
 import csv
 import math
+import os
 
 import numpy as np
 
@@ -117,15 +119,29 @@ def progress(iterable, desc: str, unit: str = "rec", total: int | None = None):
         return iterable
 
 
+def _native_enabled() -> bool:
+    from .. import native
+
+    return os.environ.get("W2VHS_NO_NATIVE") != "1" and native.available()
+
+
 def pcg_chain(x: np.ndarray, fs_in: float, fs_out: float) -> np.ndarray:
-    """Full PCG preprocessing chain on the host (the NumPy oracle)."""
+    """Full PCG preprocessing chain on the host — C++ when available, the oracle otherwise."""
+    if _native_enabled():
+        from .. import native
+
+        return native.preprocess_pcg(x, fs_in, fs_out)
     from ..signal.preprocess import preprocess_pcg
 
     return preprocess_pcg(x, fs_in, fs_out)
 
 
 def ecg_chain(x: np.ndarray, fs_in: float, fs_out: float) -> np.ndarray:
-    """Full ECG preprocessing chain on the host (the NumPy oracle)."""
+    """Full ECG preprocessing chain on the host — C++ when available, the oracle otherwise."""
+    if _native_enabled():
+        from .. import native
+
+        return native.preprocess_ecg(x, fs_in, fs_out)
     from ..signal.preprocess import preprocess_ecg
 
     return preprocess_ecg(x, fs_in, fs_out)

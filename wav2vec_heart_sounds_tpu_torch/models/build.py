@@ -1,5 +1,6 @@
 """Construct a classifier on the meta device, allocate it on the target, init from a seed;
-and the two-branch PCG+ECG fusion model built from two such classifiers."""
+the two-branch PCG+ECG fusion model built from two such classifiers; and the compute dtype
+that the command line takes by device."""
 
 from __future__ import annotations
 
@@ -9,6 +10,12 @@ from . import hf_port
 from .classifier import ClassifierConfig, Wav2VecClassifier
 from .fusion import EncoderFusion, two_branch_pcg_ecg
 from .wav2vec2 import init_parameters
+
+
+def default_compute_dtype(device) -> torch.dtype:
+    """bfloat16 on the card, float32 on the CPU (the JAX package's ``default_compute_dtype``
+    by backend)."""
+    return torch.float32 if torch.device(device).type == "cpu" else torch.bfloat16
 
 
 def build_classifier(cfg: ClassifierConfig, seed: int = 0, device="cuda",

@@ -13,8 +13,10 @@ The mel upsampler is ``nn.ConvTranspose2d(1, 1, (3, 2f), stride (1, f), padding
 weight ``[1, 1, 3, 2f]`` is that kernel unflipped (:mod:`..from_jax`). An odd factor gives
 ``W f + 1`` columns, which :func:`_match_time` crops.
 
-:func:`build_diffwave` makes the model from a seed on ``device`` in ``dtype``: parameters in
-``dtype`` except the float32 out-projection, buffers (the step table) float32.
+:func:`build_diffwave` makes the model from a seed on ``device``, computing in ``dtype`` as the
+JAX module built with ``dtype=`` does: every parameter and buffer stays float32, each layer
+casts its weight and its input to ``dtype`` where it computes (:mod:`.layers`), and the
+out-projection computes in float32.
 """
 
 from __future__ import annotations
@@ -26,8 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .init import (EMBED, HE_NORMAL, LECUN_NORMAL, ZEROS, cast_parameters, init_parameters,
-                   tagged)
+from .init import EMBED, HE_NORMAL, LECUN_NORMAL, ZEROS, init_parameters, tagged
+from .layers import Conv1d, ConvTranspose2d, Embedding, Linear, set_compute_dtype
 from .schedules import DiffusionStepEmbedding, NoiseSchedule
 
 
@@ -58,9 +60,9 @@ class DiffWaveConfig:
         return 1, hop
 
 
-def _dense(cin: int, cout: int, kind: str = HE_NORMAL) -> nn.Conv1d:
+def _dense(cin: int, cout: int, kind: str = HE_NORMAL) -> Conv1d:
     """A flax ``Dense`` over the channels of ``[B, C, T]``: a 1x1 conv."""
-    return tagged(nn.Conv1d(cin, cout, 1), kind)
+    return tagged(Conv1d(cin, cout, 1), kind)
 
 
 class MelUpsampler(nn.Module):
@@ -69,11 +71,11 @@ class MelUpsampler(nn.Module):
     def __init__(self, factors: tuple[int, int]):
         super().__init__()
         self.convs = nn.ModuleList(
-            tagged(nn.ConvTranspose2d(1, 1, (3, 2 * f), stride=(1, f), padding=(1, f // 2)),
+            tagged(ConvTranspose2d(1, 1, (3, 2 * f), stride=(1, f), padding=(1, f // 2)),
                    LECUN_NORMAL) for f in factors)
 
     def forward(self, mel: torch.Tensor) -> torch.Tensor:
-        x = mel[:, None].to(self.convs[0].weight.dtype)            # [B, 1, M, F]
+        x = mel[:, None]                                           # [B, 1, M, F]
         for conv in self.convs:
             x = F.leaky_relu(conv(x), 0.4)
         return x[:, 0]
@@ -93,10 +95,10 @@ class ResidualBlock(nn.Module):
                  label_dim: int):
         super().__init__()
         c, d = channels, dilation
-        self.step_proj = tagged(nn.Linear(step_hidden, c), LECUN_NORMAL)
-        self.dilated = tagged(nn.Conv1d(c, 2 * c, 3, padding=d, dilation=d), HE_NORMAL)
+        self.step_proj = tagged(Linear(step_hidden, c), LECUN_NORMAL)
+        self.dilated = tagged(Conv1d(c, 2 * c, 3, padding=d, dilation=d), HE_NORMAL)
         self.cond_proj = _dense(n_mels, 2 * c)
-        self.label_proj = tagged(nn.Linear(label_dim, 2 * c), HE_NORMAL)
+        self.label_proj = tagged(Linear(label_dim, 2 * c), HE_NORMAL)
         self.out_proj = _dense(c, 2 * c)
 
     def forward(self, x, step_embed, conditioner, label_embed):
@@ -111,7 +113,7 @@ class ResidualBlock(nn.Module):
 
 
 class DiffWave(nn.Module):
-    def __init__(self, config: DiffWaveConfig):
+    def __init__(self, config: DiffWaveConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg = self.config = config
         c = cfg.residual_channels
@@ -121,18 +123,18 @@ class DiffWave(nn.Module):
         for layer in (self.step_embedding.proj1, self.step_embedding.proj2):
             tagged(layer, LECUN_NORMAL)
         self.mel_upsampler = MelUpsampler(cfg.upsample_factors())
-        self.label_embedding = tagged(nn.Embedding(cfg.num_classes, cfg.label_dim), EMBED)
+        self.label_embedding = tagged(Embedding(cfg.num_classes, cfg.label_dim), EMBED)
         self.residual_layers = nn.ModuleList(
             ResidualBlock(cfg.n_mels, c, 2 ** (i % cfg.dilation_cycle), cfg.step_hidden,
                           cfg.label_dim) for i in range(cfg.residual_layers))
         self.skip_projection = _dense(c, c)
         self.output_projection = _dense(c, 1, ZEROS)
+        set_compute_dtype(self, dtype, (self.output_projection,))
 
     def forward(self, audio: torch.Tensor, step: torch.Tensor, conditioner: torch.Tensor,
                 label: torch.Tensor) -> torch.Tensor:
         """audio [B, T], step [B], conditioner [B, n_mels, frames], label [B] -> eps [B, T]."""
-        dtype = self.input_projection.weight.dtype
-        x = F.relu(self.input_projection(audio[:, None].to(dtype)))
+        x = F.relu(self.input_projection(audio[:, None]))
         step_embed = self.step_embedding(step)
         cond = _match_time(self.mel_upsampler(conditioner), x.shape[-1])
         label_embed = self.label_embedding(label)
@@ -142,12 +144,13 @@ class DiffWave(nn.Module):
             skip = skip + s
         x = skip / sqrt(self.config.residual_layers)
         x = F.relu(self.skip_projection(x))
-        return self.output_projection(x.float())[:, 0]
+        return self.output_projection(x)[:, 0]
 
 
 def build_diffwave(config: DiffWaveConfig = DiffWaveConfig(), seed: int = 0, device="cuda",
                    dtype: torch.dtype = torch.float32) -> DiffWave:
-    """A seeded DiffWave on ``device`` (the card unless the caller asks for the CPU)."""
-    model = DiffWave(config)
+    """A seeded DiffWave on ``device`` (the card unless the caller asks for the CPU),
+    computing in ``dtype`` with float32 parameters."""
+    model = DiffWave(config, dtype)
     init_parameters(model, torch.Generator().manual_seed(seed))
-    return cast_parameters(model, dtype, (model.output_projection,)).to(device)
+    return model.to(device)

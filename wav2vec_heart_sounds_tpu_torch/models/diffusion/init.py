@@ -1,5 +1,4 @@
-"""The flax initialisers the vocoders use, drawn from a ``torch.Generator`` in place, and the
-parameter cast of their builders.
+"""The flax initialisers the vocoders use, drawn from a ``torch.Generator`` in place.
 
 Each layer of :mod:`.diffwave` and :mod:`.wavegrad` is tagged with the flax initialiser of
 its JAX counterpart (``layer.init_kind``); :func:`init_parameters` draws every tagged
@@ -75,12 +74,3 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
         if getattr(layer, "bias", None) is not None:
             layer.bias.zero_()
 
-
-def cast_parameters(model: nn.Module, dtype: torch.dtype, keep_float32=()) -> nn.Module:
-    """Parameters to ``dtype`` (but ``keep_float32``'s, the float32 output layers); buffers
-    keep their dtype."""
-    kept = {id(p) for layer in keep_float32 for p in layer.parameters()}
-    for p in model.parameters():
-        if id(p) not in kept:
-            p.data = p.data.to(dtype)
-    return model

@@ -19,6 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .layers import Linear
+
 
 @dataclass(frozen=True)
 class NoiseSchedule:
@@ -64,11 +66,11 @@ class DiffusionStepEmbedding(nn.Module):
         super().__init__()
         self.register_buffer("table", torch.from_numpy(step_embedding_table(num_steps, dim)),
                              persistent=False)
-        self.proj1 = nn.Linear(dim, hidden)
-        self.proj2 = nn.Linear(hidden, hidden)
+        self.proj1 = Linear(dim, hidden)
+        self.proj2 = Linear(hidden, hidden)
 
     def forward(self, step: torch.Tensor) -> torch.Tensor:
-        table = self.table                      # float32: the builders cast parameters only
+        table = self.table
         if not torch.is_floating_point(step):
             x = table[step]
         else:
@@ -76,7 +78,7 @@ class DiffusionStepEmbedding(nn.Module):
             hi = torch.ceil(step).long()
             frac = (step - lo)[..., None]
             x = table[lo] + (table[hi] - table[lo]) * frac
-        x = F.silu(self.proj1(x.to(self.proj1.weight.dtype)))
+        x = F.silu(self.proj1(x))
         return F.silu(self.proj2(x))
 
 

@@ -10,8 +10,9 @@ class attributes, so every WaveGrad has the same 15,956,161 parameters. Channels
 The resizes are ``jax.image.resize(method="nearest")``, which on a down-sampling resize (the
 DBlocks' ``T // factor``) is torch's ``mode="nearest-exact"``, not its default
 ``mode="nearest"`` (a wrong WaveGrad that still runs); ``tests/test_torch_diffusion.py``
-holds the choice. The conditioner is cropped to ``audio_len // hop`` frames; ``last_conv``
-is float32.
+holds the choice. The conditioner is cropped to ``audio_len // hop`` frames. At a bf16
+``dtype`` the parameters stay float32 and each layer casts at use (:mod:`.layers`), as the
+JAX module's ``dtype=``; ``last_conv`` computes in float32.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .init import EMBED, ORTHOGONAL, XAVIER_UNIFORM, cast_parameters, init_parameters, tagged
+from .init import EMBED, ORTHOGONAL, XAVIER_UNIFORM, init_parameters, tagged
+from .layers import Conv1d, Embedding, Linear, set_compute_dtype
 from .schedules import NoiseSchedule, noise_level_encoding
 
 
@@ -45,9 +47,9 @@ def _resize(x: torch.Tensor, length: int) -> torch.Tensor:
 
 
 def _conv(cin: int, cout: int, kernel: int, dilation: int = 1,
-          kind: str = ORTHOGONAL) -> nn.Conv1d:
+          kind: str = ORTHOGONAL) -> Conv1d:
     pad = dilation * (kernel - 1) // 2
-    return tagged(nn.Conv1d(cin, cout, kernel, padding=pad, dilation=dilation), kind)
+    return tagged(Conv1d(cin, cout, kernel, padding=pad, dilation=dilation), kind)
 
 
 class FiLM(nn.Module):
@@ -55,8 +57,8 @@ class FiLM(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, num_classes: int, label_dim: int):
         super().__init__()
-        self.label_embedding = tagged(nn.Embedding(num_classes, label_dim), EMBED)
-        self.label_proj = tagged(nn.Linear(label_dim, in_ch), XAVIER_UNIFORM)
+        self.label_embedding = tagged(Embedding(num_classes, label_dim), EMBED)
+        self.label_proj = tagged(Linear(label_dim, in_ch), XAVIER_UNIFORM)
         self.input_conv = _conv(in_ch, in_ch, 3, kind=XAVIER_UNIFORM)
         self.output_conv = _conv(in_ch, 2 * out_ch, 3, kind=XAVIER_UNIFORM)
 
@@ -117,7 +119,7 @@ class WaveGrad(nn.Module):
            (128, 2, (1, 2, 4, 8)), (128, 2, (1, 2, 4, 8)))
     _init_ch, _first_ch = 32, 768
 
-    def __init__(self, config: WaveGradConfig):
+    def __init__(self, config: WaveGradConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg = self.config = config
         self.init_conv = _conv(1, self._init_ch, 5)
@@ -130,12 +132,12 @@ class WaveGrad(nn.Module):
         self.ups = nn.ModuleList(UBlock(cin, ch, f, dils)
                                  for cin, (ch, f, dils) in zip(ins, self._up))
         self.last_conv = _conv(self._up[-1][0], 1, 3)
+        set_compute_dtype(self, dtype, (self.last_conv,))
 
     def forward(self, audio: torch.Tensor, conditioner: torch.Tensor,
                 noise_level: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
         """audio [B, T], conditioner [B, n_mels, frames], noise_level [B], label [B] -> [B, T]."""
-        dtype = self.init_conv.weight.dtype
-        x = self.init_conv(audio[:, None].to(dtype))
+        x = self.init_conv(audio[:, None])
         stages = [x]
         for block in self.downs:
             x = block(x)
@@ -144,15 +146,16 @@ class WaveGrad(nn.Module):
 
         # Keep exactly audio_len / hop mel frames so the upsample path matches the audio.
         frames = audio.shape[-1] // self.config.hop_length
-        h = self.first_conv(conditioner[:, :, :frames].to(dtype))
+        h = self.first_conv(conditioner[:, :, :frames])
         for block, (shift, scale) in zip(self.ups, reversed(modulations)):
             h = block(h, shift, scale)
-        return self.last_conv(h.float())[:, 0]
+        return self.last_conv(h)[:, 0]
 
 
 def build_wavegrad(config: WaveGradConfig = WaveGradConfig(), seed: int = 0, device="cuda",
                    dtype: torch.dtype = torch.float32) -> WaveGrad:
-    """A seeded WaveGrad on ``device`` (the card unless the caller asks for the CPU)."""
-    model = WaveGrad(config)
+    """A seeded WaveGrad on ``device`` (the card unless the caller asks for the CPU),
+    computing in ``dtype`` with float32 parameters."""
+    model = WaveGrad(config, dtype)
     init_parameters(model, torch.Generator().manual_seed(seed))
-    return cast_parameters(model, dtype, (model.last_conv,)).to(device)
+    return model.to(device)

@@ -1,14 +1,21 @@
-"""Per-epoch scalar logging: copy of ``ScalarLogger`` from
-``wav2vec_heart_sounds_tpu/utils/observe.py``, held to the original by
-``tests/test_torch_imports.py``. JSONL rows in ``<log_dir>/scalars.jsonl``, mirrored to
-TensorBoard when its writer imports. The profiler hook (``trace``) is not ported yet.
+"""Observability (port of ``wav2vec_heart_sounds_tpu/utils/observe.py``): per-epoch scalar
+logging, a profiler hook and a stopwatch.
+
+``ScalarLogger`` and ``stopwatch`` are copies, held to the originals by
+``tests/test_torch_imports.py``: JSONL rows in ``<log_dir>/scalars.jsonl``, mirrored to
+TensorBoard when its writer imports. :func:`trace` takes the ``jax.profiler`` trace's place
+with ``torch.profiler``: host activity, and the card's kernels when there is a card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
+from typing import Iterator
+
+import torch
 
 
 class ScalarLogger:
@@ -42,3 +49,36 @@ class ScalarLogger:
     def flush(self) -> None:
         if self._tb is not None:
             self._tb.flush()
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None, label: str = "trace") -> Iterator[None]:
+    """Capture a ``torch.profiler`` trace of the enclosed region as a Chrome trace,
+    ``<log_dir>/<label>/trace.json`` (no-op without a log_dir)."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    path = os.path.join(log_dir, label)
+    os.makedirs(path, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    profiler = profile(activities=activities)
+    profiler.start()
+    try:
+        yield
+    finally:
+        profiler.stop()
+        profiler.export_chrome_trace(os.path.join(path, "trace.json"))
+
+
+@contextlib.contextmanager
+def stopwatch(sink: dict, key: str) -> Iterator[None]:
+    """Accumulate wall time of the enclosed region into ``sink[key]``."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        sink[key] = sink.get(key, 0.0) + time.perf_counter() - t0
