@@ -131,7 +131,17 @@ Phases, each of which exits non-zero on failure:
    record with the JAX runner's keys and finite statistics, every kernel's exact launches
    (K1-K4 on the ``classify-*`` commands, K6 and K7 on the vest, none on the vocoders), the
    host chain taken by the C++ library (its seconds, its gap to the NumPy oracle), and
-   ``preprocess_ecg``, the normalisers and ``segment`` on the card against the CPU.
+   ``preprocess_ecg``, the normalisers and ``segment`` on the card against the CPU;
+22. data parallelism through a world-1 NCCL group (a ``file://`` store, the mesh from
+   ``parallel.data_parallel_mesh()``): (a) phase 7's ``fit`` (B = 96, bf16, 4 steps and a
+   validation epoch), (b) one vest step with the contrastive-focal loss under LoRA's freeze
+   mask, (c) one full-width DiffWave ``train_step``, each without a mesh and through it on
+   cuDNN's deterministic algorithms: losses, parameters, the float32 master, the moments and
+   the class centres equal bit for bit, with the mesh's exact launches (K1-K4; K6 and K7 on
+   the vest) and (a)'s step wall time beside the no-mesh step's on cuDNN's default algorithms
+   (in turns); (d) ``experiments.cinc.run(mesh=...)`` on phase 8's layout: one record, finite
+   statistics, exact launches; (e) the device time of the gradient all-reduce of (a)'s flat
+   float32 buffer, NCCL's alone and the optimizer's whole mean all-reduce, with its bytes.
 
 Prints the card's name and power limit, one JSON line describing the kernels (launches
 from the ``fit`` of the path that runs each kernel: phase 7's K4 route for the CinC
@@ -3314,6 +3324,250 @@ def signal_ops_on_card() -> None:
         check(got.shape == want.shape and err <= 1e-4, f"{label} card vs CPU: {err}")
 
 
+def same_state(label: str, trainers: list) -> None:
+    """The two trainers hold equal parameters bit for bit: every tensor of the models' state,
+    the optimizers' float32 masters and moments, and the losses' parameters."""
+    a, b = (t.model.state_dict() for t in trainers)
+    check(a.keys() == b.keys(), f"{label}: the two models' state dicts differ in keys")
+    for key in a:
+        check(torch.equal(a[key], b[key]), f"{label}: {key} differs between mesh and no mesh")
+    x, y = (t.optimizer for t in trainers)
+    moments = (lambda o: o.state if o.name == "sgd" else [*o.state[0], *o.state[1]])
+    for u, v in zip([*x.master, *moments(x)], [*y.master, *moments(y)], strict=True):
+        check(torch.equal(u, v), f"{label}: the optimizer's master or moments differ")
+    for name, p in getattr(trainers[0], "loss_params", {}).items():
+        check(torch.equal(p, trainers[1].loss_params[name]), f"{label}: loss parameter {name}")
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside: two no-mesh fits of phase 7's model differ
+    after their first step with cuDNN's default choices (on the H100: the conv layers' weight
+    gradients), so the arms that phase 22 compares bit for bit both run these; the port's
+    kernels use no atomics."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
+def mesh_cinc_fit(card: str, mesh) -> list:
+    """Phase 22 (a): phase 7's K4 route (full-width bf16 wav2vec2-base, B = 96, SGD), one
+    epoch of 4 steps and a validation epoch, without a mesh and through the world-1 mesh,
+    from one seed, both on cuDNN's deterministic algorithms: the losses and every parameter
+    equal bit for bit, the mesh's exact launches; then the step's wall time of both on
+    cuDNN's default algorithms, as phase 7 runs (in turns). Returns the mesh trainer's
+    trained parameters (the all-reduce's buffer, part (e))."""
+    from wav2vec_heart_sounds_tpu_torch.data.fragments import FragmentDataset
+    from wav2vec_heart_sounds_tpu_torch.data.loader import Batcher
+    from wav2vec_heart_sounds_tpu_torch.experiments.cinc import _device_prep
+    from wav2vec_heart_sounds_tpu_torch.experiments.common import make_loader
+    from wav2vec_heart_sounds_tpu_torch.models.build import build_classifier
+    from wav2vec_heart_sounds_tpu_torch.train.classifier import SupervisedTrainer
+
+    win_len = int(WINDOW_S * FS)
+    train_frags = synthetic_recordings(1, TRAIN_PATIENTS, TRAIN_WINDOWS)
+    valid_frags = synthetic_recordings(2)
+    trainers, losses, batchers = [], [], []
+    for arm in (None, mesh):
+        model = build_classifier(classifier_config(), seed=0, device="cuda",
+                                 dtype=torch.bfloat16, train=True)
+        trainer = SupervisedTrainer(model, optimizer_name="sgd", lr=1e-3, mesh=arm,
+                                    device_preprocess=_device_prep(FS_WIRE, FS, win_len, "cuda"),
+                                    log=lambda line: print(f"[mesh] fit: {line}"))
+        train = make_loader(FragmentDataset(train_frags, fs=FS_WIRE), TRAIN_BATCH, train=True)
+        valid = Batcher(FragmentDataset(valid_frags, fs=FS_WIRE), TRAIN_BATCH, train=False)
+        recorded, step = [], trainer._train_step
+        trainer._train_step = functools.partial(step_and_keep, step, recorded)
+        torch.cuda.synchronize()
+        reset_counts()
+        with deterministic_cudnn():
+            best = trainer.fit(train, valid, 1)
+            torch.cuda.synchronize()
+        got = counts()
+        trainer._train_step = step
+        values = [float(v) for v in recorded]
+        steps, valid_batches = len(train), len(valid)
+        check(len(values) == steps and all(np.isfinite(values)), f"mesh fit losses {values}")
+        if arm is not None:
+            check_launches("mesh fit", got, steps, valid_batches, PER_STEP, EVAL_PER_BATCH)
+            print(f"[mesh] fit through the world-1 NCCL mesh ({mesh.device}): {steps} steps of "
+                  f"B={TRAIN_BATCH} + {valid_batches} valid batches, losses "
+                  f"{', '.join(f'{v:.7f}' for v in values)}, best valid MCC {best:.4f}; "
+                  f"launches {json.dumps({k: v for k, v in got.items() if v})} (per step "
+                  + per_step_text({k: v for k, v in PER_STEP.items() if any(v)})
+                  + f"; per valid batch attention_qkv_fwd 12)")
+        trainers.append(trainer)
+        losses.append(values)
+        batchers.append(train)
+    check(losses[0] == losses[1], f"mesh fit losses {losses[1]} != no-mesh {losses[0]}")
+    same_state("mesh fit", trainers)
+    runs = {0: [], 1: []}
+    for arm in (0, 1, 1, 0):                                             # in turns
+        runs[arm].append(timed_epoch(trainers[arm], batchers[arm]))
+    steps = len(batchers[0])
+    ms = {arm: [1e3 * s / steps for s in runs[arm]] for arm in runs}
+    print(f"[mesh] losses and all {len(trainers[0].model.state_dict())} state tensors, the "
+          f"float32 master and momentum equal bit for bit with no mesh (cuDNN's deterministic "
+          f"algorithms); step wall time on its default ones "
+          f"through the mesh {np.median(ms[1]):.1f} ms ({', '.join(f'{v:.1f}' for v in ms[1])}) "
+          f"against {np.median(ms[0]):.1f} ms without ({', '.join(f'{v:.1f}' for v in ms[0])}; "
+          f"phase 7's K4 route, B={TRAIN_BATCH}, host clock, epochs of {steps} steps) on {card}")
+    return trainers[1].optimizer.params
+
+
+def step_and_keep(step, recorded: list, *args):
+    loss, preds = step(*args)
+    recorded.append(loss)
+    return loss, preds
+
+
+def mesh_vest_step(mesh) -> None:
+    """Phase 22 (b): one vest step (bench.py's vest config: 6 microphones, LoRA under the
+    freeze mask, bf16, AdamW at 1e-4, B = 16) with the contrastive-focal loss, without a mesh
+    and through the mesh (cuDNN's deterministic algorithms): the loss, the parameters, the master, the moments and the class
+    centres equal bit for bit; the mesh's step launches K6 and K7 (its exact counts)."""
+    from wav2vec_heart_sounds_tpu_torch.data.fragments import FragmentDataset
+    from wav2vec_heart_sounds_tpu_torch.data.loader import Batcher
+    from wav2vec_heart_sounds_tpu_torch.models.build import build_classifier
+    from wav2vec_heart_sounds_tpu_torch.train.classifier import SupervisedTrainer
+    from wav2vec_heart_sounds_tpu_torch.train.losses import ContrastiveFocalConfig
+
+    cfg = vest_config()
+    batch = next(iter(Batcher(FragmentDataset(vest_fragments(VEST_BATCH, 3), fs=VEST_FS),
+                              VEST_BATCH, train=False)))
+    trainers, losses = [], []
+    for arm in (None, mesh):
+        model = build_classifier(cfg, seed=0, device="cuda", dtype=torch.bfloat16, train=True)
+        trainer = SupervisedTrainer(model, optimizer_name="adamw", lr=1e-4,
+                                    classifier_config=cfg, mesh=arm, log=lambda line: None,
+                                    criterion=ContrastiveFocalConfig(num_classes=2,
+                                                                     feature_dim=HIDDEN))
+        recorded, step = [], trainer._train_step
+        trainer._train_step = functools.partial(step_and_keep, step, recorded)
+        torch.cuda.synchronize()
+        reset_counts()
+        with deterministic_cudnn():
+            trainer.fit([batch], None, 1)
+            torch.cuda.synchronize()
+        got = counts()
+        trainer._train_step = step
+        trainers.append(trainer)
+        losses.append([float(v) for v in recorded])
+    check_launches("mesh vest step", got, 1, 0, PER_STEP_VEST, {})
+    check(losses[0] == losses[1] and len(losses[1]) == 1 and np.isfinite(losses[1][0]),
+          f"mesh vest loss {losses[1]} != no-mesh {losses[0]}")
+    same_state("mesh vest step", trainers)
+    print(f"[mesh] vest step through the mesh (B={VEST_BATCH}, contrastive-focal, LoRA): loss "
+          f"{losses[1][0]:.7f}, parameters, master, moments and centres equal bit for bit with "
+          f"no mesh; launches " + json.dumps({k: v for k, v in got.items() if v}))
+
+
+def mesh_diffwave_step(mesh) -> None:
+    """Phase 22 (c): one ``GenerativeTrainer.train_step`` of the full-width DiffWave (float32,
+    B = 16, 80 frames, its own draws from the trainer's card generator) without a mesh and
+    through the mesh (cuDNN's deterministic algorithms): the loss, the parameters and Adam's moments equal bit for bit, no port
+    kernel launched."""
+    from wav2vec_heart_sounds_tpu_torch.train.generative import GenerativeTrainer, diffwave_loss
+
+    weights = seeded_vocoder("diffwave").state_dict()
+    batch = vocoder_inputs("diffwave", 16, 80, seed=5)
+    trainers, losses = [], []
+    for arm in (None, mesh):
+        model = seeded_vocoder("diffwave")
+        model.load_state_dict(weights)
+        model.to("cuda")
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer = GenerativeTrainer(model, diffwave_loss, tmp, mesh=arm, seed=7,
+                                        log=lambda line: None)
+            reset_counts()
+            with deterministic_cudnn():
+                losses.append(trainer.train_step(batch))
+                torch.cuda.synchronize()
+        check(not any(counts().values()), "DiffWave launched a port kernel")
+        trainers.append(trainer)
+    check(losses[0] == losses[1] and np.isfinite(losses[1]),
+          f"mesh DiffWave loss {losses[1]} != no-mesh {losses[0]}")
+    same_state("mesh DiffWave step", trainers)
+    print(f"[mesh] DiffWave train_step through the mesh (B=16, 80 frames, float32): loss "
+          f"{losses[1]:.7f}, parameters and Adam's moments equal bit for bit with no mesh")
+
+
+def mesh_runner(mesh, tmp: Path) -> None:
+    """Phase 22 (d): ``experiments.cinc.run(mesh=...)`` on phase 8's synthetic CinC layout
+    (raw wire, augmentation on the card, full width, bf16, two steps): one record, finite
+    statistics, the exact launches."""
+    from wav2vec_heart_sounds_tpu_torch.experiments import cinc as runner
+
+    directory = tmp / "mesh_cinc"
+    directory.mkdir()
+    csv = synthetic_cinc(directory)
+    results = directory / "results.json"
+    with counted_runner(runner) as (losses, evals):
+        reset_counts()
+        record = runner.run(str(directory), csv, mode="pcg", fs=FS, window_s=WINDOW_S, epochs=1,
+                            augment=True, random_init=True, batch_size=4, max_batches=2,
+                            results_json=str(results), fs_wire=FS_WIRE, wire="raw", mesh=mesh)
+        torch.cuda.synchronize()
+        got = counts()
+    values = [float(v) for v in losses]
+    stats = [v for level in ("fragment", "patient") for v in record[level].values()]
+    check(len(values) == 2 and all(np.isfinite(values)), f"mesh runner losses {values}")
+    check(all(np.isfinite(v) for v in stats), "mesh runner statistics not finite")
+    check(json.loads(results.read_text()) == [record], "the mesh runner's record is missing")
+    check_launches("mesh runner", got, len(values), evals[0], PER_STEP, EVAL_PER_BATCH)
+    print(f"[mesh] experiments.cinc.run(mesh=...), raw wire: losses "
+          f"{', '.join(f'{v:.5f}' for v in values)}, {evals[0]} eval batches, one record: "
+          f"fragment {json.dumps(record['fragment'])}; patient {json.dumps(record['patient'])}")
+
+
+def mesh_all_reduce(card: str, mesh, params: list) -> None:
+    """Phase 22 (e): the gradient all-reduce of the CinC step alone: NCCL's all-reduce of the
+    flat float32 buffer (one float32 per trained parameter), and the optimizer's whole mean
+    all-reduce (gather into the buffer, all-reduce, divide, scatter back), by device time."""
+    import torch.distributed as dist
+
+    from wav2vec_heart_sounds_tpu_torch.parallel.mesh import all_reduce_mean
+
+    grads = [torch.randn(p.shape, device="cuda") for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    nbytes = flat.numel() * flat.element_size()
+    alone = device_ms(lambda: dist.all_reduce(flat))
+    whole = device_ms(lambda: all_reduce_mean(grads, mesh))
+    bound = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[mesh] gradient all-reduce of the CinC step: {len(params)} tensors, "
+          f"{flat.numel()} float32 = {nbytes} bytes; NCCL all_reduce alone {alone:.4f} ms "
+          f"device time, the optimizer's mean all-reduce (concatenate, all-reduce, divide, copy "
+          f"back) {whole:.4f} ms (one read and one write of the buffer at the HBM rate: "
+          f"{bound:.4f} ms); world size {mesh.world_size}, so nothing crosses NVLink; on {card}")
+
+
+def phase_mesh(card: str, tmp: Path) -> None:
+    """Phase 22: data parallelism through a world-1 NCCL group (``file://`` store), the
+    mesh from ``parallel.data_parallel_mesh()``: (a) the CinC ``fit``, (b) a vest step, (c) a
+    DiffWave step, each bit for bit with the same run without a mesh, (d) the CinC runner
+    under the mesh, (e) the gradient all-reduce's device time."""
+    import torch.distributed as dist
+
+    from wav2vec_heart_sounds_tpu_torch.parallel import data_parallel_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/mesh_store", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = data_parallel_mesh()
+        check(mesh.world_size == 1 and mesh.device == torch.device("cuda", 0)
+              and dist.get_backend() == "nccl", f"the mesh: {mesh}, {dist.get_backend()}")
+        params = mesh_cinc_fit(card, mesh)
+        mesh_vest_step(mesh)
+        mesh_diffwave_step(mesh)
+        mesh_runner(mesh, tmp)
+        mesh_all_reduce(card, mesh, params)
+    finally:
+        dist.destroy_process_group()
+
+
 def timed(phase, *args):
     """``phase(*args)``, printing its wall seconds."""
     t0 = time.perf_counter()
@@ -3363,6 +3617,7 @@ def main() -> None:
         generated = timed(phase_generative_pipeline, Path(tmp))
         timed(phase_synthetic_runner, Path(tmp), generated)
         timed(phase_cli, Path(tmp))
+        timed(phase_mesh, card, Path(tmp))
     print(f"[wall] all phases: {time.perf_counter() - start:.1f} s")
     print(card)
     print(json.dumps({"kernels": [

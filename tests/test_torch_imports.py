@@ -1,6 +1,6 @@
 """The port stands alone: no JAX, flax, optax, pandas, click or JAX-package import anywhere in
-it (with them blocked it imports, trains, samples and runs ``make-splits`` and ``summarize``
-through its CLI), and its numpy copies of the JAX package's host layers give identical
+it (with them blocked it imports, trains, also through a one-rank gloo mesh, samples and runs
+``make-splits`` and ``summarize`` through its CLI), and its numpy copies of the JAX package's host layers give identical
 results."""
 
 import ast
@@ -89,6 +89,18 @@ trained = build_classifier(ClassifierConfig(head_hidden=(8,), encoder=Wav2Vec2Co
 batch = {{"waveform": np.random.default_rng(0).normal(size=(2, 1000)).astype(np.float32),
          "label": np.array([0, 1]), "valid": np.ones(2, bool)}}
 SupervisedTrainer(trained, log=lambda s: None).fit([batch], [batch], 1)
+import os, tempfile
+import torch.distributed as dist
+from wav2vec_heart_sounds_tpu_torch.parallel import data_parallel_mesh
+with tempfile.TemporaryDirectory() as tmp:
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(tmp, "store"),
+                            rank=0, world_size=1)
+    try:
+        mesh = data_parallel_mesh(device="cpu")
+        assert (mesh.rank, mesh.world_size, mesh.device.type) == (0, 1, "cpu")
+        SupervisedTrainer(trained, mesh=mesh, log=lambda s: None).fit([batch], [batch], 1)
+    finally:
+        dist.destroy_process_group()
 vest_cfg = ClassifierConfig(num_channels=3, lora=True, head_hidden=(8,), fs=1000,
                             encoder=Wav2Vec2Config.tiny())
 vest_model = build_classifier(vest_cfg, device="cpu", train=True)

@@ -90,3 +90,36 @@ def test_bf16_live_params_follow_the_f32_master_and_refresh():
 def test_unknown_optimizer_raises():
     with pytest.raises(ValueError, match="Unknown optimizer"):
         MasterOptimizer([torch.nn.Parameter(torch.ones(2))], "lamb")
+
+
+def test_bf16_live_params_round_the_master_as_the_jax_optimizer_does():
+    """bf16 live leaves under a float32 master, the same gradients on both sides: after
+    every step the port's live leaves equal the JAX package's bit for bit. Steps far below
+    half a bf16 ulp move both masters but leave both live leaves as they were, until the
+    masters cross a rounding boundary; so a bf16 run that learns slower than float32 at a
+    small learning rate does so in the reference's design too."""
+    init = {k: v.astype(jnp.bfloat16) for k, v in INIT.items()}
+    tx, _ = build_master_optimizer("sgd", 1e-3, weight_decay=0.0, max_grad_norm=5.0)
+    theirs = {k: jnp.asarray(v) for k, v in init.items()}
+    state = tx.init(theirs)
+    grad = jax.grad(lambda p: jnp.sum(p["a"].astype(jnp.float32) ** 2)
+                    + 3.0 * jnp.sum(p["b"].astype(jnp.float32) ** 2))
+    ours = {k: torch.nn.Parameter(torch.from_numpy(np.asarray(v.astype(jnp.float32)))
+                                  .to(torch.bfloat16)) for k, v in init.items()}
+    opt = MasterOptimizer(ours.values(), "sgd", 0.0)
+    start = opt.master[0].clone()
+    unchanged, moved = [], []
+    for lr in [1e-5] * 4 + [3e-2] * 2:
+        theirs, state = tx.step(grad(theirs), state, jnp.asarray(lr, jnp.float32), theirs)
+        opt.zero_grad()
+        ((ours["a"].float() ** 2).sum() + 3.0 * (ours["b"].float() ** 2).sum()).backward()
+        opt.step(lr)
+        for k in INIT:
+            mine = ours[k].detach().float().numpy()
+            np.testing.assert_array_equal(mine, np.asarray(theirs[k].astype(jnp.float32)),
+                                          err_msg=f"{k} at lr {lr}")
+        unchanged.append(all(np.array_equal(ours[k].detach().float().numpy(),
+                                            np.asarray(init[k].astype(jnp.float32)))
+                             for k in INIT))
+        moved.append(not torch.equal(opt.master[0], start))
+    assert unchanged == [True] * 4 + [False] * 2 and all(moved)

@@ -148,8 +148,8 @@ def test_run_matches_jax_runner(schedule_dirs, tmp_path, monkeypatch, letskip):
         np.testing.assert_allclose(a, np.asarray(b), atol=2e-4, rtol=2e-3, err_msg=str(path_))
 
 
-def test_run_refuses_a_mesh(schedule_dirs, tmp_path):
+def test_run_refuses_what_is_not_a_mesh(schedule_dirs, tmp_path):
     d, gen = schedule_dirs
     path = _schedule(tmp_path, d, gen, [{"key": "real", "epochs": 1}])
-    with pytest.raises(NotImplementedError, match="multi-card"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         runner.run(path, mesh=object(), device="cpu")

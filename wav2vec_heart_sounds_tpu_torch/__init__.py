@@ -14,5 +14,23 @@ generative half: the DiffWave and WaveGrad vocoders with their samplers
 ``train.generate``) and the synthetic-schedule runner (``experiments.synthetic.run``); and
 the command line (``cli``: ``python -m wav2vec_heart_sounds_tpu_torch.cli``) with the data
 splits, reporting, presets, the C++ host chain (``native``) and the rest of the signal
-surface. Entry points run on the card unless the caller asks for the CPU.
+surface; and data parallelism over cards (``parallel``: one process per card on
+``torch.distributed``, taken by both trainers and every runner through ``mesh``). Entry
+points run on the card unless the caller asks for the CPU.
 """
+
+__all__ = [
+    "config",
+    "signal",
+    "ops",
+    "augment",
+    "data",
+    "models",
+    "train",
+    "parallel",
+    "experiments",
+    "reporting",
+    "utils",
+    "native",
+    "cli",
+]

@@ -12,6 +12,11 @@ model (:mod:`..models.fusion`, the paper's ``big_rnn:2:wav2vec``) on ``[B, T, 2]
 windows. :func:`run_leave_out_db` trains on every CinC database but one and tests on that
 one. :func:`score` is the scoring half alone, on the raw wire. Both runners take the JAX
 signatures plus ``device`` (default the card) and ``dtype`` (default bfloat16).
+
+Under a ``mesh`` (:func:`..parallel.mesh.data_parallel_mesh`, one process per card) every
+rank builds the same fragments and batches, the models live on the mesh's device, and each
+trainer shards the training and validation batches; the test evaluation runs on whole
+batches on every rank, as the JAX runner's, and only rank 0 appends the record.
 """
 
 from __future__ import annotations
@@ -29,10 +34,11 @@ from ..data.fragments import FragmentDataset
 from ..models.build import build_classifier
 from ..models.classifier import ClassifierConfig
 from ..models.fusion import two_branch_pcg_ecg
+from ..parallel.mesh import mesh_device
 from ..signal.torchproc import preprocess_pcg
 from ..train.classifier import SupervisedTrainer
 from ..train.evaluate import dequant, evaluate, make_apply_fn
-from .common import append_result, make_loader
+from .common import make_loader, write_result
 
 
 def _device_prep(fs_wire: int, fs: int, win_len: int, device):
@@ -104,8 +110,7 @@ def run(
     raw_wire = wire == "raw"
     if raw_wire and load_ecg:
         raise ValueError("wire='raw' supports the mono 'pcg' mode only")
-    if mesh is not None:
-        raise NotImplementedError("multi-card data parallelism is not ported yet")
+    device = mesh_device(mesh, device)
     if raw_wire:
         # Raw wire: un-preprocessed low-rate windows over the host->device link; the
         # preprocessing chain runs on the card per batch and host augment copies are
@@ -149,7 +154,8 @@ def run(
         train_ds = FragmentDataset(frags["train"], fs=frag_fs, channel=channel)
         valid_ds = FragmentDataset(frags["valid"], fs=frag_fs, channel=valid_channel)
         trainer = SupervisedTrainer(model, optimizer_name=optimizer, lr=lr,
-                                    classifier_config=bcfg, seed=seed, log_dir=log_dir,
+                                    classifier_config=bcfg, mesh=mesh, seed=seed,
+                                    log_dir=log_dir,
                                     batch_transform=None if load_ecg else batch_transform,
                                     device_preprocess=device_prep)
         trainer.fit(make_loader(train_ds, batch_size, True, seed, loader_len),
@@ -161,8 +167,8 @@ def run(
         pcg_model = branch(0, "[1/3 PCG branch]")
         ecg_model = branch(1, "[2/3 ECG branch]")
         fusion = two_branch_pcg_ecg(pcg_model, ecg_model, seed=seed + 1)
-        trainer = SupervisedTrainer(fusion, optimizer_name=optimizer, lr=lr, seed=seed,
-                                    log_dir=log_dir)
+        trainer = SupervisedTrainer(fusion, optimizer_name=optimizer, lr=lr, mesh=mesh,
+                                    seed=seed, log_dir=log_dir)
         train_ds = FragmentDataset(frags["train"], fs=fs, channel=-1)
         valid_ds = FragmentDataset(frags["valid"], fs=fs, channel=-1)
         trainer.fit(make_loader(train_ds, batch_size, True, seed, win_len),
@@ -190,7 +196,7 @@ def run(
         "topology": topology, "fold": fold, "run_label": run_label, "wire": wire,
         **metrics,
     }
-    append_result(results_json, record)
+    write_result(results_json, record, mesh)
     return record
 
 
@@ -218,8 +224,7 @@ def run_leave_out_db(
     dtype: torch.dtype = torch.bfloat16,
 ) -> dict:
     """Train single-channel PCG on every database except ``holdout``; test on ``holdout``."""
-    if mesh is not None:
-        raise NotImplementedError("multi-card data parallelism is not ported yet")
+    device = mesh_device(mesh, device)
     cfg = augment_config or AugmentConfig()
     window = WindowSpec(window_s=window_s)
     win_len = window.window_len(fs)
@@ -241,7 +246,7 @@ def run_leave_out_db(
 
     bcfg = _branch_config(fs, random_init, encoder_config)
     model = build_classifier(bcfg, seed=seed, device=device, dtype=dtype, train=True)
-    trainer = SupervisedTrainer(model, optimizer_name=optimizer, lr=lr, seed=seed,
+    trainer = SupervisedTrainer(model, optimizer_name=optimizer, lr=lr, mesh=mesh, seed=seed,
                                 log_dir=log_dir)
     trainer.fit(make_loader(FragmentDataset(train_frags, fs=fs, channel=0),
                             batch_size, True, seed, win_len),
@@ -255,7 +260,7 @@ def run_leave_out_db(
     record = {"mode": "pcg", "leave_out_db": holdout, "fs": fs, "epochs": epochs,
               "train_epochs": train_epochs, "augment": augment, "random_init": random_init,
               "reference_train_rnn": reference_train_rnn, **metrics}
-    append_result(results_json, record)
+    write_result(results_json, record, mesh)
     return record
 
 

@@ -1,6 +1,7 @@
 """Shared runner helpers (copies of ``make_loader`` and ``append_result`` from
 ``wav2vec_heart_sounds_tpu/experiments/common.py``, held to the originals by
-``tests/test_torch_imports.py``): balanced training loaders and append-only results JSON."""
+``tests/test_torch_imports.py``): balanced training loaders and append-only results JSON;
+and :func:`write_result`, which appends from rank 0 only under a data-parallel mesh."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ import json
 from pathlib import Path
 
 from ..data.loader import Batcher
+from ..parallel.mesh import is_main
 
 
 def make_loader(dataset, batch_size: int, train: bool, seed: int = 0,
@@ -26,3 +28,9 @@ def append_result(results_json: str | None, record: dict) -> None:
     existing = json.loads(path.read_text()) if path.exists() else []
     existing.append(record)
     path.write_text(json.dumps(existing, indent=2, default=str))
+
+
+def write_result(results_json: str | None, record: dict, mesh=None) -> None:
+    """:func:`append_result` by rank 0 of ``mesh`` (by the one process without a mesh)."""
+    if is_main(mesh):
+        append_result(results_json, record)

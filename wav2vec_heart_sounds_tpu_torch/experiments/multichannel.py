@@ -5,7 +5,9 @@
 encoder, AdamW at lr 1e-4 and batch 16, with cross-entropy or the contrastive-focal loss;
 it scores the test split with the MLP head and, with ``fit_svm``, an SVM probe on the
 pooled features, and nests the results under ``mlp`` / ``svm``. The JAX signature, plus
-``device`` (default the card) and ``dtype`` (default bfloat16).
+``device`` (default the card) and ``dtype`` (default bfloat16). Under a ``mesh`` the trainer
+shards the batches over the ranks (:mod:`..train.classifier`); the test scoring and the SVM
+probe run on whole batches on every rank, and only rank 0 appends the record.
 
 The SVM probe needs ``sklearn``, which the card's machine does not have: there
 ``fit_svm=True`` raises ``ImportError``.
@@ -25,11 +27,12 @@ from ..config import WindowSpec
 from ..data.vest import vest_dataset
 from ..models.build import build_classifier
 from ..models.classifier import ClassifierConfig
+from ..parallel.mesh import mesh_device
 from ..train.classifier import SupervisedTrainer
 from ..train.evaluate import evaluate, make_apply_fn, make_encode_fn
 from ..train.losses import ContrastiveFocalConfig
 from ..train.svm import NeuralSVM
-from .common import append_result, make_loader
+from .common import make_loader, write_result
 
 
 def run(
@@ -62,8 +65,7 @@ def run(
     device="cuda",
     dtype: torch.dtype = torch.bfloat16,
 ) -> dict:
-    if mesh is not None:
-        raise NotImplementedError("multi-card data parallelism is not ported yet")
+    device = mesh_device(mesh, device)
     channels = channels or [1, 2, 3, 4, 5, 6]
     cfg = augment_config or AugmentConfig()
     window = WindowSpec(window_s=window_s)
@@ -105,7 +107,8 @@ def run(
         batch_transform = partial(augment_multi_pcg_batch, fs=fs, noise_bank=bank)
     trainer = SupervisedTrainer(model, optimizer_name=optimizer, lr=lr,
                                 criterion=criterion, classifier_config=ccfg,
-                                batch_transform=batch_transform, seed=seed, log_dir=log_dir)
+                                batch_transform=batch_transform, mesh=mesh, seed=seed,
+                                log_dir=log_dir)
     trainer.fit(make_loader(train_ds, batch_size, True, seed, win_len),
                 make_loader(valid_ds, batch_size, False, seed, win_len),
                 epochs, max_batches)
@@ -123,5 +126,5 @@ def run(
         "random_init": random_init, "lora": lora, "freeze_encoder": freeze_encoder,
         "loss": loss, "fold": fold, "run_label": run_label, **metrics,
     }
-    append_result(results_json, record)
+    write_result(results_json, record, mesh)
     return record

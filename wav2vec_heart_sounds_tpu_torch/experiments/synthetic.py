@@ -9,7 +9,9 @@ schedule's test set. As in the JAX runner, ``proportion`` subsamples real datase
 seeded patient-level subsample), and a ``letskip`` stage is skipped when the previous stage
 did not improve the best validation MCC. :func:`subsample_patients` and
 :func:`source_fragments` are copies of the originals. :func:`run` takes the JAX signature plus
-``device`` (default the card) and ``dtype`` (default bfloat16); ``mesh`` raises.
+``device`` (default the card) and ``dtype`` (default bfloat16); under a ``mesh`` the trainer
+shards the batches over the ranks, the test evaluation runs on whole batches on every rank,
+and only rank 0 appends the record.
 """
 
 from __future__ import annotations
@@ -27,9 +29,10 @@ from ..data.generated import generated_fragments
 from ..data.schedule import Schedule, SourceSpec, load_schedule
 from ..models.build import build_classifier
 from ..models.classifier import ClassifierConfig
+from ..parallel.mesh import mesh_device
 from ..train.classifier import SupervisedTrainer
 from ..train.evaluate import evaluate, make_apply_fn
-from .common import append_result, make_loader
+from .common import make_loader, write_result
 
 
 def subsample_patients(fragments: list[Fragment], proportion: float,
@@ -73,8 +76,7 @@ def run(
     device="cuda",
     dtype: torch.dtype = torch.bfloat16,
 ) -> dict:
-    if mesh is not None:
-        raise NotImplementedError("multi-card data parallelism is not ported yet")
+    device = mesh_device(mesh, device)
     schedule: Schedule = load_schedule(schedule_path)
     cfg = augment_config or AugmentConfig()
     window = WindowSpec(window_s=window_s)
@@ -95,7 +97,7 @@ def run(
                             **enc_kw)
     model = build_classifier(ccfg, seed=seed, device=device, dtype=dtype, train=True)
     trainer = SupervisedTrainer(model, optimizer_name=optimizer, lr=lr,
-                                classifier_config=ccfg, seed=seed, log_dir=log_dir)
+                                classifier_config=ccfg, mesh=mesh, seed=seed, log_dir=log_dir)
 
     best_mcc = -1.0
     improved = True           # the first stage always runs
@@ -118,5 +120,5 @@ def run(
     metrics = evaluate(make_apply_fn(model), test_loader, max_batches)
     record = {"schedule": schedule_path, "fs": fs, "random_init": random_init,
               "run_label": run_label, "skipped_stages": skipped, **metrics}
-    append_result(results_json, record)
+    write_result(results_json, record, mesh)
     return record

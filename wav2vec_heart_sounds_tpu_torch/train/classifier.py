@@ -32,12 +32,29 @@ centres (with a ``criterion``); then each train step draws in a fixed order from
 augmentation (whose large noise fields come from a card generator seeded from it), then
 the forward's dropout seed, then its SpecAugment spans.
 
-Not ported yet: multi-card data parallelism and on-disk checkpoints.
+Data parallelism (``mesh``, a :class:`..parallel.mesh.Mesh`; JAX ``classifier.py:64-111``):
+the model's and the loss's parameters are broadcast from rank 0 at construction; each rank
+copies its rows of every (identical) global batch to its card; the logits, features, labels
+and valid flags of every rank are gathered (:func:`..parallel.mesh.gather_rows`) and the
+loss is the global batch's on every rank, whatever rows are valid where, as under the JAX
+mesh; the optimizer averages the gradients over the ranks before its clip. After the class
+centres, every rank but 0 reseeds its generator to a stream of its own
+(:func:`..parallel.mesh.rank_seed`), so its dropout, spans and augmentation differ from
+its neighbours' while rank 0 draws exactly what one process would. Predictions are those of
+the gathered logits, so the confusion matrices, the best-MCC choice and the restore are the
+same on every rank. Only rank 0 logs and writes scalars.
+
+On-disk checkpoints (JAX ``classifier.py:355-388``): :meth:`SupervisedTrainer.save` writes
+the epoch, the model's state, the loss's parameters and the optimizer's (the float32 master
+and its moments) as one ``torch.save`` file, by rank 0 under a mesh while the others wait;
+:meth:`SupervisedTrainer.restore` reads it on every rank and returns ``False`` when it is
+missing. The generator's stream is not in it, as the JAX trainer's key is not.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 import time
 from typing import Callable
 
@@ -46,6 +63,8 @@ import torch
 
 from ..data.loader import prefetch_threaded
 from ..models.classifier import apply_trainable_mask
+from ..parallel.mesh import (gather_rows, is_main, maybe_shard_batch, mesh_device, rank_seed,
+                             replicate, save_from_rank0)
 from ..utils.observe import ScalarLogger
 from .evaluate import dequant
 from .losses import (ContrastiveFocalConfig, contrastive_focal_loss, cross_entropy,
@@ -60,32 +79,35 @@ class SupervisedTrainer:
                  batch_transform: Callable | None = None,
                  device_preprocess: Callable | None = None,
                  criterion: ContrastiveFocalConfig | None = None,
-                 classifier_config=None, seed: int = 0,
+                 classifier_config=None, mesh=None, seed: int = 0,
                  log: Callable[[str], None] = print, log_dir: str | None = None):
         self.model = model
-        self.device = next(model.parameters()).device
+        self.device = mesh_device(mesh, next(model.parameters()).device)
+        self.mesh = mesh
         self.batch_transform = batch_transform
         self.device_preprocess = device_preprocess
         self.criterion = criterion
-        self.log = log
-        self.scalars = ScalarLogger(log_dir)
+        self.log = log if is_main(mesh) else (lambda line: None)
+        self.scalars = ScalarLogger(log_dir if is_main(mesh) else None)
         self.generator = torch.Generator().manual_seed(seed)
         self.loss_params = ({} if criterion is None
                             else init_contrastive_focal(self.generator, criterion, self.device))
+        if not is_main(mesh):                  # after the centres: a stream of its own
+            self.generator.manual_seed(rank_seed(seed, mesh))
+        replicate(model, mesh)
+        replicate(self.loss_params, mesh)
         params = (list(model.parameters()) if classifier_config is None
                   else apply_trainable_mask(model, classifier_config))
         self.optimizer = MasterOptimizer(params + list(self.loss_params.values()),
-                                         optimizer_name, weight_decay)
+                                         optimizer_name, weight_decay, mesh=mesh)
         self.schedule = lr_schedule(optimizer_name, lr)
         self.epoch = 0
 
     def _to_device(self, batch: dict, want_aug: bool = False):
-        """Runs on the prefetch thread: the host-to-device copies overlap the card's work."""
+        """Runs on the prefetch thread: the host-to-device copies (of this rank's rows under a
+        mesh) overlap the card's work."""
         def put(a):
-            t = torch.as_tensor(np.asarray(a))
-            if self.device.type == "cuda":
-                t = t.pin_memory()
-            return t.to(self.device, non_blocking=True)
+            return maybe_shard_batch(a, self.mesh, self.device)
 
         aug = None
         if want_aug:
@@ -106,12 +128,15 @@ class SupervisedTrainer:
         return loss.detach(), logits.detach().argmax(dim=1)
 
     def _loss(self, x, y, valid, train: bool):
-        """(loss, logits): cross-entropy, or the contrastive-focal loss on the features."""
+        """(loss, logits) of the global batch: cross-entropy, or the contrastive-focal loss on
+        the features; under a mesh on every rank's gathered rows."""
         kw = {"train": True, "generator": self.generator} if train else {}
+        y, valid = gather_rows(y, self.mesh), gather_rows(valid, self.mesh)
         if self.criterion is None:
-            logits = self.model(x, **kw)
+            logits = gather_rows(self.model(x, **kw), self.mesh)
             return cross_entropy(logits, y, valid), logits
-        feats, logits = self.model.forward_with_features(x, **kw)
+        feats, logits = (gather_rows(t, self.mesh)
+                         for t in self.model.forward_with_features(x, **kw))
         return contrastive_focal_loss(self.loss_params, self.criterion, feats, logits, y,
                                       valid), logits
 
@@ -176,3 +201,24 @@ class SupervisedTrainer:
             self.model.load_state_dict(best)
             self.optimizer.refresh()
         return best_mcc
+
+    def save(self, path: str) -> str:
+        """Write the checkpoint to ``path`` (rank 0 under a mesh; every rank returns once the
+        file is written)."""
+        return save_from_rank0({"epoch": self.epoch, "model": self.model.state_dict(),
+                                "loss_params": {k: v.detach()
+                                                for k, v in self.loss_params.items()},
+                                "optimizer": self.optimizer.state_dict()}, path, self.mesh)
+
+    def restore(self, path: str) -> bool:
+        """Load a :meth:`save` checkpoint; ``False`` when ``path`` does not exist."""
+        if not path or not os.path.exists(path):
+            return False
+        payload = torch.load(path, map_location=self.device, weights_only=True)
+        self.model.load_state_dict(payload["model"])
+        with torch.no_grad():
+            for name, value in payload["loss_params"].items():
+                self.loss_params[name].copy_(value)
+        self.optimizer.load_state_dict(payload["optimizer"])
+        self.epoch = int(payload["epoch"])
+        return True

@@ -12,8 +12,16 @@ plain Adam (optax's defaults, no weight decay) through :class:`..optim.MasterOpt
 (float32 master), the non-finite-loss raise, ``scalars.jsonl`` in ``log_dir``, per-epoch
 ``weights`` and best-validation ``weights-best`` checkpoints (model, optimizer and step,
 ``torch.save``; ``<model_dir>/<name>.pt``) with :meth:`~GenerativeTrainer.restore`, and the
-periodic generated-sample WAV from a fixed conditioner batch. Multi-card data parallelism is
-not ported yet.
+periodic generated-sample WAV from a fixed conditioner batch.
+
+Data parallelism (``mesh``; JAX ``generative.py:96-127``): the parameters are broadcast
+from rank 0, each rank takes its rows of every batch (and of injected ``draws``) and draws
+from a card generator of its own (rank 0's is the one-process stream,
+:func:`..parallel.mesh.rank_seed`), and the optimizer averages the gradients over the ranks.
+The L1 loss is a mean over equal shards, so that average is the global batch's gradient with
+no gather; the losses that ``train_step`` and ``validate`` return are averaged the same way.
+Only rank 0 logs and has a ``log_dir`` (scalars and samples), and only it writes checkpoints;
+``save`` returns on every rank once the file is written.
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..parallel.mesh import (all_reduce_mean, is_main, maybe_shard_batch, mesh_device,
+                             rank_seed, replicate, save_from_rank0)
 from .optim import MasterOptimizer
 
 MAX_GRAD_NORM = 1.0                       # the JAX generative trainer's clip
@@ -115,42 +125,56 @@ class GenerativeTrainer:
     def __init__(self, model: torch.nn.Module, loss_strategy: Callable, model_dir: str, *,
                  lr: float = 2e-4, sampler=None, sample_every: int = 10,
                  log_dir: str | None = None, seed: int = 0,
-                 log: Callable[[str], None] = print):
+                 log: Callable[[str], None] = print, mesh=None):
         self.model = model
-        self.device = next(model.parameters()).device
+        self.device = mesh_device(mesh, next(model.parameters()).device)
+        self.mesh = mesh
         self.loss_strategy = loss_strategy
         self.model_dir = model_dir
         self.sampler = sampler
         self.sample_every = sample_every
-        self.log = log
-        self.log_dir = log_dir
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.log = log if is_main(mesh) else (lambda line: None)
+        self.log_dir = log_dir if is_main(mesh) else None     # rank 0's scalars and samples
+        # every rank draws the sample batch: drawing it advances a shuffling batcher's epoch
+        self.draws_sample = bool(log_dir) and sampler is not None
+        self.generator = torch.Generator(device=self.device).manual_seed(rank_seed(seed, mesh))
         self.step = 0
         self.best_valid = float("inf")
         os.makedirs(model_dir, exist_ok=True)
-        if log_dir:
-            os.makedirs(log_dir, exist_ok=True)
+        if self.log_dir:
+            os.makedirs(self.log_dir, exist_ok=True)
+        replicate(model, mesh)
         self.optimizer = MasterOptimizer(model.parameters(), "adam", weight_decay=0.0,
-                                         max_grad_norm=MAX_GRAD_NORM)
+                                         max_grad_norm=MAX_GRAD_NORM, mesh=mesh)
         self.lr = lr
 
     def _device(self, batch: dict) -> dict:
-        return {k: torch.as_tensor(np.asarray(v)).to(self.device)
+        return {k: maybe_shard_batch(v, self.mesh, self.device)
                 for k, v in batch.items() if k != "patient"}
 
+    def _mean(self, loss: torch.Tensor) -> float:
+        """The loss averaged over the ranks (itself without a mesh)."""
+        loss = loss.detach().reshape(1)
+        if self.mesh is not None:
+            all_reduce_mean([loss], self.mesh)
+        return float(loss)
+
     def train_step(self, batch: dict, draws=None) -> float:
+        if draws is not None:
+            draws = tuple(maybe_shard_batch(d, self.mesh, self.device) for d in draws)
         self.optimizer.zero_grad()
         loss = self.loss_strategy(self.model, self._device(batch), self.generator, draws)
         loss.backward()
         self.optimizer.step(self.lr)
         self.step += 1
-        return float(loss.detach())
+        return self._mean(loss)
 
     @torch.no_grad()
     def validate(self, batcher, max_batches: int | None = None) -> float:
         total, count = 0.0, 0
         for i, batch in enumerate(batcher):
-            total += float(self.loss_strategy(self.model, self._device(batch), self.generator))
+            total += self._mean(self.loss_strategy(self.model, self._device(batch),
+                                                   self.generator))
             count += 1
             if max_batches is not None and i + 1 >= max_batches:
                 break
@@ -159,7 +183,7 @@ class GenerativeTrainer:
     def train(self, train_batcher, epochs: int, valid_batcher=None,
               max_train_batches: int | None = None):
         name = type(self.model).__name__
-        sample_batch = next(iter(train_batcher)) if (self.log_dir and self.sampler) else None
+        sample_batch = next(iter(train_batcher)) if self.draws_sample else None
         for epoch in range(1, epochs + 1):
             running, n = 0.0, 0
             t0 = time.time()
@@ -196,7 +220,7 @@ class GenerativeTrainer:
 
     def _log_sample(self, epoch: int, sample_batch) -> None:
         """Periodically generate one clip from a fixed conditioner and write it to log_dir."""
-        if sample_batch is None or self.sampler is None or epoch % self.sample_every:
+        if sample_batch is None or not self.log_dir or epoch % self.sample_every:
             return
         from scipy.io import wavfile
 
@@ -210,10 +234,9 @@ class GenerativeTrainer:
     # --- checkpointing ------------------------------------------------------
 
     def save(self, name: str) -> str:
-        path = os.path.join(self.model_dir, f"{name}.pt")
-        torch.save({"step": self.step, "model": self.model.state_dict(),
-                    "optimizer": self.optimizer.state_dict()}, path)
-        return path
+        return save_from_rank0({"step": self.step, "model": self.model.state_dict(),
+                                "optimizer": self.optimizer.state_dict()},
+                               os.path.join(self.model_dir, f"{name}.pt"), self.mesh)
 
     def restore(self, path: str) -> bool:
         if not path or not os.path.exists(path):

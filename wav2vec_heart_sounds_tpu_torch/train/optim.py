@@ -15,6 +15,11 @@ parameters on an accelerator (``build_master_optimizer``, ``train/classifier.py:
   - adam:  ``u = g + wd * p``; Adam moments of ``u`` (b1 0.9, b2 0.999, eps 1e-8, bias
     corrected); ``p -= lr * m_hat / (sqrt(v_hat) + eps)``
   - adamw: Adam moments of ``g``; ``p -= lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``
+* under a data-parallel ``mesh`` (:mod:`..parallel.mesh`), the float32 gradients are
+  replaced by their mean over the ranks (one flat all-reduce) before the clip, so the clip
+  and the rule see the global gradient, as under the JAX package's ``psum``; at one rank the
+  mean is the gradient itself, bit for bit. Every trainable gradient takes part, the loss's
+  parameters' too, and a missing one counts as zeros;
 * :meth:`MasterOptimizer.refresh` re-reads the master from the live parameters after the
   trainer overwrites them (the best-MCC restore); moments and momentum are kept, as the
   JAX package's ``refresh``.
@@ -30,6 +35,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import all_reduce_mean
 
 NAMES = ("sgd", "adam", "adamw")
 MAX_GRAD_NORM = 5.0                       # the JAX trainer's clip (its train/classifier.py:104)
@@ -48,14 +55,16 @@ def lr_schedule(name: str, lr: float):
 class MasterOptimizer:
     """sgd / adam / adamw over ``params`` with a float32 master and a global-norm clip
     at ``max_grad_norm``. The generative trainer takes plain Adam (decay 0) behind a clip at
-    1.0, as its JAX counterpart's optax chain."""
+    1.0, as its JAX counterpart's optax chain. ``mesh``: average the gradients over its
+    ranks first."""
 
     def __init__(self, params, name: str = "sgd", weight_decay: float = 1e-5,
-                 max_grad_norm: float = MAX_GRAD_NORM):
+                 max_grad_norm: float = MAX_GRAD_NORM, mesh=None):
         if name not in NAMES:
             raise ValueError(f"Unknown optimizer '{name}'")
         self.params = [p for p in params]
         self.name, self.weight_decay, self.max_grad_norm = name, weight_decay, max_grad_norm
+        self.mesh = mesh
         self.master = [p.detach() if p.dtype == torch.float32 else p.detach().float()
                        for p in self.params]
         # live parameters that are not their own master, with their masters
@@ -84,6 +93,8 @@ class MasterOptimizer:
     @torch.no_grad()
     def step(self, lr: float) -> None:
         grads = self._grads()
+        if self.mesh is not None:
+            all_reduce_mean(grads, self.mesh)
         norm = self.global_norm(grads)
         clip = norm >= self.max_grad_norm
         torch._foreach_div_(grads, torch.where(clip, norm, 1.0))
