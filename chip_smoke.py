@@ -141,7 +141,22 @@ Phases, each of which exits non-zero on failure:
    the vest) and (a)'s step wall time beside the no-mesh step's on cuDNN's default algorithms
    (in turns); (d) ``experiments.cinc.run(mesh=...)`` on phase 8's layout: one record, finite
    statistics, exact launches; (e) the device time of the gradient all-reduce of (a)'s flat
-   float32 buffer, NCCL's alone and the optimizer's whole mean all-reduce, with its bytes.
+   float32 buffer, NCCL's alone and the optimizer's whole mean all-reduce, with its bytes;
+23. the pretrained-encoder path: (a) ``experiments.cinc.run`` in its default mode
+   (``random_init`` False, raw wire) on phase 8's directory, its checkpoint a seeded
+   wav2vec2-base ``Wav2Vec2ForCTC`` in the real ``-960h`` layout (``wav2vec2.`` prefix, legacy
+   ``weight_g``/``weight_v``, an ``lm_head``; ``pytorch_model.bin`` and HF's base
+   ``config.json``) found by name in a hub cache: the built encoder holds the checkpoint's
+   tensors, K1-K4 launch exactly; (b) a seeded checkpoint of wav2vec2-large-960h's
+   architecture (24 x 1024, 16 heads, FFN 4096; 317 M parameters) written as
+   ``model.safetensors`` by this script's own writer, built by
+   ``build_classifier(random_init=False)`` from a caller's config holding the default
+   wav2vec2-base encoder: 24 x 1024 with the checkpoint's tensors; (c) that model and phase
+   7's wav2vec2-base trained in three arms (no remat, ``remat``, ``remat`` + ``remat_conv``),
+   3 steps each at B = 96 bf16 on cuDNN's deterministic algorithms, in turns and again in the
+   other order: losses, the last gradients and the states equal bit for bit, each arm's exact
+   launches (the remat arms run each layer's K2, K3b and K4 forward once more), its median
+   step ms and its peak device memory.
 
 Prints the card's name and power limit, one JSON line describing the kernels (launches
 from the ``fit`` of the path that runs each kernel: phase 7's K4 route for the CinC
@@ -3330,7 +3345,7 @@ def same_state(label: str, trainers: list) -> None:
     a, b = (t.model.state_dict() for t in trainers)
     check(a.keys() == b.keys(), f"{label}: the two models' state dicts differ in keys")
     for key in a:
-        check(torch.equal(a[key], b[key]), f"{label}: {key} differs between mesh and no mesh")
+        check(torch.equal(a[key], b[key]), f"{label}: {key} differs between the two")
     x, y = (t.optimizer for t in trainers)
     moments = (lambda o: o.state if o.name == "sgd" else [*o.state[0], *o.state[1]])
     for u, v in zip([*x.master, *moments(x)], [*y.master, *moments(y)], strict=True):
@@ -3568,6 +3583,302 @@ def phase_mesh(card: str, tmp: Path) -> None:
         dist.destroy_process_group()
 
 
+# Phase 23: the pretrained-encoder path. facebook/wav2vec2-large-960h's architecture (its
+# config.json: the base conv stack and positional conv, group-norm feature extractor,
+# post-norm, no conv bias), and the remat arms that train it.
+LARGE_960H = {"hidden_size": 1024, "num_hidden_layers": 24, "num_attention_heads": 16,
+              "intermediate_size": 4096}
+BASE_960H = {"architectures": ["Wav2Vec2ForCTC"], "model_type": "wav2vec2", "vocab_size": 32,
+             "hidden_size": 768, "num_hidden_layers": 12, "num_attention_heads": 12,
+             "intermediate_size": 3072, "feat_extract_norm": "group", "do_stable_layer_norm": False,
+             "conv_bias": False, "feat_proj_dropout": 0.1, "hidden_act": "gelu"}
+REMAT_ARMS = (("no remat", {}), ("remat", {"remat": True}),
+              ("remat + remat_conv", {"remat": True, "remat_conv": True}))
+REMAT_STEPS = 3
+POS_CONV = "encoder.pos_conv_embed.conv."
+
+
+def remat_per_step(layers: int, remat: bool) -> dict:
+    """Launches (forward, backward) of one K4-route training step of ``layers`` layers; under
+    ``remat`` the backward runs each layer's forward kernels (K2, K3b, K4) once more."""
+    again = layers if remat else 0
+    return {"dropout": (2, 2), "resid_fwd": (layers, again), "resid_bwd": (0, layers),
+            "attention_qkv_fwd": (layers, again), "attention_qkv_bwd": (0, layers),
+            "ffn_mega_fwd": (layers, again), "ffn_mega_bwd": (0, layers)}
+
+
+def write_safetensors(path: Path, tensors: dict) -> None:
+    """``tensors`` as a ``.safetensors`` file, without the safetensors package: the header's
+    length as 8 little-endian bytes, the JSON header (``dtype``, ``shape``, ``data_offsets``
+    into the data; padded with spaces to 8 bytes), then each tensor's bytes in order."""
+    codes = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16"}
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for key, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[key] = {"dtype": codes[t.dtype], "shape": list(t.shape),
+                       "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header, separators=(",", ":")).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as fh:
+        fh.write(len(blob).to_bytes(8, "little"))
+        fh.write(blob)
+        for t in tensors.values():
+            fh.write(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().data)
+
+
+def synthetic_hf_state(hf_config: dict, seed: int, legacy: bool) -> dict:
+    """A seeded float32 ``Wav2Vec2Model`` state dict in HF's keys (the port's parameter names
+    are HF's) for ``hf_config``: the port's init from ``seed``, and the positional conv as
+    weight norm's g (uniform in [0.5, 1.5)) and v, under the legacy ``weight_g``/``weight_v``
+    keys or the ``parametrizations`` ones."""
+    from wav2vec_heart_sounds_tpu_torch.models.hf_port import config_from_hf
+    from wav2vec_heart_sounds_tpu_torch.models.wav2vec2 import Wav2Vec2Model, init_parameters
+
+    with torch.device("meta"):
+        model = Wav2Vec2Model(config_from_hf(hf_config))
+    model.to_empty(device="cpu")
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    sd = {k: v.detach() for k, v in model.state_dict().items()}
+    v = sd.pop(POS_CONV + "weight")
+    g = 0.5 + torch.rand((1, 1, v.shape[2]), generator=torch.Generator().manual_seed(seed + 1))
+    names = (("weight_g", "weight_v") if legacy
+             else ("parametrizations.weight.original0", "parametrizations.weight.original1"))
+    sd[POS_CONV + names[0]], sd[POS_CONV + names[1]] = g, v
+    return sd
+
+
+def encoder_holds(label: str, state: dict, hf_state: dict) -> None:
+    """Every tensor of an encoder's ``state`` is the checkpoint's (rounded to the parameter's dtype), the
+    positional conv ``g * v / ||v||`` in float64 (norm over dims 0 and 1)."""
+    want = {k: v for k, v in hf_state.items() if not k.startswith(POS_CONV)}
+    keys = [k for k in hf_state if k.startswith(POS_CONV)]
+    g = next(hf_state[k] for k in keys if k.endswith(("weight_g", "original0"))).double()
+    v = next(hf_state[k] for k in keys if k.endswith(("weight_v", "original1"))).double()
+    norm = v.pow(2).sum(dim=(0, 1), keepdim=True).sqrt()
+    want[POS_CONV + "weight"] = (g * v / norm.clamp_min(1e-12)).float()
+    want[POS_CONV + "bias"] = hf_state[POS_CONV + "bias"]
+    check(set(state) == set(want), f"{label}: encoder keys {set(state) ^ set(want)}")
+    for key, value in want.items():
+        check(torch.equal(state[key], value.to(state[key].device, state[key].dtype)),
+              f"{label}: the encoder's {key} is not the checkpoint's")
+
+
+def pretrained_runner(tmp: Path, card: str) -> None:
+    """Phase 23 (a): the default mode (``random_init`` False) of ``experiments.cinc.run`` on
+    phase 8's synthetic CinC directory (raw wire), its checkpoint a seeded wav2vec2-base
+    ``Wav2Vec2ForCTC`` in the real ``-960h`` layout (``wav2vec2.`` prefix, legacy weight norm
+    keys, an ``lm_head``; ``pytorch_model.bin`` and HF's base ``config.json``) found by name
+    in a hub cache (``HF_HUB_CACHE``, ``refs/main``, ``snapshots/<rev>``)."""
+    from wav2vec_heart_sounds_tpu_torch.experiments import cinc as runner
+
+    hf_state = synthetic_hf_state(BASE_960H, seed=11, legacy=True)
+    gen = torch.Generator().manual_seed(12)
+    ctc = {"wav2vec2." + k: v for k, v in hf_state.items()}
+    width, vocab = BASE_960H["hidden_size"], BASE_960H["vocab_size"]
+    ctc["lm_head.weight"] = torch.randn(vocab, width, generator=gen) / width ** 0.5
+    ctc["lm_head.bias"] = torch.zeros(vocab)
+    repo = tmp / "hub" / "models--facebook--wav2vec2-base-960h"
+    snapshot = repo / "snapshots" / "synthetic0"
+    snapshot.mkdir(parents=True)
+    (repo / "refs").mkdir()
+    (repo / "refs" / "main").write_text("synthetic0")
+    (snapshot / "config.json").write_text(json.dumps(BASE_960H))
+    torch.save(ctc, snapshot / "pytorch_model.bin")
+    built, build = [], runner.build_classifier
+
+    def recording_build(cfg, *args, **kwargs):
+        check(not cfg.random_init and cfg.pretrained_name == "facebook/wav2vec2-base-960h",
+              f"the runner's branch config: {cfg}")
+        model = build(cfg, *args, **kwargs)
+        built.append({k: v.detach().clone() for k, v in model.encoder.state_dict().items()})
+        return model
+
+    results = tmp / "pretrained-results.json"
+    with mock.patch.dict("os.environ", {"HF_HUB_CACHE": str(tmp / "hub")}), \
+            mock.patch.object(runner, "build_classifier", recording_build), \
+            counted_runner(runner) as (losses, evals):
+        reset_counts()
+        t0 = time.perf_counter()
+        record = runner.run(str(tmp / "cinc"), str(tmp / "cinc" / "split.csv"), mode="pcg",
+                            fs=FS, window_s=WINDOW_S, epochs=1, augment=True, batch_size=4,
+                            max_batches=2, results_json=str(results), wire="raw",
+                            fs_wire=FS_WIRE)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    got = counts()
+    values = [float(v) for v in losses]
+    check(len(built) == 1, f"the runner built {len(built)} classifiers")
+    encoder_holds("pretrained runner", built[0], hf_state)
+    stats = [v for level in ("fragment", "patient") for v in record[level].values()]
+    print(f"[pretrained] experiments.cinc.run default mode (random_init False), raw wire: "
+          f"{seconds:.1f} s; the encoder built from the hub-cache checkpoint holds its "
+          f"{len(built[0])} tensors; {len(values)} train steps, {evals[0]} validation/test "
+          f"batches; losses {', '.join(f'{v:.5f}' for v in values)}; fragment "
+          f"{json.dumps(record['fragment'])}; launches "
+          f"{json.dumps({k: v for k, v in got.items() if v})}; on {card}")
+    check(record["random_init"] is False, f"the record: {record}")
+    check(len(values) == 2 and all(np.isfinite(values)), f"pretrained runner losses {values}")
+    check(all(np.isfinite(v) for v in stats), "pretrained runner statistics not finite")
+    check_launches("pretrained runner", got, len(values), evals[0], PER_STEP, EVAL_PER_BATCH)
+
+
+def large_checkpoint(tmp: Path) -> tuple[Path, dict]:
+    """Phase 23 (b)'s checkpoint: a seeded ``Wav2Vec2Model`` of wav2vec2-large-960h's
+    architecture as ``model.safetensors`` (``parametrizations`` weight norm keys) and its
+    ``config.json`` in a directory."""
+    directory = tmp / "wav2vec2-large"
+    directory.mkdir()
+    config = {**BASE_960H, **LARGE_960H}
+    hf_state = synthetic_hf_state(config, seed=21, legacy=False)
+    (directory / "config.json").write_text(json.dumps(config))
+    write_safetensors(directory / "model.safetensors", hf_state)
+    return directory, hf_state
+
+
+def stepped_epoch(trainer, loader, steps: int, deterministic: bool) -> dict:
+    """``steps`` ``SupervisedTrainer`` steps of ``loader`` (on cuDNN's deterministic algorithms
+    or its defaults): each step's ms (host clock, synchronised around it) and loss, the
+    launches, and the peak device memory, in all and above what was allocated before."""
+    step, ms, losses = trainer._train_step, [], []
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, preds = step(*args)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(loss))
+        return loss, preds
+
+    trainer._train_step = timed_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_counts()
+    try:
+        with deterministic_cudnn() if deterministic else contextlib.nullcontext():
+            trainer._run_epoch(loader, True, steps)
+            torch.cuda.synchronize()
+    finally:
+        trainer._train_step = step
+    peak = torch.cuda.max_memory_allocated()
+    return {"ms": ms, "losses": losses, "launches": counts(), "peak": peak / 2 ** 30,
+            "above": (peak - before) / 2 ** 30}
+
+
+def remat_arms(label: str, card: str, build) -> None:
+    """Phase 23 (c): ``build(fields)`` once per arm of ``REMAT_ARMS`` (the same seed and
+    state), ``REMAT_STEPS`` ``SupervisedTrainer`` steps each (phase 7's B = 96 raw 4 s windows,
+    bf16, K4 route, SGD at 1e-3; cuDNN's deterministic algorithms) in turns, then again in
+    the other order: losses, the last step's gradients and the trainers' states equal bit for
+    bit, each arm's exact launches; the median step ms (host clock, synchronised around each
+    step) and the peak device memory above what was allocated before its steps. Then the
+    arm without remat once more on cuDNN's default algorithms, as phase 7 trains."""
+    from wav2vec_heart_sounds_tpu_torch.data.fragments import FragmentDataset
+    from wav2vec_heart_sounds_tpu_torch.experiments.cinc import _device_prep
+    from wav2vec_heart_sounds_tpu_torch.experiments.common import make_loader
+    from wav2vec_heart_sounds_tpu_torch.train.classifier import SupervisedTrainer
+
+    frags = synthetic_recordings(1, TRAIN_PATIENTS, TRAIN_WINDOWS)
+    prep = _device_prep(FS_WIRE, FS, int(WINDOW_S * FS), "cuda")
+    arms = {}
+    for name, fields in REMAT_ARMS:
+        trainer = SupervisedTrainer(build(fields), optimizer_name="sgd", lr=1e-3,
+                                    device_preprocess=prep, log=lambda line: None)
+        arms[name] = {"trainer": trainer, "remat": bool(fields), "runs": [],
+                      "loader": make_loader(FragmentDataset(frags, fs=FS_WIRE), TRAIN_BATCH,
+                                            train=True)}
+    order = [name for name, _ in REMAT_ARMS]
+    layers = arms[order[0]]["trainer"].model.encoder.config.num_layers
+    for rnd, names in enumerate((order, order[::-1])):
+        for name in names:
+            arm = arms[name]
+            run = stepped_epoch(arm["trainer"], arm["loader"], REMAT_STEPS, True)
+            arm["runs"].append(run)
+            check(len(run["losses"]) == REMAT_STEPS and all(np.isfinite(run["losses"])),
+                  f"{label} {name} losses {run['losses']}")
+            check_launches(f"{label} {name}", run["launches"], REMAT_STEPS, 0,
+                           remat_per_step(layers, arm["remat"]), {})
+        first = arms[order[0]]
+        for name in order[1:]:
+            check(arms[name]["runs"][rnd]["losses"] == first["runs"][rnd]["losses"],
+                  f"{label} {name} losses {arms[name]['runs'][rnd]['losses']} != "
+                  f"{first['runs'][rnd]['losses']}")
+            a, b = first["trainer"].model, arms[name]["trainer"].model
+            for (key, p), q in zip(a.named_parameters(), b.parameters(), strict=True):
+                check(p.grad is not None and torch.equal(p.grad, q.grad),
+                      f"{label} {name}: the gradient of {key} differs")
+            same_state(f"{label} {name}", [first["trainer"], arms[name]["trainer"]])
+    for name in order:
+        runs = arms[name]["runs"]
+        ms = [v for run in runs for v in run["ms"]]
+        peak, above = (", ".join(f"{run[key]:.2f}" for run in runs) for key in ("peak", "above"))
+        print(f"[pretrained] {label} {name}: median step {np.median(ms):.1f} ms "
+              f"({', '.join(f'{v:.1f}' for v in ms)}; B={TRAIN_BATCH}, bf16, K4 route, "
+              f"SGD, deterministic cuDNN, host clock synchronised around each step); peak device "
+              f"memory {peak} GiB, above the {len(arms)} trainers' state {above} GiB; losses {runs[0]['losses']}; launches in {REMAT_STEPS} steps "
+              f"{json.dumps({k: v for k, v in runs[0]['launches'].items() if v})}; on {card}")
+    print(f"[pretrained] {label}: losses, the last step's gradients, the parameters, the "
+          f"float32 master and momentum equal bit for bit across the {len(arms)} arms after "
+          f"each of 2 rounds of {REMAT_STEPS} steps")
+    first = arms[order[0]]
+    run = stepped_epoch(first["trainer"], first["loader"], REMAT_STEPS, False)
+    check(all(np.isfinite(run["losses"])), f"{label} losses {run['losses']}")
+    deterministic = [v for r in first["runs"] for v in r["ms"]]
+    print(f"[pretrained] {label} {order[0]} on cuDNN's default algorithms: median step "
+          f"{np.median(run['ms']):.1f} ms ({', '.join(f'{v:.1f}' for v in run['ms'])}) against "
+          f"{np.median(deterministic):.1f} ms on its deterministic ones just before; peak "
+          f"{run['peak']:.2f} GiB; on {card}")
+
+
+def phase_pretrained(card: str, tmp: Path) -> None:
+    """Phase 23: the pretrained-encoder path. (a) :func:`pretrained_runner`; (b) a seeded
+    checkpoint of wav2vec2-large-960h's architecture (24 x 1024, 16 heads, FFN 4096) written
+    as ``model.safetensors`` and built by ``build_classifier(random_init=False)`` from a
+    caller's config holding the default wav2vec2-base encoder: 24 x 1024 with the checkpoint's
+    tensors; (c) :func:`remat_arms` on that model and on phase 7's wav2vec2-base."""
+    from dataclasses import replace
+
+    from wav2vec_heart_sounds_tpu_torch.models.build import build_classifier
+    from wav2vec_heart_sounds_tpu_torch.models.classifier import ClassifierConfig
+    from wav2vec_heart_sounds_tpu_torch.models.hf_port import ARCHITECTURE, config_from_hf
+
+    pretrained_runner(tmp, card)
+    t0 = time.perf_counter()
+    directory, hf_state = large_checkpoint(tmp)
+    written = time.perf_counter() - t0
+    caller = ClassifierConfig(num_classes=2, fs=FS, pretrained_name=str(directory))
+    large = config_from_hf({**BASE_960H, **LARGE_960H})
+    check(caller.encoder.hidden_size == HIDDEN and not caller.random_init
+          and caller.encoder.hidden_size != large.hidden_size, f"{caller}")
+
+    def build_large(fields):
+        cfg = replace(caller, encoder=replace(caller.encoder, **fields))
+        return build_classifier(cfg, seed=0, device="cuda", dtype=torch.bfloat16, train=True)
+
+    t0 = time.perf_counter()
+    model = build_large({})
+    built = time.perf_counter() - t0
+    enc = model.encoder.config
+    params = sum(p.numel() for p in model.encoder.parameters())
+    check(all(getattr(enc, f) == getattr(large, f) for f in ARCHITECTURE),
+          f"the large encoder's config: {enc}")
+    encoder_holds("large checkpoint", model.encoder.state_dict(), hf_state)
+    size = (directory / "model.safetensors").stat().st_size
+    print(f"[pretrained] wav2vec2-large-960h architecture: {params} encoder parameters, "
+          f"model.safetensors {size} bytes written in {written:.1f} s; build_classifier "
+          f"(random_init False, the caller's encoder wav2vec2-base) built "
+          f"{enc.num_layers} x {enc.hidden_size} ({enc.num_heads} heads, FFN "
+          f"{enc.intermediate_size}) holding the checkpoint's tensors in {built:.1f} s")
+    del model
+    remat_arms("wav2vec2-large", card, build_large)
+    torch.cuda.empty_cache()
+    remat_arms("wav2vec2-base", card,
+               lambda fields: build_classifier(classifier_config(**fields), seed=0,
+                                               device="cuda", dtype=torch.bfloat16, train=True))
+
+
 def timed(phase, *args):
     """``phase(*args)``, printing its wall seconds."""
     t0 = time.perf_counter()
@@ -3618,6 +3929,7 @@ def main() -> None:
         timed(phase_synthetic_runner, Path(tmp), generated)
         timed(phase_cli, Path(tmp))
         timed(phase_mesh, card, Path(tmp))
+        timed(phase_pretrained, card, Path(tmp))
     print(f"[wall] all phases: {time.perf_counter() - start:.1f} s")
     print(card)
     print(json.dumps({"kernels": [

@@ -1,5 +1,5 @@
-"""The port stands alone: no JAX, flax, optax, pandas, click or JAX-package import anywhere in
-it (with them blocked it imports, trains, also through a one-rank gloo mesh, samples and runs
+"""The port stands alone: no JAX, flax, optax, pandas, click, transformers, safetensors or
+JAX-package import anywhere in it or in ``chip_smoke.py`` (with them blocked it imports, trains, also through a one-rank gloo mesh, samples and runs
 ``make-splits`` and ``summarize`` through its CLI), and its numpy copies of the JAX package's host layers give identical
 results."""
 
@@ -62,7 +62,8 @@ segment = importlib.import_module("wav2vec_heart_sounds_tpu_torch.signal.segment
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = ROOT / "wav2vec_heart_sounds_tpu_torch"
-BLOCKED = ("jax", "flax", "optax", "pandas", "click", "wav2vec_heart_sounds_tpu")
+BLOCKED = ("jax", "flax", "optax", "pandas", "click", "transformers", "safetensors",
+           "wav2vec_heart_sounds_tpu")
 
 _ISOLATED = f"""
 import sys
@@ -162,7 +163,7 @@ def test_port_imports_and_runs_with_jax_blocked():
 
 
 def test_port_sources_import_no_blocked_module():
-    for path in PACKAGE.rglob("*.py"):
+    for path in [*PACKAGE.rglob("*.py"), ROOT / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -271,6 +272,7 @@ def _code(fn) -> str:
     (config.WindowSpec.hop_len, jax_segment.WindowSpec.hop_len),
     (config.WindowSpec.start_offset, jax_segment.WindowSpec.start_offset),
     (data_common.balanced_copy_counts, jax_data_common.balanced_copy_counts),
+    (config.default_window, jax_config.default_window),
     (data_common.binary_label, jax_data_common.binary_label),
     (data_common.progress, jax_data_common.progress),
     (data_cinc.read_record, jax_data_cinc.read_record),
@@ -378,3 +380,48 @@ def test_vest_constants_and_ecg_chain_match_originals(monkeypatch):
     x = x + 0.05 * np.random.default_rng(3).normal(size=x.size)
     np.testing.assert_array_equal(data_common.ecg_chain(x, 2000, 500),
                                   jax_data_common.ecg_chain(x, 2000, 500))
+
+
+def test_default_window_matches_original():
+    for name in (*jax_config.WINDOWS, "physionet", ""):
+        ours, theirs = config.default_window(name), jax_config.default_window(name)
+        assert (ours.window_s, ours.overlap_s, ours.start_pad_s) == \
+            (theirs.window_s, theirs.overlap_s, theirs.start_pad_s)
+
+
+def test_subjects_and_labels_match_original(tmp_path):
+    import pandas as pd
+
+    path = tmp_path / "split.csv"
+    path.write_text("# a comment\npatient,diagnosis,split\n7,1,train\na0002,-1,valid\n"
+                    "a0003,0,train\n\nb9,1,test  # trailing\n")
+    ours = data_common.subjects_and_labels(data_common.read_csv(str(path)))
+    theirs = jax_data_common.subjects_and_labels(pd.read_csv(path, comment="#"))
+    assert ours == theirs == [("7", 1), ("a0002", 0), ("a0003", 0), ("b9", 1)]
+    numeric = tmp_path / "numeric.csv"
+    numeric.write_text("patient,label\n1,1\n2,-1\n")
+    assert data_common.subjects_and_labels(data_common.read_csv(str(numeric))) == \
+        jax_data_common.subjects_and_labels(pd.read_csv(numeric, comment="#"))
+
+
+def test_prefetch_to_device_matches_original():
+    import torch
+
+    frags = _fragments(n=10)
+    batches = list(loader.Batcher(FragmentDataset([Fragment(*f) for f in frags], fs=1000), 4,
+                                  False, wire_int16=True))
+    for size in (1, 2, 5):
+        ours = list(loader.prefetch_to_device(iter(batches), size=size, device="cpu"))
+        theirs = list(jax_loader.prefetch_to_device(iter(batches), size=size))
+        assert len(ours) == len(theirs) == len(batches) == 3
+        for a, b, batch in zip(ours, theirs, batches):
+            assert list(a) == list(b) == list(batch)
+            assert {"waveform", "label", "patient", "valid"} <= set(batch)
+            for key, value in batch.items():
+                if key not in ("patient", "valid"):
+                    assert isinstance(a[key], torch.Tensor) and a[key].device.type == "cpu"
+                    np.testing.assert_array_equal(a[key].numpy(), value)
+                    np.testing.assert_array_equal(a[key].numpy(), np.asarray(b[key]))
+                else:                                   # patient ids and valid stay host-side
+                    assert a[key] is value and b[key] is value
+    assert list(loader.prefetch_to_device(iter([]), device="cpu")) == []

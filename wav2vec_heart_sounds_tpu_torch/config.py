@@ -38,6 +38,11 @@ WINDOWS = {
     "vest": WindowSpec(window_s=2.0),
 }
 
+
+def default_window(dataset: str) -> WindowSpec:
+    """A dataset's window, 4 s where none is set (wav2vec_heart_sounds_tpu/config.py:28-29)."""
+    return WINDOWS.get(dataset, WindowSpec(window_s=4.0))
+
 # Causal preprocessing bands in Hz (wav2vec_heart_sounds_tpu/signal/filters.py:18-19).
 PCG_BAND = (25.0, 450.0)
 ECG_BAND = (2.0, 40.0)

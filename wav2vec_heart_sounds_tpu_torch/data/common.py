@@ -7,8 +7,9 @@ train/valid/test. :func:`read_split` reads it with the ``csv`` module under
 ``pd.read_csv(path, comment="#")``'s rules as far as the protocol uses them: text after a
 ``#`` is ignored, blank lines are skipped, and a column whose every cell is an integer
 holds ints (a float column floats, anything else strings), so ``str(patient)`` and the
-label ints come out as pandas gives them. ``balanced_copy_counts`` and ``progress`` are
-copies, held to the originals by ``tests/test_torch_imports.py``.
+label ints come out as pandas gives them. ``subjects_and_labels``,
+``balanced_copy_counts`` and ``progress`` are copies, held to the originals by
+``tests/test_torch_imports.py``.
 
 Preprocessing (:func:`pcg_chain`, :func:`ecg_chain`) runs the C++ host library
 (:mod:`..native`, ``native/fastproc.cpp``) when it builds, and the NumPy oracle
@@ -94,6 +95,12 @@ def label_column(df: SplitTable) -> str:
 def binary_label(raw) -> int:
     """CinC label -> {0: normal, 1: abnormal}; accepts the -1/1 and 0/1 encodings."""
     return 1 if int(raw) == 1 else 0
+
+
+def subjects_and_labels(df: SplitTable) -> list[tuple[str, int]]:
+    """(patient, binary label) pairs in CSV row order."""
+    col = label_column(df)
+    return [(str(p), binary_label(v)) for p, v in zip(df["patient"], df[col])]
 
 
 def balanced_copy_counts(labels: list[int], augment_num: int) -> np.ndarray:

@@ -4,6 +4,7 @@ Copy of ``pad_batch``, ``Batcher`` and ``prefetch_threaded`` from
 ``wav2vec_heart_sounds_tpu/data/loader.py`` (numpy and the standard library only), held to
 the original by ``tests/test_torch_imports.py``. Batches stay numpy; the trainer moves
 them to the card inside ``prefetch_threaded``'s transform, on its side thread.
+:func:`prefetch_to_device` is the JAX package's double buffer on the calling thread.
 """
 
 from __future__ import annotations
@@ -150,3 +151,43 @@ def prefetch_threaded(iterator: Iterable, transform=None, depth: int = 2) -> Ite
             yield item
     finally:
         cancelled.set()
+
+
+def prefetch_to_device(iterator: Iterable[dict], size: int = 2,
+                       device="cuda") -> Iterator[dict]:
+    """Move array leaves to ``device`` ahead of consumption (the JAX package's double buffer):
+    ``size`` batches in flight, copied from pinned host memory without blocking on the card.
+    Strings (patient ids) and ``valid`` stay host-side."""
+    import collections
+
+    import torch
+
+    device = torch.device(device)
+    queue = collections.deque()
+
+    def put_leaf(v):
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
+
+    def put(batch):
+        queue.append({
+            k: (put_leaf(v) if isinstance(v, np.ndarray) and v.dtype.kind not in "USO"
+                and k != "valid" else v)
+            for k, v in batch.items()
+        })
+
+    it = iter(iterator)
+    try:
+        for _ in range(size):
+            put(next(it))
+    except StopIteration:
+        pass
+    while queue:
+        out = queue.popleft()
+        try:
+            put(next(it))
+        except StopIteration:
+            pass
+        yield out

@@ -4,6 +4,8 @@ that the command line takes by device."""
 
 from __future__ import annotations
 
+from dataclasses import replace
+
 import torch
 
 from . import hf_port
@@ -21,7 +23,7 @@ def default_compute_dtype(device) -> torch.dtype:
 def build_classifier(cfg: ClassifierConfig, seed: int = 0, device="cuda",
                      dtype: torch.dtype = torch.float32, train: bool = False
                      ) -> Wav2VecClassifier:
-    """Random-init classifier on ``device`` (the card unless the caller asks for the CPU),
+    """A classifier on ``device`` (the card unless the caller asks for the CPU),
     computing in ``dtype``, in eval mode, or in
     ``.train()`` mode for a trainer with ``train=True`` (the forward's ``train`` argument
     picks the training path).
@@ -29,28 +31,36 @@ def build_classifier(cfg: ClassifierConfig, seed: int = 0, device="cuda",
     The dtype is the caller's choice, never inferred from the device. Weights come from a
     CPU ``torch.Generator`` seeded with ``seed``, so the same seed gives the same weights
     on every device. With ``cfg.random_init`` False the encoder takes the pretrained
-    ``cfg.pretrained_name`` from the local HF cache when it is there, and otherwise keeps
-    its random init and says so in one printed line, as the JAX package's builder does
-    offline; LoRA adapters keep their init either way. A multichannel config gets the sinc
+    ``cfg.pretrained_name`` (a directory, or a hub name in the local HF cache:
+    :func:`.hf_port.load_pretrained_encoder`) when it is there, with its architecture (the
+    ten fields of :data:`.hf_port.ARCHITECTURE`; dropouts, SpecAugment, LoRA, routes and
+    remat stay the caller's), as the JAX package's ``build_classifier`` does; the encoder is then loaded
+    strictly, only the LoRA adapters keeping their init. Without a checkpoint it keeps its
+    random init and says so in one printed line. A multichannel config gets the sinc
     beamformer and a LoRA config the adapters (:mod:`.classifier`); every parameter keeps
     ``requires_grad`` until a trainer applies the config's freeze mask. Load trained or
     converted weights afterwards with ``model.load_state_dict`` (see :mod:`.from_jax` and
     :mod:`.hf_port`).
     """
+    pretrained = None
+    if not cfg.random_init:
+        loaded = hf_port.load_pretrained_encoder(cfg.pretrained_name)
+        if loaded is not None:
+            arch, pretrained = loaded
+            cfg = replace(cfg, encoder=replace(
+                cfg.encoder, **{f: getattr(arch, f) for f in hf_port.ARCHITECTURE}))
     with torch.device("meta"):
         model = Wav2VecClassifier(cfg, dtype)
     model.to_empty(device=device)
     init_parameters(model, torch.Generator().manual_seed(seed))
-    if not cfg.random_init:
-        pretrained = hf_port.load_pretrained_encoder(cfg.pretrained_name)
-        if pretrained is None:
-            print(f"build_classifier: no local checkpoint of {cfg.pretrained_name}; the "
-                  f"encoder keeps its random init (seed {seed})")
-        else:       # the checkpoint has no LoRA adapters: they keep their init
-            missing, unexpected = model.encoder.load_state_dict(pretrained, strict=False)
-            if unexpected or any(not k.endswith((".lora_a", ".lora_b")) for k in missing):
-                raise KeyError(f"checkpoint of {cfg.pretrained_name} does not fit the encoder: "
-                               f"missing {missing}, unexpected {unexpected}")
+    if pretrained is not None:      # the checkpoint has no LoRA adapters: they keep their init
+        missing, unexpected = model.encoder.load_state_dict(pretrained, strict=False)
+        if unexpected or any(not k.endswith((".lora_a", ".lora_b")) for k in missing):
+            raise KeyError(f"checkpoint of {cfg.pretrained_name} does not fit the encoder: "
+                           f"missing {missing}, unexpected {unexpected}")
+    elif not cfg.random_init:
+        print(f"build_classifier: no local checkpoint of {cfg.pretrained_name}; the "
+              f"encoder keeps its random init (seed {seed})")
     return model.train(train)
 
 

@@ -37,6 +37,13 @@ packed projection adds ``(alpha / r) * (dropout(x) @ lora_a) @ lora_b`` to its q
 thirds; in training each bypass draws its own mask at its own site (:func:`lora_sites`),
 through K1 like every dropout of the port.
 
+Rematerialisation (the JAX package's ``nn.remat``): in a training forward with gradients on,
+``Wav2Vec2Config.remat`` runs each encoder layer and ``remat_conv`` the conv feature
+encoder under ``torch.utils.checkpoint`` (non-reentrant): only their inputs are kept, and
+the backward runs their forward again. The recompute draws nothing: the step seed and the
+SpecAugment spans are drawn before the encoder, and every mask inside is Philox of
+``(seed, site)``, so it regenerates the same masks and the same saved tensors.
+
 Not ported: ``conv_time_plan``'s tile padding, which gives the same numbers as the exact
 lengths used here.
 """
@@ -49,6 +56,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.kernels import attention as _attention
 from ..ops.kernels.conv import conv_gelu
@@ -105,6 +113,10 @@ class Wav2Vec2Config:
     qkv_fuse: bool = True
     # The conv layers of conv_fuse_layers as K8, gelu(conv) fused (the JAX W2VHS_CONVFUSE=1).
     conv_fuse: bool = False
+    # Rematerialise each encoder layer / the conv feature encoder in training (memory for
+    # one more forward of them in the backward), the JAX package's nn.remat.
+    remat: bool = False
+    remat_conv: bool = False
 
     @classmethod
     def tiny(cls, **kw) -> "Wav2Vec2Config":
@@ -361,10 +373,16 @@ class EncoderLayer(nn.Module):
         return dropout_add_layernorm(h, x, ln.weight, ln.bias, seed, s_tail2, rate, eps)
 
 
+def rematerialised(module: nn.Module, *args) -> torch.Tensor:
+    """``module(*args)`` keeping only its inputs for the backward, which runs it again. The
+    module draws from no RNG state (its masks are Philox of (seed, site)), so none is kept."""
+    return checkpoint(module, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 class Encoder(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype):
         super().__init__()
-        self.rate = cfg.hidden_dropout
+        self.rate, self.remat = cfg.hidden_dropout, cfg.remat
         self.pos_conv_embed = PositionalConvEmbedding(cfg, dtype)
         self.layer_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype)
         self.layers = nn.ModuleList(EncoderLayer(cfg, dtype, i) for i in range(cfg.num_layers))
@@ -373,8 +391,9 @@ class Encoder(nn.Module):
         h = self.layer_norm(h + self.pos_conv_embed(h))
         if seed is not None:
             h = dropout(h, seed, SITE_ENCODER, self.rate)
+        remat = self.remat and seed is not None and torch.is_grad_enabled()
         for layer in self.layers:
-            h = layer(h, seed)
+            h = rematerialised(layer, h, seed) if remat else layer(h, seed)
         return h
 
 
@@ -397,7 +416,11 @@ class Wav2Vec2Model(nn.Module):
         """``train=True`` draws the step's dropout seed (unless ``seed`` gives it), then the
         SpecAugment spans, from ``generator`` (a CPU ``torch.Generator``; ``None`` takes
         torch's default)."""
-        h = self.feature_extractor(x).transpose(1, 2)                   # [B, T', C]
+        if train and self.config.remat_conv and torch.is_grad_enabled():
+            h = rematerialised(self.feature_extractor, x)
+        else:
+            h = self.feature_extractor(x)
+        h = h.transpose(1, 2)                                           # [B, T', C]
         h = self.feature_projection(h)
         if not train:
             return self.encoder(h)
