@@ -156,7 +156,15 @@ Phases, each of which exits non-zero on failure:
    3 steps each at B = 96 bf16 on cuDNN's deterministic algorithms, in turns and again in the
    other order: losses, the last gradients and the states equal bit for bit, each arm's exact
    launches (the remat arms run each layer's K2, K3b and K4 forward once more), its median
-   step ms and its peak device memory.
+   step ms and its peak device memory;
+24. the port's bench (``wav2vec_heart_sounds_tpu_torch/bench.py``, bench.py's ten modes) at
+   bench.py's sizes with windows of 3 timed steps, on torch's default TF32 settings and
+   cuDNN's default algorithms: ``train``, ``infer``, ``preproc``, ``real`` on both wires, the
+   vest on both augmentation arms, ``fusion``, ``gen``, ``gen-wavegrad`` and both
+   ``gen-train`` modes: bench.py's keys and the port's, a finite positive value, each kernel's
+   exact launches (K1-K4 in ``train``, ``real`` and ``fusion``, K3b in ``infer``, K6 and K7
+   too in the vest, none in ``preproc`` and the vocoder modes); then the CLI's ``bench`` in a
+   subprocess, alone and under a world-1 torchrun environment.
 
 Prints the card's name and power limit, one JSON line describing the kernels (launches
 from the ``fit`` of the path that runs each kernel: phase 7's K4 route for the CinC
@@ -3879,6 +3887,140 @@ def phase_pretrained(card: str, tmp: Path) -> None:
                                                device="cuda", dtype=torch.bfloat16, train=True))
 
 
+# Phase 24: the port's bench (``wav2vec_heart_sounds_tpu_torch/bench.py``), every mode at
+# bench.py's sizes with short timed windows: (label, mode function and its arguments, the
+# JSON keys bench.py prints, launches a train step, launches an eval batch). The steps a run
+# does are its warm-up and its timed ones: 3 + 3 for run_bench's modes, fusion's default warm
+# 3 and the vest's 2 before their 3.
+BENCH_STEPS = 3
+BENCH_E2E_KEYS = {"metric", "value", "unit", "vs_baseline", "mode", "batch_size", "steps",
+                  "backend", "final_fetch"}
+BENCH_PORT_KEYS = {"card", "torch", "cuda", "cudnn", "world_size", "cudnn_deterministic",
+                   "cudnn_benchmark"}
+BENCH_MODES = (
+    ("train", "run_bench", {"mode": "train"}, BENCH_E2E_KEYS, 6, PER_STEP, {}),
+    ("infer", "run_bench", {"mode": "infer"}, BENCH_E2E_KEYS, 6, {}, EVAL_PER_BATCH),
+    ("preproc", "run_bench", {"mode": "preproc"}, BENCH_E2E_KEYS, 6, {}, {}),
+    ("real (raw wire)", "run_bench", {"mode": "real"}, BENCH_E2E_KEYS | {"wire"}, 6, PER_STEP,
+     {}),
+    ("real (16k wire)", "run_bench", {"mode": "real", "wire": "16k"},
+     BENCH_E2E_KEYS | {"wire"}, 6, PER_STEP, {}),
+    ("vest", "run_vest_bench", {}, BENCH_E2E_KEYS - {"mode"} | {"device_augment", "channels"},
+     5, PER_STEP_VEST, {}),
+    ("vest (augmentation on the card)", "run_vest_bench", {"device_augment": True},
+     BENCH_E2E_KEYS - {"mode"} | {"device_augment", "channels"}, 5, PER_STEP_VEST, {}),
+    ("fusion", "run_fusion_bench", {}, BENCH_E2E_KEYS - {"mode"}, 6, PER_STEP_FUSION, {}),
+    ("gen", "run_gen_bench", {}, {"metric", "value", "unit", "vs_baseline", "batch_size",
+                                  "backend"}, 0, {}, {}),
+    ("gen-wavegrad", "run_wavegrad_sample_bench", {},
+     {"metric", "value", "unit", "vs_baseline", "num_steps", "batch_size", "backend"}, 0, {},
+     {}),
+    ("gen-train-diffwave", "run_gen_train_bench", {"which": "diffwave"},
+     {"metric", "value", "unit", "vs_baseline", "batch_size", "steps", "backend"}, 0, {}, {}),
+    ("gen-train-wavegrad", "run_gen_train_bench", {"which": "wavegrad"},
+     {"metric", "value", "unit", "vs_baseline", "batch_size", "steps", "backend"}, 0, {}, {}),
+)
+# torch's own float32 settings, read before main() turns TF32 off for the phases that compare
+# float32 at 1e-5: the bench runs on a user's process settings.
+TORCH_TF32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+
+
+@contextlib.contextmanager
+def torch_defaults():
+    """torch's default TF32 settings inside; this script's restored after."""
+    was = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = TORCH_TF32
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = was
+
+
+def bench_line(label: str, line: dict, keys: set, card: str, world: int = 1) -> None:
+    """A bench line: bench.py's keys, the port's, a finite positive value, this card, the
+    world size, and cuDNN's default algorithm choice."""
+    check(keys | BENCH_PORT_KEYS <= set(line), f"bench {label}: keys {sorted(line)}")
+    check(np.isfinite(line["value"]) and line["value"] > 0, f"bench {label}: {line}")
+    check(line["vs_baseline"] is None and line["backend"] == "cuda" and line["card"] == card
+          and line["world_size"] == world and line["cudnn_deterministic"] is False
+          and line["cudnn_benchmark"] is False, f"bench {label}: {line}")
+
+
+def run_bench_cli(tmp: Path, mesh: bool) -> tuple[dict, float]:
+    """``python -m wav2vec_heart_sounds_tpu_torch.cli bench --mode train --steps 3`` in a
+    subprocess, or under a world-1 torchrun environment (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``; the NCCL group formed on phase 22's ``file://`` store before the
+    command runs, which must then take the mesh): its line and wall seconds."""
+    import os
+
+    argv = ["bench", "--mode", "train", "--steps", str(BENCH_STEPS)]
+    env = dict(os.environ)
+    if mesh:
+        store = tmp / "bench_store"
+        code = ("import torch, torch.distributed as dist\n"
+                f"dist.init_process_group('nccl', init_method='file://{store}', rank=0, "
+                "world_size=1, device_id=torch.device('cuda', 0))\n"
+                "from wav2vec_heart_sounds_tpu_torch import bench, cli\n"
+                "made, form = [], bench.data_parallel_mesh\n"
+                "bench.data_parallel_mesh = lambda device: made.append(form(device)) or made[-1]\n"
+                f"cli.main({argv!r})\n"
+                "assert [m.world_size for m in made] == [1], made\n"
+                "dist.destroy_process_group()\n")
+        command = [sys.executable, "-c", code]
+        env.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    else:
+        command = [sys.executable, "-m", "wav2vec_heart_sounds_tpu_torch.cli", *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.run(command, cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"bench CLI ({'mesh' if mesh else 'one card'}): "
+                                f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1]), seconds
+
+
+def phase_bench(card: str, tmp: Path) -> None:
+    """Phase 24: ``wav2vec_heart_sounds_tpu_torch.bench``, the port of bench.py, on the card:
+    every mode at bench.py's sizes with windows of 3 timed steps (calls), on torch's default
+    TF32 settings and cuDNN's default algorithms (deterministic and benchmark off, asserted
+    before): bench.py's keys, the port's, a finite positive value, each kernel's exact
+    launches (none in preproc and the vocoder modes); then the CLI's ``bench`` in a
+    subprocess, and again under a world-1 torchrun environment (``world_size`` 1)."""
+    import gc
+
+    from wav2vec_heart_sounds_tpu_torch import bench
+
+    check(not torch.backends.cudnn.deterministic and not torch.backends.cudnn.benchmark,
+          "cuDNN's default algorithm choice is off before the bench")
+    with torch_defaults():
+        for label, name, kwargs, keys, steps, per_step, per_eval in BENCH_MODES:
+            t0 = time.perf_counter()
+            reset_counts()
+            line = getattr(bench, name)(steps=BENCH_STEPS, **kwargs)
+            torch.cuda.synchronize()
+            got = counts()
+            bench_line(label, line, keys, card)
+            check_launches(f"bench {label}", got, steps if per_step else 0,
+                           steps if per_eval else 0, per_step, per_eval)
+            launched = {k: v for k, v in got.items() if v}
+            print(f"[bench] {label}: {line['value']} {line['unit']} ({line['metric']}, "
+                  f"B={line['batch_size']}, {BENCH_STEPS} timed steps after the mode's "
+                  f"warm-up; launches {json.dumps(launched) if launched else 'none'}; final "
+                  f"fetch {line['final_fetch']}; {time.perf_counter() - t0:.1f} s of phase)")
+            gc.collect()
+            torch.cuda.empty_cache()
+        for mesh in (False, True):
+            line, seconds = run_bench_cli(tmp, mesh)
+            bench_line("CLI", line, BENCH_E2E_KEYS, card)
+            check(line["mode"] == "train" and line["steps"] == BENCH_STEPS
+                  and line["batch_size"] == TRAIN_BATCH, f"bench CLI: {line}")
+            print(f"[bench] python -m wav2vec_heart_sounds_tpu_torch.cli bench --mode train "
+                  f"--steps {BENCH_STEPS}{' under a world-1 torchrun environment' if mesh else ''}: "
+                  f"{line['value']} {line['unit']}, world size {line['world_size']}; "
+                  f"{seconds:.1f} s of command")
+    check(not torch.backends.cudnn.allow_tf32, "this script's TF32 setting restored")
+
+
 def timed(phase, *args):
     """``phase(*args)``, printing its wall seconds."""
     t0 = time.perf_counter()
@@ -3930,6 +4072,7 @@ def main() -> None:
         timed(phase_cli, Path(tmp))
         timed(phase_mesh, card, Path(tmp))
         timed(phase_pretrained, card, Path(tmp))
+        timed(phase_bench, card, Path(tmp))
     print(f"[wall] all phases: {time.perf_counter() - start:.1f} s")
     print(card)
     print(json.dumps({"kernels": [

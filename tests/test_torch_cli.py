@@ -1,8 +1,8 @@
 """The port's command line (argparse) against the JAX package's (click), on the CPU.
 
-* The surface: for each of the eight commands, the argparse parser's options (names, dests,
+* The surface: for each of the nine commands, the argparse parser's options (names, dests,
   types, choices, defaults, required, repeatable, flag pairs) equal the click command's
-  ``params``, and both parse the same argv to the same values; ``--help`` lists the eight.
+  ``params``, and both parse the same argv to the same values; ``--help`` lists the nine.
 * ``make-splits`` writes the JAX command's CSV byte for byte (1, 2 and 5 folds, unequal
   ratios, odd class sizes, two data directories) and echoes the same counts once both are
   parsed as JSON; ``make_splits`` with a ``patient_fn`` writes the JAX table's CSV.
@@ -10,11 +10,14 @@
 * The four ``classify-*`` commands hand the port's runners what the JAX CLI hands the JAX
   runners (both replaced by recorders), plus ``device``/``dtype``; ``--device cuda`` without
   a card is an error.
+* ``bench`` hands the port's ``run_bench`` what the JAX command hands ``bench.py``'s (both
+  replaced by recorders), plus ``device`` and ``mesh``, and echoes its line.
 * ``gen-train`` -> ``gen-sample`` round trip on the CPU at full width (DiffWave), cropped to 2
   conditioning frames, one batch, in one torch thread.
 """
 
 import json
+import sys
 import types
 from pathlib import Path
 
@@ -29,14 +32,14 @@ from wav2vec_heart_sounds_tpu.data import splits as jax_splits
 from wav2vec_heart_sounds_tpu.experiments import cinc as jax_cinc
 from wav2vec_heart_sounds_tpu.experiments import multichannel as jax_multichannel
 from wav2vec_heart_sounds_tpu.experiments import synthetic as jax_synthetic
-from wav2vec_heart_sounds_tpu_torch import cli
+from wav2vec_heart_sounds_tpu_torch import bench, cli
 from wav2vec_heart_sounds_tpu_torch.data import generated, splits, wfdb_io
 from wav2vec_heart_sounds_tpu_torch.config import WindowSpec
 from wav2vec_heart_sounds_tpu_torch.experiments import cinc, multichannel, synthetic
 from torch_vocoder_pairs import one_torch_thread  # noqa: F401
 
 COMMANDS = ("make-splits", "summarize", "gen-train", "gen-sample", "classify-cinc",
-            "classify-vest", "classify-synthetic", "classify-lsdo")
+            "classify-vest", "classify-synthetic", "classify-lsdo", "bench")
 
 
 def _click_options(command) -> dict:
@@ -133,6 +136,8 @@ ARGV = {
                       ["--db", "a:d1:c1", "--db", "b:d2:c2", "--holdout", "a", "--fs", "2000",
                        "--epochs", "2", "--no-augment", "--random-init",
                        "--reference-train-rnn", "--max-batches", "1", "--results-json", "r"]),
+    "bench": ([], ["--batch-size", "8", "--fs", "4000", "--window-s", "1.5", "--steps", "3",
+                   "--mode", "infer"]),
 }
 
 
@@ -153,7 +158,7 @@ def test_help_lists_the_eight_commands(capsys):
         cli.main(["--help"])
     assert stop.value.code == 0
     text = capsys.readouterr().out
-    assert all(name in text for name in COMMANDS) and "bench" not in text
+    assert all(name in text for name in COMMANDS)
     assert "--device" in text
 
 
@@ -244,6 +249,28 @@ def test_classify_commands_call_the_runners_as_the_jax_cli(monkeypatch, capsys, 
     args, kwargs = calls["port"]
     assert args == calls["jax"][0]
     assert kwargs == {**calls["jax"][1], "device": "cpu", "dtype": torch.float32}
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["required", "every-option"])
+def test_bench_calls_run_bench_as_the_jax_cli(monkeypatch, capsys, which):
+    calls = {}
+
+    def record(_side):
+        def run_bench(*args, **kwargs):
+            calls[_side] = (args, kwargs)
+            return {"metric": "pcg_4s_windows_per_sec_per_chip_e2e", "value": 1.5}
+        return run_bench
+
+    monkeypatch.setitem(sys.modules, "bench", types.SimpleNamespace(run_bench=record("jax")))
+    monkeypatch.setattr(bench, "run_bench", record("port"))
+    argv = ["bench", *ARGV["bench"][which]]
+    theirs = CliRunner().invoke(jax_cli.cli, argv)
+    assert theirs.exit_code == 0, theirs.output
+    cli.main(["--device", "cpu", *argv])
+    assert capsys.readouterr().out == theirs.output
+    args, kwargs = calls["port"]
+    assert args == calls["jax"][0]
+    assert kwargs == {**calls["jax"][1], "device": "cpu", "mesh": None}
 
 
 def test_cuda_without_a_card_is_an_error(monkeypatch):

@@ -1,6 +1,6 @@
 """The port stands alone: no JAX, flax, optax, pandas, click, transformers, safetensors or
 JAX-package import anywhere in it or in ``chip_smoke.py`` (with them blocked it imports, trains, also through a one-rank gloo mesh, samples and runs
-``make-splits`` and ``summarize`` through its CLI), and its numpy copies of the JAX package's host layers give identical
+``make-splits`` and ``summarize`` through its CLI and ``python -m ...bench --mode=preproc``), and its numpy copies of the JAX package's host layers give identical
 results."""
 
 import ast
@@ -150,6 +150,13 @@ with tempfile.TemporaryDirectory() as tmp:
         cli.main(["summarize", results])
     assert "Wrote 12 records x 5 fold(s)" in echo.getvalue(), echo.getvalue()
     assert "| run_label=x | 1 | 0.5000±0.0000 |" in echo.getvalue(), echo.getvalue()
+import runpy
+sys.argv = ["bench", "--mode=preproc", "--steps=1", "--batch-size=2", "--device=cpu"]
+echo = io.StringIO()
+with contextlib.redirect_stdout(echo):
+    runpy.run_module("wav2vec_heart_sounds_tpu_torch.bench", run_name="__main__")
+line = json.loads(echo.getvalue())
+assert line["metric"] == "pcg_4s_windows_per_sec_per_chip_e2e" and line["value"] > 0, line
 print("PORT_OK", sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}
                         and sys.modules[m] is not None))
 """

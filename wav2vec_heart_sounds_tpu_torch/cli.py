@@ -2,11 +2,13 @@
 
 The JAX CLI's commands with the same names, options, defaults and choices: ``make-splits``,
 ``summarize``, ``gen-train``, ``gen-sample``, ``classify-cinc``, ``classify-vest``,
-``classify-synthetic`` and ``classify-lsdo``. It is written with argparse because the card's
-machine has no click. One option is new, the top-level ``--device`` (default ``cuda``): the
-commands that build a model run there, and ``cuda`` without a card is an error, never the
-CPU. The compute dtype follows the device (:func:`.models.build.default_compute_dtype`), as
-the JAX CLI's follows the backend. Each command imports its modules when it runs.
+``classify-synthetic``, ``classify-lsdo`` and ``bench`` (the ``train``, ``infer`` and
+``preproc`` modes of :mod:`.bench`, data-parallel under ``torchrun``). It is written with
+argparse because the card's machine has no click. One option is new, the top-level
+``--device`` (default ``cuda``): the commands that build a model run there, and ``cuda``
+without a card is an error, never the CPU. The compute dtype follows the device
+(:func:`.models.build.default_compute_dtype`), as the JAX CLI's follows the backend. Each
+command imports its modules when it runs.
 
 Run it as ``python -m wav2vec_heart_sounds_tpu_torch.cli [--device cpu] <command> ...`` or,
 installed, ``w2vhs-torch <command> ...``.
@@ -178,6 +180,20 @@ def classify_lsdo(args) -> None:
     _echo_record(record)
 
 
+# --- performance -----------------------------------------------------------------
+
+def bench_cmd(args) -> None:
+    """End-to-end throughput benchmark (windows/sec/chip) — see the port's bench.py."""
+    from .bench import launched_mesh, run_bench
+    from .parallel.mesh import is_main
+
+    device = _placement(args)["device"]
+    with launched_mesh(device) as mesh:
+        result = run_bench(**_options(args), device=device, mesh=mesh)
+        if is_main(mesh):
+            print(json.dumps(result))
+
+
 # --- the parser ------------------------------------------------------------------
 
 def _command(sub, name: str, run) -> argparse.ArgumentParser:
@@ -322,6 +338,13 @@ def build_parser() -> argparse.ArgumentParser:
     _flag(p, "--reference-train-rnn")
     p.add_argument("--max-batches", type=int, default=None)
     p.add_argument("--results-json", default=None)
+
+    p = _command(sub, "bench", bench_cmd)
+    p.add_argument("--batch-size", type=int, default=96)
+    p.add_argument("--fs", type=int, default=16000)
+    p.add_argument("--window-s", type=float, default=4.0)
+    p.add_argument("--steps", type=int, default=20)
+    p.add_argument("--mode", choices=["train", "infer", "preproc"], default="train")
     return parser
 
 
