@@ -270,7 +270,6 @@ def _code(fn) -> str:
     (common.make_loader, jax_common.make_loader),
     (common.append_result, jax_common.append_result),
     (observe.ScalarLogger, jax_observe.ScalarLogger),
-    (observe.stopwatch, jax_observe.stopwatch),
     (splits.SplitRatios, jax_splits.SplitRatios),
     (splits.read_cinc_labels, jax_splits.read_cinc_labels),
     (segment.window_starts, jax_segment.window_starts),

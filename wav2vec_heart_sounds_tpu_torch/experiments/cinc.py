@@ -38,15 +38,22 @@ from ..parallel.mesh import mesh_device
 from ..signal.torchproc import preprocess_pcg
 from ..train.classifier import SupervisedTrainer
 from ..train.evaluate import dequant, evaluate, make_apply_fn
+from ..utils.observe import span
 from .common import make_loader, write_result
 
 
 def _device_prep(fs_wire: int, fs: int, win_len: int, device):
-    """Dequantise + PCG preprocessing on ``device`` + crop to ``win_len``."""
+    """Dequantise + PCG preprocessing on ``device`` + crop to ``win_len``: a host batch's
+    copy to ``device`` under the ``batch.h2d`` span (a tensor, as the trainer's prefetch
+    thread hands it, has been copied there), the rest under ``prep``."""
 
     def prep(x) -> torch.Tensor:
-        x = dequant(torch.as_tensor(x).to(device))
-        return preprocess_pcg(x, fs_wire, fs)[:, :win_len]
+        if not torch.is_tensor(x):
+            with span("batch.h2d"):
+                x = torch.as_tensor(x).to(device)
+        with span("prep"):
+            x = dequant(x.to(device))
+            return preprocess_pcg(x, fs_wire, fs)[:, :win_len]
 
     return prep
 
@@ -271,6 +278,11 @@ def score(model: torch.nn.Module, batcher, fs_wire: int, fs: int, win_len: int,
     Returns the fragment and patient statistics of :func:`..train.evaluate.evaluate`, plus
     ``logits``: float32 ``[n_batches * batch_size, num_classes]``, every row of every
     batch in order (the padded rows of an eval batcher's last batch included).
+
+    Spans of a batch (while a profiler records): ``batch.gather`` and ``score.tally`` (in
+    ``evaluate``), ``batch.h2d``, ``prep`` and ``prep.despike`` (the chain), then
+    ``score.forward`` (the forward's enqueue) and ``score.readback`` (the logits' copy to
+    the host, which waits for the card).
     """
     device = next(model.parameters()).device
     prep = _device_prep(fs_wire, fs, win_len, device)
@@ -279,7 +291,11 @@ def score(model: torch.nn.Module, batcher, fs_wire: int, fs: int, win_len: int,
 
     def apply_fn(x) -> np.ndarray:
         with torch.inference_mode():
-            out = apply(prep(x)).float().cpu().numpy()
+            x = prep(x)
+            with span("score.forward"):
+                z = apply(x)
+            with span("score.readback"):
+                out = z.float().cpu().numpy()
         logits.append(out)
         return out
 

@@ -4,7 +4,9 @@ Each iteration finds, for every row at once, the worst 500 ms window (largest
 max-abs-amplitude), the spike peak in it and the zero crossings around the peak, and
 flattens that span to ``SPIKE_FLOOR`` in rows that are still active. A row is active while
 some window's MAA exceeds ``threshold`` x the row's median MAA. The loop is a Python loop
-with one host sync per iteration; clean signals exit after the first test.
+with one host sync per iteration; clean signals exit after the first test. While a profiler
+records, the counters ``despike.syncs`` (every host sync, the first test included) and
+``despike.iterations`` count them (:func:`..utils.observe.count`).
 
 The loop also stops at a fixed point. When the sign flips right after a spike's peak, the
 flattened span ``[start, end)`` leaves the peak out, so the row stays active and every
@@ -21,6 +23,8 @@ the threshold (64000 samples at 16 kHz make 8 half-second windows, an even count
 from __future__ import annotations
 
 import torch
+
+from ..utils.observe import count
 
 SPIKE_FLOOR = 1e-4
 
@@ -55,6 +59,7 @@ def remove_spikes(x: torch.Tensor, fs: float, threshold: float = 3.0,
         return (maa > threshold * median_last(maa)).any(dim=1), maa      # [B], [B, W]
 
     active, maa = active_rows()
+    count("despike.syncs")
     go = bool(active.any())
     it = 0
     while go and it < max_iterations:
@@ -75,6 +80,8 @@ def remove_spikes(x: torch.Tensor, fs: float, threshold: float = 3.0,
         frames[rows, worst] = torch.where(hit, torch.full_like(window, SPIKE_FLOOR), window)
         active, maa = active_rows()
         it += 1
+        count("despike.iterations")
+        count("despike.syncs")
         go = bool(changed & active.any())                                # the one host sync
 
     out = x.clone()

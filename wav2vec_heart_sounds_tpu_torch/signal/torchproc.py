@@ -4,7 +4,8 @@ Port of ``wav2vec_heart_sounds_tpu/signal/jaxproc.py``'s two chains with the sam
 orders: PCG resample -> despike -> 450 Hz low-pass -> 25 Hz high-pass -> abs-max; ECG
 resample -> 40 Hz low-pass -> 2 Hz high-pass -> abs-max. Each runs on the device of its
 input, in float32. The batched normalisers and the window segmentation that ``jaxproc``
-re-exports are :mod:`..ops.normalize` and :mod:`..ops.segment`.
+re-exports are :mod:`..ops.normalize` and :mod:`..ops.segment`. The PCG chain's despike stage
+is a ``prep.despike`` span (:func:`..utils.observe.span`) while a profiler records.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from ..ops.despike import remove_spikes
 from ..ops.iir import bandpass_cascade
 from ..ops.normalize import abs_max_normalise
 from ..ops.resample import resample
+from ..utils.observe import span
 
 
 def preprocess_pcg(x: torch.Tensor, fs_in: float, fs_out: float) -> torch.Tensor:
@@ -23,7 +25,9 @@ def preprocess_pcg(x: torch.Tensor, fs_in: float, fs_out: float) -> torch.Tensor
     squeeze = x.ndim == 1
     if squeeze:
         x = x[None, :]
-    x = remove_spikes(resample(x, fs_in, fs_out), fs_out)
+    x = resample(x, fs_in, fs_out)
+    with span("prep.despike"):
+        x = remove_spikes(x, fs_out)
     x = bandpass_cascade(x, fs_out, *PCG_BAND, order=2)
     x = abs_max_normalise(x)
     return x[0] if squeeze else x

@@ -65,7 +65,7 @@ from ..data.loader import prefetch_threaded
 from ..models.classifier import apply_trainable_mask
 from ..parallel.mesh import (gather_rows, is_main, maybe_shard_batch, mesh_device, rank_seed,
                              replicate, save_from_rank0)
-from ..utils.observe import ScalarLogger
+from ..utils.observe import ScalarLogger, gathered, span
 from .evaluate import dequant
 from .losses import (ContrastiveFocalConfig, contrastive_focal_loss, cross_entropy,
                      init_contrastive_focal)
@@ -118,13 +118,16 @@ class SupervisedTrainer:
                 put(np.asarray(batch["valid"], dtype=np.float32)), aug)
 
     def _train_step(self, x, y, valid, lr: float, aug=None):
-        if self.batch_transform is not None:
-            with torch.no_grad():
-                x = self.batch_transform(self.generator, x, row_mask=aug)
-        self.optimizer.zero_grad()
-        loss, logits = self._loss(x, y, valid, train=True)
-        loss.backward()
-        self.optimizer.step(lr)
+        with span("step.forward"):
+            if self.batch_transform is not None:
+                with torch.no_grad():
+                    x = self.batch_transform(self.generator, x, row_mask=aug)
+            self.optimizer.zero_grad()
+            loss, logits = self._loss(x, y, valid, train=True)
+        with span("step.backward"):
+            loss.backward()
+        with span("step.optimizer"):
+            self.optimizer.step(lr)
         return loss.detach(), logits.detach().argmax(dim=1)
 
     def _loss(self, x, y, valid, train: bool):
@@ -150,15 +153,33 @@ class SupervisedTrainer:
         """One epoch; the device syncs wait until its end. ``max_batches`` cuts the batcher
         before the prefetch thread, so that thread has finished its last host->device copy
         when the epoch returns (a thread still copying when the interpreter exits aborts
-        it)."""
+        it).
+
+        Spans of a batch (while a profiler records): on the prefetch thread ``batch.gather``
+        (the batcher's ``next()``, which starts the batch's serial) and ``batch.h2d``; on this
+        thread ``batch.wait`` (for the prefetched batch; the serial comes with it), ``prep``
+        and ``prep.despike`` (``device_preprocess``), and in a train step ``step.forward``,
+        ``step.backward`` and ``step.optimizer``."""
         cm = ConfusionMatrix()
         pending = []
         lr = self.schedule(self.epoch)
         self.model.train(train)
         want_aug = train and self.batch_transform is not None
-        to_device = lambda batch: self._to_device(batch, want_aug)   # noqa: E731
+
+        def to_device(item):
+            serial, batch = item
+            with span("batch.h2d", serial):
+                return serial, *self._to_device(batch, want_aug)
+
         batches = batcher if max_batches is None else itertools.islice(batcher, max_batches)
-        for batch, x, y, valid, aug in prefetch_threaded(batches, to_device):
+        items = prefetch_threaded(gathered(batches), to_device)
+        while True:
+            with span("batch.wait") as wait:
+                item = next(items, None)
+                wait.batch = None if item is None else item[0]
+            if item is None:
+                break
+            _, batch, x, y, valid, aug = item
             with torch.no_grad():
                 if self.device_preprocess is not None:
                     x = self.device_preprocess(x)

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..config import WIRE_SCALE
+from ..utils.observe import gathered, span
 from .metrics import ConfusionMatrix
 
 
@@ -29,22 +30,27 @@ def _host(logits) -> np.ndarray:
 
 
 def evaluate(apply_fn, batcher, max_batches: int | None = None) -> dict:
-    """``apply_fn(x) -> logits`` for each batch of ``batcher``; fragment and patient stats."""
+    """``apply_fn(x) -> logits`` for each batch of ``batcher``; fragment and patient stats.
+
+    While a profiler records, each ``next()`` on ``batcher`` is a ``batch.gather`` span that
+    starts the batch's serial, and the host's count of a batch's logits (argmax, the
+    confusion matrix, the per-window patient loop) a ``score.tally`` span."""
     fragment_cm = ConfusionMatrix()
     patient_logits: dict[str, list[np.ndarray]] = defaultdict(list)
     patient_true: dict[str, int] = {}
 
-    for i, batch in enumerate(batcher):
+    for i, (_, batch) in enumerate(gathered(batcher)):
         if max_batches is not None and i >= max_batches:
             break
         logits = _host(apply_fn(batch["waveform"]))
-        preds = logits.argmax(axis=1)
-        fragment_cm.update(batch["label"], preds, batch["valid"])
-        for j, patient in enumerate(batch["patient"]):
-            if not batch["valid"][j]:
-                continue
-            patient_logits[patient].append(logits[j])
-            patient_true[patient] = int(batch["label"][j])
+        with span("score.tally"):
+            preds = logits.argmax(axis=1)
+            fragment_cm.update(batch["label"], preds, batch["valid"])
+            for j, patient in enumerate(batch["patient"]):
+                if not batch["valid"][j]:
+                    continue
+                patient_logits[patient].append(logits[j])
+                patient_true[patient] = int(batch["label"][j])
 
     patient_cm = ConfusionMatrix()
     for patient, logit_list in patient_logits.items():
