@@ -164,12 +164,23 @@ Phases, each of which exits non-zero on failure:
    ``gen-train`` modes: bench.py's keys and the port's, a finite positive value, each kernel's
    exact launches (K1-K4 in ``train``, ``real`` and ``fusion``, K3b in ``infer``, K6 and K7
    too in the vest, none in ``preproc`` and the vocoder modes); then the CLI's ``bench`` in a
-   subprocess, alone and under a world-1 torchrun environment.
+   subprocess, alone and under a world-1 torchrun environment;
+25. (run right after phase 14) the positional convolution's kernels (``csrc/pos_conv.cu``) at
+   every shape a path runs them (``POS_CONV_SHAPES``: base and large training, fusion's and
+   the vest's frames, the test config), bfloat16: out, pre, dx, dW and db against the plain
+   version in float32 on the same tensors, a second backward bit for bit, each wrapper's
+   exact launches and ``posconv.launches`` under a profiler, cuDNN's flags untouched; timed
+   beside the bound and two library yardsticks the port never calls, cuDNN's default and
+   deterministic algorithms on the plain version. Every bfloat16 path phase above counts
+   the positional conv's launches with the other kernels' (one forward and one backward a
+   train step a wav2vec2 encoder, one forward an eval batch); float32 models keep
+   nn.Conv1d's call and launch none.
 
 Prints the card's name and power limit, one JSON line describing the kernels (launches
 from the ``fit`` of the path that runs each kernel: phase 7's K4 route for the CinC
-kernels but K5, which runs only on its control, and K3a and K8, which run on the opt-in
-route; phase 11 for K6 and K7, but K7's input gradient, which only phase 10 asks for), and
+kernels and the positional conv but K5, which runs only on its control, and K3a and K8,
+which run on the opt-in route; phase 11 for K6 and K7, but K7's input gradient, which only
+phase 10 asks for; times of the positional conv from phase 25 at base's shape), and
 as its last line ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -195,7 +206,7 @@ ROOT = Path(__file__).resolve().parent
 CSRC = "wav2vec_heart_sounds_tpu_torch/csrc/"
 PALLAS = "wav2vec_heart_sounds_tpu/ops/pallas/"
 SOURCES = ("attention_qkv_fwd", "attention_qkv_bwd", "dropout", "resid", "ffn_act", "ffn_mega",
-           "flash_kv", "sinc_delay", "conv_gelu")
+           "flash_kv", "sinc_delay", "conv_gelu", "pos_conv")
 
 # Serving configuration: 4 s windows at 16 kHz (the CinC window) from a 2 kHz raw wire.
 FS_WIRE, FS, WINDOW_S, BATCH = 2000, 16000, 4.0, 32
@@ -418,6 +429,7 @@ def phase_serving(card: str) -> int:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = attention.attention_qkv_fwd.launches
+    pos_launches = kernel_wrappers()["pos_conv_fwd"].launches
     runs = [seconds]
     for _ in range(2):                                                   # two more timed runs
         t0 = time.perf_counter()
@@ -431,13 +443,15 @@ def phase_serving(card: str) -> int:
           f"on {card} (median of 3 runs: {', '.join(f'{s * 1e3:.1f}' for s in runs)} ms; "
           f"host clock, preprocessing included)")
     print(f"[serve] attention launches {launches} in the first run "
-          f"({cfg.encoder.num_layers} layers x {n_batches} batches)")
+          f"({cfg.encoder.num_layers} layers x {n_batches} batches), positional conv "
+          f"{pos_launches} (one a batch)")
     print(f"[serve] fragment stats {json.dumps(result['fragment'])}")
     print(f"[serve] patient stats {json.dumps(result['patient'])}")
     check(logits.shape == (n_batches * BATCH, 2), f"logits shape {logits.shape}")
     check(bool(np.isfinite(logits).all()), "non-finite logits")
     check(launches == cfg.encoder.num_layers * n_batches,
           f"{launches} attention launches, expected {cfg.encoder.num_layers * n_batches}")
+    check(pos_launches == n_batches, f"{pos_launches} pos_conv_fwd launches, expected {n_batches}")
 
     def plain(qkv, t=None, dropout_rate=0.0):
         return attention.attention_qkv_reference(qkv, t)
@@ -465,7 +479,7 @@ def kernel_wrappers() -> dict:
     from wav2vec_heart_sounds_tpu_torch.ops.kernels import attention, conv, dropout, ffn, resid
     from wav2vec_heart_sounds_tpu_torch.ops.kernels import megakernel as mk
 
-    from wav2vec_heart_sounds_tpu_torch.ops.kernels import flash_kv, sinc_delay
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import flash_kv, pos_conv, sinc_delay
 
     return {"attention_qkv_fwd": attention.attention_qkv_fwd,
             "attention_qkv_bwd": attention.attention_qkv_bwd,
@@ -480,14 +494,16 @@ def kernel_wrappers() -> dict:
             "flash_kv_bwd": flash_kv.flash_kv_bwd_kernel,
             "sinc_delay_fwd": sinc_delay.sinc_fwd_kernel,
             "sinc_delay_grad_d": sinc_delay.sinc_grad_d_kernel,
-            "sinc_delay_grad_x": sinc_delay.sinc_grad_x_kernel}
+            "sinc_delay_grad_x": sinc_delay.sinc_grad_x_kernel,
+            "pos_conv_fwd": pos_conv.pos_conv_fwd_kernel,
+            "pos_conv_bwd": pos_conv.pos_conv_bwd_kernel}
 
 
 # The kernels only the vest path runs; their launches come from its fit (phase 11), K7's
 # input gradient's from the vest step (phase 9), the one run that needs it.
 VEST_KERNELS = ("flash_kv_fwd", "flash_kv_bwd", "sinc_delay_fwd", "sinc_delay_grad_d",
                 "sinc_delay_grad_x")
-# name -> (source, the TPU kernel it replaces)
+# name -> (source, the TPU kernel it replaces; None where the JAX package leaves it to XLA)
 KERNELS = {
     "attention_qkv_fwd": ("attention_qkv_fwd.cu", "attention.py:343"),
     "attention_qkv_bwd": ("attention_qkv_bwd.cu", "attention.py:376"),
@@ -507,6 +523,8 @@ KERNELS = {
     "sinc_delay_fwd": ("sinc_delay.cu", "beamformer.py:111"),
     "sinc_delay_grad_d": ("sinc_delay.cu", "beamformer.py:167"),
     "sinc_delay_grad_x": ("sinc_delay.cu", "beamformer.py:176"),
+    "pos_conv_fwd": ("pos_conv.cu", None),
+    "pos_conv_bwd": ("pos_conv.cu", None),
 }
 
 
@@ -521,10 +539,12 @@ def counts() -> dict:
 
 @contextlib.contextmanager
 def plain_route():
-    """Every kernel wrapper replaced by its plain version (same signature and contract)."""
+    """Every kernel wrapper replaced by its plain version (same signature and contract), and
+    the positional conv's op sent to its plain version (``pos_conv_gelu_plain``)."""
     from wav2vec_heart_sounds_tpu_torch.ops.kernels import attention, conv, dropout, ffn, resid
     from wav2vec_heart_sounds_tpu_torch.ops.kernels import flash_kv as fk
     from wav2vec_heart_sounds_tpu_torch.ops.kernels import megakernel as mk
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import pos_conv as pc
     from wav2vec_heart_sounds_tpu_torch.ops.kernels import sinc_delay as sk
 
     def conv_fwd_plain(x, w, keep_frames=False):
@@ -551,7 +571,8 @@ def plain_route():
              (resid, "resid_fwd_kernel", resid.resid_fwd_reference),
              (resid, "resid_bwd_kernel", resid.resid_bwd_reference),
              (ffn, "ffn_act_fwd_kernel", ffn.ffn_act_fwd_reference),
-             (ffn, "ffn_act_bwd_kernel", ffn.ffn_act_bwd_reference)]
+             (ffn, "ffn_act_bwd_kernel", ffn.ffn_act_bwd_reference),
+             (pc, "takes_kernel", lambda x: False)]       # the op's own plain version
     with contextlib.ExitStack() as stack:
         for module, name, plain in pairs:
             stack.enter_context(mock.patch.object(module, name, plain))
@@ -1916,8 +1937,133 @@ def phase_conv_kernel() -> dict:
     return records
 
 
+# The positional convolution (csrc/pos_conv.cu) at the shapes the paths run it:
+# (label, B, T, D, groups, kernel).
+POS_CONV_SHAPES = (("base", TRAIN_BATCH, T, HIDDEN, 16, 128),
+                   ("large", TRAIN_BATCH, T, 1024, 16, 128),
+                   ("fusion", FUSION_BATCH, FUSION_FRAMES, HIDDEN, 16, 128),
+                   ("vest", VEST_BATCH, VEST_FRAMES, HIDDEN, 16, 128),
+                   ("tiny", 4, 37, 32, 2, 16))
+
+
+def phase_pos_conv() -> dict:
+    """Phase 25: the positional convolution's kernels against the plain version
+    (``pos_conv_gelu_plain``, float32 from the same bfloat16 tensors, TF32 off) at
+    ``POS_CONV_SHAPES``. Tolerances: out and pre one bfloat16 rounding of the float32 value
+    (rtol 2^-7, one ulp, as the two sums round in different orders) with atol 1e-3 of the
+    largest value for near-cancelling sums; dx, dW and db within 1e-2 of their largest value:
+    the kernels take the GELU's gradient at the rounded pre and round dpre to bfloat16 (each
+    term off by up to 2^-9, errors that partly cancel over 6144 to 2.4M terms), which the
+    float32 plain version does not. A second backward equals the first bit for bit (dW and db
+    through partials summed in a fixed order). Each wrapper launches once a call and
+    ``posconv.launches`` counts one a call under a profiler; cuDNN's flags read as before.
+    Timed by device time beside the bound and, on the same tensors, the plain version in
+    bfloat16 on cuDNN's default algorithms and on its deterministic ones (forward, and its
+    autograd backward). Returns the base shape's records by kernel name (the kernels line)."""
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import pos_conv as pc
+    from wav2vec_heart_sounds_tpu_torch.utils import observe
+
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    records, kernels = {}, {}
+    for label, B, frames, d, groups, k in POS_CONV_SHAPES:
+        c = d // groups
+        shape = f"{label} [{B}, {frames}, {d}] / {groups} groups, k {k}"
+        x = torch.randn(B, frames, d, device="cuda", generator=gen).bfloat16()
+        w = (torch.randn(d, c, k, device="cuda", generator=gen) / (c * k) ** 0.5).bfloat16()
+        b = (0.1 * torch.randn(d, device="cuda", generator=gen)).bfloat16()
+        g = torch.randn(B, frames, d, device="cuda", generator=gen).bfloat16()
+        out_k, pre_k = pc.pos_conv_fwd_kernel(x, w, b, groups)
+        dx_k, dw_k, db_k = pc.pos_conv_bwd_kernel(x, w, pre_k, g, groups)
+        again = pc.pos_conv_bwd_kernel(x, w, pre_k, g, groups)
+        for name, first, second in zip(("dx", "dW", "db"), (dx_k, dw_k, db_k), again):
+            identical(f"pos_conv_bwd {name} twice, {shape}", second, first)
+        del again
+        leaves = [v.float().requires_grad_() for v in (x, w, b)]
+        h = pc.pos_conv_gelu_plain(*leaves, groups)
+        pre_p = pos_conv_pre_plain(*(v.detach() for v in leaves), groups)
+        grads = torch.autograd.grad(h, leaves, g.float())
+        err = {}
+        for name, got, ref in (("out", out_k, h.detach()), ("pre", pre_k, pre_p)):
+            top = ref.abs().max().item()
+            err[name] = agree(f"pos_conv_fwd {name} {shape}", got, ref, 1e-3 * top, 2 ** -7)
+        for name, got, ref in zip(("dx", "dW", "db"), (dx_k, dw_k, db_k), grads):
+            top = ref.abs().max().item()
+            err[name] = agree(f"pos_conv_bwd {name} {shape} (atol 1e-2 of max {top:.3e})",
+                              got, ref, 1e-2 * top, 0.0)
+        del h, pre_p, grads, leaves, dx_k, dw_k, db_k
+        calls = (pc.pos_conv_fwd_kernel.launches, pc.pos_conv_bwd_kernel.launches)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            start = observe.clock()
+            leaves = [v.detach().requires_grad_() for v in (x, w, b)]
+            pc.pos_conv_gelu(*leaves, groups).backward(g)
+            counted = observe.counters(start, observe.clock()).get("posconv.launches")
+        launched = (pc.pos_conv_fwd_kernel.launches - calls[0],
+                    pc.pos_conv_bwd_kernel.launches - calls[1])
+        check(launched == (1, 1) and counted == 2,
+              f"pos_conv {shape}: launches {launched}, posconv.launches {counted}; "
+              "expected (1, 1) and 2")
+        print(f"[pos_conv] {shape}: launches fwd+bwd 1+1, posconv.launches 2")
+        flops = 2 * B * frames * d * c * k
+        act = B * frames * d * 2
+        fwd_b = bound(2 * act + act + w.numel() * 2, flops, torch.bfloat16)
+        bwd_b = bound(4 * act + 2 * w.numel() * 2, 2 * flops, torch.bfloat16)
+        lib_leaves = [v.detach().requires_grad_() for v in (x, w, b)]
+        lib_out = pc.pos_conv_gelu_plain(*lib_leaves, groups)
+        heavy = label in ("base", "fusion", "vest")      # cuDNN's default dgrad engine: slow
+        lib_runs = dict(runs=2, batches=1) if heavy else {}
+        times = {
+            "fwd": device_ms(lambda: pc.pos_conv_fwd_kernel(x, w, b, groups)),
+            "bwd": device_ms(lambda: pc.pos_conv_bwd_kernel(x, w, pre_k, g, groups)),
+            "library_fwd": device_ms(lambda: pc.pos_conv_gelu_plain(x, w, b, groups)),
+            "library_bwd": device_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, g,
+                                                                 retain_graph=True),
+                                     **lib_runs)}
+        with deterministic_cudnn():
+            det_out = pc.pos_conv_gelu_plain(*lib_leaves, groups)
+            times["deterministic_fwd"] = device_ms(
+                lambda: pc.pos_conv_gelu_plain(x, w, b, groups))
+            times["deterministic_bwd"] = device_ms(
+                lambda: torch.autograd.grad(det_out, lib_leaves, g, retain_graph=True))
+        for part, b_ in (("fwd", fwd_b), ("bwd", bwd_b)):
+            rate = (flops if part == "fwd" else 2 * flops) / times[part] / 1e9
+            print(f"[pos_conv] {part} {shape}: kernel {times[part]:.4f} ms ({rate:.1f} TFLOP/s), "
+                  f"bound {b_['bound_ms']:.4f} ms by {b_['bound_by']}, cuDNN default "
+                  f"{times['library_' + part]:.4f} ms, cuDNN deterministic "
+                  f"{times['deterministic_' + part]:.4f} ms (device time)")
+        records[label] = {**{k_: round(v, 4) for k_, v in times.items()},
+                          "bound_fwd_ms": fwd_b["bound_ms"], "bound_bwd_ms": bwd_b["bound_ms"],
+                          "max_err": err}
+        if label == "base":                        # the main path's shape, for the kernels line
+            for part, b_, names in (("fwd", fwd_b, ("out", "pre")),
+                                    ("bwd", bwd_b, ("dx", "dW", "db"))):
+                kernels["pos_conv_" + part] = {
+                    "ms": times[part], "max_abs_err": max(err[n] for n in names), **b_,
+                    "library_ms": times["library_" + part],
+                    "deterministic_ms": times["deterministic_" + part]}
+        del x, w, b, g, out_k, pre_k, lib_out, lib_leaves, det_out
+        torch.cuda.empty_cache()
+    check((torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) == flags,
+          "pos_conv: cuDNN's flags changed")
+    print(json.dumps({"pos_conv": {"source": CSRC + "pos_conv.cu", "replaces": None,
+                                   "shapes": records}}))
+    return kernels
+
+
+def pos_conv_pre_plain(x, w, b, groups):
+    """The plain version's pre-activation: the conv plus bias, an even kernel's trailing
+    frame dropped, on ``[B, T, D]``."""
+    import torch.nn.functional as F
+
+    k = w.shape[-1]
+    return F.conv1d(x.transpose(1, 2), w, b, padding=k // 2,
+                    groups=groups)[..., :x.shape[1]].transpose(1, 2)
+
+
 # Kernel launches of one training step of wav2vec2-base (12 layers): (forward, backward), on
-# the default FFN route (K4) and on the decomposed control (``ffn_mega=False``: K5 + K2).
+# the default FFN route (K4) and on the decomposed control (``ffn_mega=False``: K5 + K2). The
+# positional conv's kernels run once a step in bfloat16 (the main path); a float32 step
+# keeps nn.Conv1d's call (``float32_step``).
 PER_STEP = {"dropout": (2, 2), "resid_fwd": (12, 0), "resid_bwd": (0, 12),
             "attention_qkv_fwd": (12, 0), "attention_qkv_bwd": (0, 12),
             "attention_fwd": (0, 0), "attention_bwd": (0, 0),
@@ -1925,7 +2071,8 @@ PER_STEP = {"dropout": (2, 2), "resid_fwd": (12, 0), "resid_bwd": (0, 12),
             "ffn_mega_fwd": (12, 0), "ffn_mega_bwd": (0, 12),
             "ffn_act_fwd": (0, 0), "ffn_act_bwd": (0, 0),
             "flash_kv_fwd": (0, 0), "flash_kv_bwd": (0, 0), "sinc_delay_fwd": (0, 0),
-            "sinc_delay_grad_d": (0, 0), "sinc_delay_grad_x": (0, 0)}
+            "sinc_delay_grad_d": (0, 0), "sinc_delay_grad_x": (0, 0),
+            "pos_conv_fwd": (1, 0), "pos_conv_bwd": (0, 1)}
 PER_STEP_SPLIT = {**PER_STEP, "resid_fwd": (24, 0), "resid_bwd": (0, 24),
                   "ffn_mega_fwd": (0, 0), "ffn_mega_bwd": (0, 0),
                   "ffn_act_fwd": (12, 0), "ffn_act_bwd": (0, 12)}
@@ -1935,7 +2082,8 @@ PER_STEP_SPLIT = {**PER_STEP, "resid_fwd": (24, 0), "resid_bwd": (0, 24),
 PER_STEP_GATED = {**PER_STEP, "attention_qkv_fwd": (0, 0), "attention_qkv_bwd": (0, 0),
                   "attention_fwd": (12, 0), "attention_bwd": (0, 12),
                   "conv_gelu_fwd": (1, 0), "conv_gelu_bwd": (0, 1)}
-# The fusion step: two branches of the default route (4 s at 4125 Hz: T' = 51, so no K8).
+# The fusion step: two branches of the default route (4 s at 4125 Hz: T' = 51, so no K8),
+# the positional conv once a branch.
 PER_STEP_FUSION = {k: (2 * f, 2 * b) for k, (f, b) in PER_STEP.items()}
 # The vest step (6 microphones, LoRA on q/v): K1 runs at the feature projection, the
 # encoder input and the 24 LoRA bypasses (two per layer); K6 once per delay-predictor layer
@@ -1947,12 +2095,19 @@ PER_STEP_FUSION = {k: (2 * f, 2 * b) for k, (f, b) in PER_STEP.items()}
 PER_STEP_VEST = {**PER_STEP, "dropout": (26, 26), "flash_kv_fwd": (2, 0),
                  "flash_kv_bwd": (0, 2), "sinc_delay_fwd": (1, 0), "sinc_delay_grad_d": (0, 1)}
 PER_STEP_VEST_INPUT_GRAD = {**PER_STEP_VEST, "sinc_delay_grad_x": (0, 1)}
-# Kernels that an eval forward launches (per batch): wav2vec2-base's attention, and on the
-# vest the delay predictor's attention and the sinc delay.
-EVAL_PER_BATCH = {"attention_qkv_fwd": 12}
+# Kernels that an eval forward launches (per batch): wav2vec2-base's attention and the
+# positional conv's forward, and on the vest the delay predictor's attention and the sinc
+# delay.
+EVAL_PER_BATCH = {"attention_qkv_fwd": 12, "pos_conv_fwd": 1}
 EVAL_PER_BATCH_VEST = {**EVAL_PER_BATCH, "flash_kv_fwd": 2, "sinc_delay_fwd": 1}
-EVAL_PER_BATCH_GATED = {"attention_fwd": 12, "conv_gelu_fwd": 1}
-EVAL_PER_BATCH_FUSION = {"attention_qkv_fwd": 24}
+EVAL_PER_BATCH_GATED = {"attention_fwd": 12, "conv_gelu_fwd": 1, "pos_conv_fwd": 1}
+EVAL_PER_BATCH_FUSION = {"attention_qkv_fwd": 24, "pos_conv_fwd": 2}
+
+
+def float32_step(per_step: dict) -> dict:
+    """``per_step`` for a float32 model: the positional conv keeps nn.Conv1d's call there, so
+    its kernels do not launch."""
+    return {**per_step, "pos_conv_fwd": (0, 0), "pos_conv_bwd": (0, 0)}
 
 
 def per_step_text(per_step: dict) -> str:
@@ -2018,19 +2173,19 @@ def phase_train_step() -> None:
 
     model = build_classifier(classifier_config(), seed=0, device="cuda", dtype=torch.float32,
                              train=True)
-    loss_k, norms_k = train_step(model, x, y, PER_STEP)
+    loss_k, norms_k = train_step(model, x, y, float32_step(PER_STEP))
     with plain_route():
         loss_p, norms_p = train_step(model, x, y, None)
     worst = worst_norm_gap(norms_k, norms_p)
     print(f"[train-step] wav2vec2-base f32 B={B}, dropout {RATE} and SpecAugment on: loss "
           f"kernels {loss_k:.7f} vs plain {loss_p:.7f}; {len(norms_p)} gradient norms, worst "
           f"relative difference {worst:.3e} (limit 1e-3); launches fwd+bwd "
-          + per_step_text(PER_STEP))
+          + per_step_text(float32_step(PER_STEP)))
     check(abs(loss_k - loss_p) <= 1e-4 * max(1.0, abs(loss_p)), "training-step losses differ")
     check(worst <= 1e-3, f"gradient norms differ between kernel and plain routes: {worst}")
     check(all(np.isfinite(v) and v > 0 for v in norms_k.values()), "a gradient is 0 or not finite")
     # the float32 reference of the bf16 A/B below, at each of its step seeds
-    ref_steps = [(loss_k, norms_k)] + [train_step(model, x, y, PER_STEP, s)
+    ref_steps = [(loss_k, norms_k)] + [train_step(model, x, y, float32_step(PER_STEP), s)
                                        for s in STEP_SEEDS[1:]]
     del model
 
@@ -2177,15 +2332,15 @@ def phase_gated_step() -> None:
     y = torch.arange(B, device="cuda") % 2
     model = build_classifier(classifier_config(qkv_fuse=False, conv_fuse=True), seed=0,
                              device="cuda", dtype=torch.float32, train=True)
-    loss_k, norms_k = train_step(model, x, y, PER_STEP_GATED)
+    loss_k, norms_k = train_step(model, x, y, float32_step(PER_STEP_GATED))
     with plain_route():
         loss_p, norms_p = train_step(model, x, y, None)
     worst = worst_norm_gap(norms_k, norms_p)
     print(f"[gated-step] wav2vec2-base f32 B={B}, qkv_fuse=False, conv_fuse=True, dropout "
           f"{RATE} and SpecAugment on: loss kernels {loss_k:.7f} vs plain {loss_p:.7f}; "
           f"{len(norms_p)} gradient norms, worst relative difference {worst:.3e} (limit 1e-3); "
-          f"launches fwd+bwd " + per_step_text({k: v for k, v in PER_STEP_GATED.items()
-                                                if any(v)}))
+          f"launches fwd+bwd " + per_step_text({k: v for k, v in
+                                                float32_step(PER_STEP_GATED).items() if any(v)}))
     check(abs(loss_k - loss_p) <= 1e-4 * max(1.0, abs(loss_p)), "gated-route losses differ")
     check(worst <= 1e-3, f"gated-route gradient norms differ between kernel and plain: {worst}")
     check(all(np.isfinite(v) and v > 0 for v in norms_k.values()), "a gradient is 0 or not finite")
@@ -2315,6 +2470,7 @@ def phase_fusion_runner() -> None:
         check(json.loads(results.read_text())[-1]["topology"] == "big_rnn:2:wav2vec",
               "the fusion results record is missing")
         check(got["ffn_mega_bwd"] == 12 * 2 + 12 * 2 + 24 * 2, f"K4 launches: {got}")
+        check(got["pos_conv_bwd"] == 2 + 2 + 2 * 2, f"positional conv launches: {got}")
 
 
 def timed_epoch(trainer, batcher) -> float:
@@ -2438,7 +2594,7 @@ def phase_vest_step() -> dict:
     x = 0.3 * torch.randn(B, VEST_T, VEST_MICS, device="cuda", generator=gen)
     x.requires_grad_()
     y = torch.arange(B, device="cuda") % 2
-    loss_k, norms_k = train_step(model, x, y, PER_STEP_VEST_INPUT_GRAD)
+    loss_k, norms_k = train_step(model, x, y, float32_step(PER_STEP_VEST_INPUT_GRAD))
     launches = counts()
     with plain_route():
         loss_p, norms_p = train_step(model, x, y, None)
@@ -2460,7 +2616,8 @@ def phase_vest_step() -> dict:
           f"{len(noise)} key biases (true gradient 0; at most "
           f"{max(max(norms_k[n], norms_p[n]) for n in noise) / top:.1e} of the largest norm, "
           f"limit 1e-5); launches fwd+bwd "
-          + per_step_text({k: v for k, v in PER_STEP_VEST_INPUT_GRAD.items() if any(v)}))
+          + per_step_text({k: v for k, v in float32_step(PER_STEP_VEST_INPUT_GRAD).items()
+                           if any(v)}))
     check(len(norms_k) == len(trained) + 1, "a trained parameter got no gradient")
     check(abs(loss_k - loss_p) <= 1e-4 * max(1.0, abs(loss_p)), "vest step losses differ")
     check(worst <= 1e-3, f"vest gradient norms differ between kernel and plain routes: {worst}")
@@ -2661,6 +2818,8 @@ def phase_vest_runner() -> None:
             check(got["flash_kv_bwd"] == 2 * len(values) and got["sinc_delay_grad_d"] ==
                   len(values) and got["sinc_delay_grad_x"] == 0 and got["flash_kv_fwd"] >
                   2 * len(values), f"K6/K7 launches in the vest runner: {got}")
+            check(got["pos_conv_bwd"] == len(values),
+                  f"positional conv backward launches in the vest runner: {got}")
 
 
 def synthetic_cinc(directory: Path, seed: int = 0) -> str:
@@ -2730,6 +2889,8 @@ def phase_runner() -> None:
                   "the results record is missing")
             check(got["ffn_mega_fwd"] == got["ffn_mega_bwd"] == 12 * len(values),
                   f"K4 launches in the runner: {got}")
+            check(got["pos_conv_bwd"] == len(values),
+                  f"positional conv backward launches in the runner: {got}")
 
 
 # The vocoders at full width (bench.py's gen modes, bench.py:44-205): (name, check frames,
@@ -3612,7 +3773,8 @@ def remat_per_step(layers: int, remat: bool) -> dict:
     again = layers if remat else 0
     return {"dropout": (2, 2), "resid_fwd": (layers, again), "resid_bwd": (0, layers),
             "attention_qkv_fwd": (layers, again), "attention_qkv_bwd": (0, layers),
-            "ffn_mega_fwd": (layers, again), "ffn_mega_bwd": (0, layers)}
+            "ffn_mega_fwd": (layers, again), "ffn_mega_bwd": (0, layers),
+            "pos_conv_fwd": (1, 0), "pos_conv_bwd": (0, 1)}
 
 
 def write_safetensors(path: Path, tensors: dict) -> None:
@@ -4062,6 +4224,7 @@ def main() -> None:
     timed(phase_vest_runner)
     measured.update(timed(phase_unpacked_attention))
     measured.update(timed(phase_conv_kernel))
+    measured.update(timed(phase_pos_conv))
     timed(phase_gated_step)
     timed(phase_fusion_training, card)
     timed(phase_fusion_runner)
@@ -4076,7 +4239,8 @@ def main() -> None:
     print(f"[wall] all phases: {time.perf_counter() - start:.1f} s")
     print(card)
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": CSRC + source, "replaces": PALLAS + replaces,
+        {"name": name, "route": "cuda", "source": CSRC + source,
+         "replaces": PALLAS + replaces if replaces else None,
          "launches": (vest_launches if name in VEST_KERNELS else launches)[name],
          **measured[name]}
         for name, (source, replaces) in KERNELS.items()]}))

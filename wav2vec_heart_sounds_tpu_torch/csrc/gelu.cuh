@@ -118,6 +118,18 @@ __device__ __forceinline__ float gelu_erf_grad_rn(float x) {
   return __fadd_rn(cdf, pdf);
 }
 
+// The exact erf GELU and its gradient as PyTorch's CUDA gelu and its backward evaluate them
+// (CUDA's erff, float32): the positional conv's activation (pos_conv.cu).
+__device__ __forceinline__ float gelu_erf_exact(float x) {
+  return 0.5f * x * (1.f + erff(x * (1.f / kSqrt2)));
+}
+
+__device__ __forceinline__ float gelu_erf_exact_grad(float x) {
+  const float cdf = 0.5f * (1.f + erff(x * (1.f / kSqrt2)));
+  const float pdf = expf(-0.5f * x * x) * kInvSqrt2Pi;
+  return cdf + x * pdf;
+}
+
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float u = kTanhK0 * (x + kTanhK1 * x * x * x);
   return 0.5f * x * (1.f + tanhf(u));

@@ -63,6 +63,7 @@ from ..ops.kernels.conv import conv_gelu
 from ..ops.kernels.dropout import dropout
 from ..ops.kernels.ffn import dense_gelu_dropout
 from ..ops.kernels.megakernel import ffn_block
+from ..ops.kernels.pos_conv import pos_conv_gelu
 from ..ops.kernels.resid import dropout_add_layernorm
 
 HIDDEN = 768  # wav2vec2-base hidden size
@@ -246,20 +247,18 @@ class FeatureProjection(nn.Module):
 
 class PositionalConvEmbedding(nn.Module):
     """Grouped conv positional embedding on ``[B, T, D]``: pad k//2 both sides, drop the
-    trailing frame for an even kernel, erf GELU."""
+    trailing frame for an even kernel, erf GELU. ``conv`` holds the parameters
+    (``nn.Conv1d``'s names and layout); the op is :func:`..ops.kernels.pos_conv.pos_conv_gelu`
+    (bfloat16 on the card: ``csrc/pos_conv.cu``; else ``nn.Conv1d``'s own call)."""
 
     def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype):
         super().__init__()
         k = cfg.pos_conv_kernel
         self.conv = nn.Conv1d(cfg.hidden_size, cfg.hidden_size, k, padding=k // 2,
                               groups=cfg.pos_conv_groups, dtype=dtype)
-        self.even = k % 2 == 0
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv(x.transpose(1, 2))
-        if self.even:
-            h = h[:, :, :-1]
-        return F.gelu(h, approximate="none").transpose(1, 2)
+        return pos_conv_gelu(x, self.conv.weight, self.conv.bias, self.conv.groups)
 
 
 class SelfAttention(nn.Module):
