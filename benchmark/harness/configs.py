@@ -2,8 +2,16 @@
 
 The file keeps the published ``config.json`` keys (HF's ``Wav2Vec2Config`` names) and adds
 the classification head, the precision the port runs it in and the ``reduced`` and
-``assumed`` lists. :class:`ModelConfig` is what the plain reference and the FLOP count read;
-the port's own config objects are made from it in :mod:`.program`.
+``assumed`` lists. :class:`ModelConfig` is what the plain reference, the weights and the
+FLOP count read; the port's own config object is read from the same keys in :mod:`.program`.
+
+Three of HF's keys choose the architecture, as ``Wav2Vec2Model`` reads them:
+``feat_extract_norm`` (``"group"``: GroupNorm on the first conv layer only, as in
+wav2vec2-base and -large; ``"layer"``: LayerNorm over channels on every conv layer, as in
+XLS-R and the ``-lv60`` models), ``conv_bias`` (a bias on every conv layer) and
+``do_stable_layer_norm`` (pre-norm encoder layers with the encoder's LayerNorm after the
+last one, in place of post-norm layers with it before the first). A key the file leaves out
+takes HF's default, as ``config.json`` leaves out every key equal to it.
 """
 
 from __future__ import annotations
@@ -13,6 +21,9 @@ from dataclasses import dataclass
 import torch
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# HF ``Wav2Vec2Config``'s defaults for the architecture keys read here.
+HF_DEFAULTS = {"feat_extract_norm": "group", "conv_bias": False, "do_stable_layer_norm": False,
+               "hidden_act": "gelu", "feat_extract_activation": "gelu"}
 
 
 @dataclass(frozen=True)
@@ -36,13 +47,19 @@ class ModelConfig:
     head_hidden: tuple[int, ...]
     num_classes: int
     compute_dtype: torch.dtype
+    feat_extract_norm: str
+    conv_bias: bool
+    do_stable_layer_norm: bool
 
     @classmethod
     def from_file(cls, spec: dict) -> "ModelConfig":
-        if spec["feat_extract_norm"] != "group" or spec["do_stable_layer_norm"] \
-                or spec["conv_bias"] or spec["hidden_act"] != "gelu":
-            raise ValueError("the port runs the group-norm, post-norm wav2vec2 without conv "
-                             "bias and with GELU")
+        arch = {key: spec.get(key, default) for key, default in HF_DEFAULTS.items()}
+        if arch["feat_extract_norm"] not in ("group", "layer"):
+            raise ValueError(f"feat_extract_norm={arch['feat_extract_norm']!r}: the reference "
+                             "computes 'group' and 'layer'")
+        for key in ("hidden_act", "feat_extract_activation"):
+            if arch[key] != "gelu":
+                raise ValueError(f"{key}={arch[key]!r}: the reference computes 'gelu'")
         head = spec["classifier"]
         return cls(conv_dim=tuple(spec["conv_dim"]), conv_kernel=tuple(spec["conv_kernel"]),
                    conv_stride=tuple(spec["conv_stride"]), hidden_size=spec["hidden_size"],
@@ -57,7 +74,10 @@ class ModelConfig:
                    mask_time_prob=spec["mask_time_prob"],
                    mask_time_length=spec["mask_time_length"],
                    head_hidden=tuple(head["hidden"]), num_classes=head["num_classes"],
-                   compute_dtype=DTYPES[spec["precision"]["compute"]])
+                   compute_dtype=DTYPES[spec["precision"]["compute"]],
+                   feat_extract_norm=arch["feat_extract_norm"],
+                   conv_bias=arch["conv_bias"],
+                   do_stable_layer_norm=arch["do_stable_layer_norm"])
 
     def frames(self, samples: int) -> int:
         """Encoder frames of a ``samples``-long input: the conv stack's output length."""

@@ -8,7 +8,8 @@ score-shaped products, the FFN, and the head. Not counted: norms, activations, s
 dropout, the optimizer and the preprocessing chain. A training step counts the forward, the
 input gradient of every product whose input needs one (all but the first convolution, whose
 input is the waveform) and every weight gradient, each as many operations as the forward
-product; nothing recomputed.
+product; nothing recomputed. The count is the same in both architectures of
+:mod:`.configs`: where the norms sit and the conv layers' biases are no products.
 """
 
 from __future__ import annotations

@@ -8,13 +8,14 @@ hands the program, and hooks the model's forward to read what it was given.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
 from wav2vec_heart_sounds_tpu_torch.models.classifier import ClassifierConfig, Wav2VecClassifier
-from wav2vec_heart_sounds_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+from wav2vec_heart_sounds_tpu_torch.models.hf_port import config_from_hf
 
 from .configs import ModelConfig
 from .weights import served_dtype
@@ -22,18 +23,14 @@ from .weights import served_dtype
 
 def port_config(cfg: ModelConfig, spec: dict, fs: int) -> ClassifierConfig:
     """The port's classifier configuration for a configuration file (random init: the
-    weights are loaded afterwards)."""
+    weights are loaded afterwards). The encoder's fields are read from the file's HF keys by
+    the port's own reader, as a user's checkpoint is, so an architecture key the port does
+    not compute stops here with the port's error naming it; the file's routes are set on
+    top."""
     routes = spec["precision"]
-    encoder = Wav2Vec2Config(
-        conv_dim=cfg.conv_dim, conv_kernel=cfg.conv_kernel, conv_stride=cfg.conv_stride,
-        hidden_size=cfg.hidden_size, num_layers=cfg.num_layers, num_heads=cfg.num_heads,
-        intermediate_size=cfg.intermediate_size, pos_conv_kernel=cfg.pos_conv_kernel,
-        pos_conv_groups=cfg.pos_conv_groups, layer_norm_eps=cfg.layer_norm_eps,
-        hidden_dropout=cfg.hidden_dropout, attention_dropout=cfg.attention_dropout,
-        activation_dropout=cfg.activation_dropout, feat_proj_dropout=cfg.feat_proj_dropout,
-        mask_time_prob=cfg.mask_time_prob, mask_time_length=cfg.mask_time_length,
-        ffn_mega=routes["ffn_route"] == "K4", qkv_fuse=routes["attention_route"] == "K3b",
-        conv_fuse=routes["conv_fuse"])
+    encoder = dataclasses.replace(
+        config_from_hf(spec), ffn_mega=routes["ffn_route"] == "K4",
+        qkv_fuse=routes["attention_route"] == "K3b", conv_fuse=routes["conv_fuse"])
     return ClassifierConfig(num_classes=cfg.num_classes, num_channels=1,
                             head_hidden=cfg.head_hidden, random_init=True, fs=fs,
                             encoder=encoder)

@@ -8,15 +8,14 @@ the port made: the benchmark hands it the same raw windows and the same starting
 * the dropout masks: Philox4x32-10 keyed by ``(step seed, site)`` at each element's
   row-major index in the whole batch's tensor (:func:`philox_bits`, a frozen copy of that
   arithmetic), kept where the 32-bit draw is at least ``uint32(rate * (2^32 - 1))``, kept
-  values scaled by the float32 ``1 / (1 - rate)``; sites 0 (feature projection) and 1
-  (encoder input), then four a layer (attention probabilities, attention tail, FFN
-  activation, FFN tail);
+  values scaled by the float32 ``1 / (1 - rate)``, at the sites of :class:`PlainModel`;
 * the step seed and the SpecAugment span starts, drawn from a CPU ``torch.Generator``
   seeded with the trainer's seed, in the trainer's order (:func:`step_draws`).
 
 ``precision="fp8"`` is the control: every product's two operands rounded to float8 (e4m3
-forward, e5m2 for the gradients, one scale a tensor) and every stage of the chain rounded
-to TF32's 10-bit mantissa: the precisions below the ones the configuration states.
+forward, e5m2 for the gradients, one scale a tensor), in both architectures, and every stage
+of the chain rounded to TF32's 10-bit mantissa: the precisions below the ones the
+configuration states.
 """
 
 from __future__ import annotations
@@ -37,6 +36,9 @@ W0, W1 = 0x9E3779B9, 0xBB67AE85
 MASK32 = 0xFFFFFFFF
 SITE_FEATURE_PROJECTION, SITE_ENCODER = 0, 1
 SPIKE_FLOOR = 1e-4
+# The feature encoder's norms take torch's default eps, as HF builds them (``nn.GroupNorm``,
+# ``nn.LayerNorm`` without an eps), not the configuration's ``layer_norm_eps``.
+FEATURE_NORM_EPS = 1e-5
 
 
 # ---- dropout masks ----------------------------------------------------------------------
@@ -190,8 +192,24 @@ def exact_float32():
 
 
 class PlainModel:
-    """wav2vec2 (group-norm feature encoder, post-norm layers) + mean pool + MLP head over
-    float32 leaves ``w`` (named as :mod:`.weights` names them)."""
+    """wav2vec2 + mean pool + MLP head over float32 leaves ``w`` (named as :mod:`.weights`
+    names them), in HF ``Wav2Vec2Model``'s two architectures, as the configuration's keys
+    choose (:mod:`.configs`):
+
+    * the feature encoder: conv (with its bias under ``conv_bias``), then under
+      ``feat_extract_norm="group"`` GroupNorm with a group a channel on the first layer only,
+      under ``"layer"`` LayerNorm over channels on every layer; then GELU;
+    * the encoder, post-norm: ``LN(h + gelu(pos))``, dropout, then layers of
+      ``h = LN1(h + drop(attn(h)))``, ``h = LN2(h + drop(ffn(h)))``;
+    * the encoder under ``do_stable_layer_norm``: ``h + gelu(pos)`` with no norm, dropout,
+      then pre-norm layers of ``h = h + drop(attn(LN1(h)))``, ``h = h + drop(ffn(LN2(h)))``,
+      and the encoder's LayerNorm after the last layer.
+
+    Dropout sites, the same in both architectures (the contract the port is held to):
+    ``SITE_FEATURE_PROJECTION`` (0) after the feature projection, ``SITE_ENCODER`` (1) on the
+    encoder's input after the positional conv is added, then four a layer from
+    ``2 + 4 * layer``: the attention probabilities, the attention's output projection, the
+    FFN's activation and the FFN's output."""
 
     def __init__(self, cfg: ModelConfig, w: dict[str, torch.Tensor], precision: str = "float32"):
         self.cfg, self.w = cfg, w
@@ -200,9 +218,9 @@ class PlainModel:
     def _linear(self, x, name):
         return F.linear(self.q(x), self.q(self.w[f"{name}.weight"]), self.w[f"{name}.bias"])
 
-    def _ln(self, x, name):
+    def _ln(self, x, name, eps=None):
         return F.layer_norm(x, x.shape[-1:], self.w[f"{name}.weight"], self.w[f"{name}.bias"],
-                            self.cfg.layer_norm_eps)
+                            self.cfg.layer_norm_eps if eps is None else eps)
 
     def _drop(self, x, masks: StepMasks | None, site: int, rate: float):
         if masks is None or rate <= 0:
@@ -215,14 +233,23 @@ class PlainModel:
     def forward(self, x: torch.Tensor, masks: StepMasks | None = None) -> torch.Tensor:
         """Logits ``[rows, classes]`` of float32 waveforms ``[rows, samples]``; a training
         forward (dropout, SpecAugment) with ``masks``."""
+        return self.head(self.encode(x, masks))
+
+    def encode(self, x: torch.Tensor, masks: StepMasks | None = None) -> torch.Tensor:
+        """The encoder's output ``[rows, frames, hidden]`` (HF's ``last_hidden_state``)."""
         cfg, w = self.cfg, self.w
         h = x[:, None, :]
         fe = "encoder.feature_extractor.conv_layers"
         for i, s in enumerate(cfg.conv_stride):
-            h = F.conv1d(self.q(h), self.q(w[f"{fe}.{i}.conv.weight"]), stride=s)
-            if i == 0:
-                h = F.group_norm(h, h.shape[1], w[f"{fe}.0.layer_norm.weight"],
-                                 w[f"{fe}.0.layer_norm.bias"], cfg.layer_norm_eps)
+            p = f"{fe}.{i}"
+            h = F.conv1d(self.q(h), self.q(w[f"{p}.conv.weight"]),
+                         w[f"{p}.conv.bias"] if cfg.conv_bias else None, stride=s)
+            if cfg.feat_extract_norm == "layer":
+                h = self._ln(h.transpose(1, 2), f"{p}.layer_norm",
+                             FEATURE_NORM_EPS).transpose(1, 2)
+            elif i == 0:
+                h = F.group_norm(h, h.shape[1], w[f"{p}.layer_norm.weight"],
+                                 w[f"{p}.layer_norm.bias"], FEATURE_NORM_EPS)
             h = F.gelu(h)
         h = self._ln(h.transpose(1, 2), "encoder.feature_projection.layer_norm")
         h = self._linear(h, "encoder.feature_projection.projection")
@@ -236,34 +263,55 @@ class PlainModel:
                        groups=cfg.pos_conv_groups)
         if k % 2 == 0:
             pos = pos[:, :, :-1]
-        h = self._ln(h + F.gelu(pos).transpose(1, 2), f"{enc}.layer_norm")
+        h = h + F.gelu(pos).transpose(1, 2)
+        if not cfg.do_stable_layer_norm:
+            h = self._ln(h, f"{enc}.layer_norm")
         h = self._drop(h, masks, SITE_ENCODER, cfg.hidden_dropout)
+        layer_of = self._stable_layer if cfg.do_stable_layer_norm else self._layer
         for layer in range(cfg.num_layers):
-            h = self._layer(h, f"{enc}.layers.{layer}", 2 + 4 * layer, masks)
+            h = layer_of(h, f"{enc}.layers.{layer}", 2 + 4 * layer, masks)
+        return self._ln(h, f"{enc}.layer_norm") if cfg.do_stable_layer_norm else h
+
+    def head(self, h: torch.Tensor) -> torch.Tensor:
+        """Logits ``[rows, classes]`` of the encoder's output ``[rows, frames, hidden]``."""
         h = h.mean(dim=1)
-        for i in range(len(cfg.head_hidden)):
+        for i in range(len(self.cfg.head_hidden)):
             h = torch.relu(self._linear(h, f"head.dense_{i}"))
         return self._linear(h, "head.logits")
 
-    def _layer(self, h, p, site, masks):
-        cfg = self.cfg
+    def _attention(self, h, p, site, masks):
+        """The attention's output projection, before its dropout (probabilities at ``site``)."""
         b, t, d = h.shape
-        heads = cfg.num_heads
+        heads = self.cfg.num_heads
 
         def split(name):
             return self._linear(h, f"{p}.attention.{name}").view(b, t, heads, -1).transpose(1, 2)
 
         q, k, v = split("q_proj"), split("k_proj"), split("v_proj")
         scores = self.q(q) @ self.q(k).transpose(2, 3) / math.sqrt(d // heads)
-        probs = self._drop(torch.softmax(scores, dim=-1), masks, site, cfg.attention_dropout)
+        probs = self._drop(torch.softmax(scores, dim=-1), masks, site, self.cfg.attention_dropout)
         a = (self.q(probs) @ self.q(v)).transpose(1, 2).reshape(b, t, d)
-        a = self._linear(a, f"{p}.attention.out_proj")
-        h = self._ln(h + self._drop(a, masks, site + 1, cfg.hidden_dropout), f"{p}.layer_norm")
+        return self._linear(a, f"{p}.attention.out_proj")
+
+    def _ffn(self, h, p, site, masks):
+        """The FFN's output, before its dropout (the activation's at ``site + 2``)."""
         f = F.gelu(self._linear(h, f"{p}.feed_forward.intermediate_dense"))
-        f = self._drop(f, masks, site + 2, cfg.activation_dropout)
-        f = self._linear(f, f"{p}.feed_forward.output_dense")
-        return self._ln(h + self._drop(f, masks, site + 3, cfg.hidden_dropout),
+        f = self._drop(f, masks, site + 2, self.cfg.activation_dropout)
+        return self._linear(f, f"{p}.feed_forward.output_dense")
+
+    def _layer(self, h, p, site, masks):
+        rate = self.cfg.hidden_dropout
+        h = self._ln(h + self._drop(self._attention(h, p, site, masks), masks, site + 1, rate),
+                     f"{p}.layer_norm")
+        return self._ln(h + self._drop(self._ffn(h, p, site, masks), masks, site + 3, rate),
                         f"{p}.final_layer_norm")
+
+    def _stable_layer(self, h, p, site, masks):
+        rate = self.cfg.hidden_dropout
+        a = self._attention(self._ln(h, f"{p}.layer_norm"), p, site, masks)
+        h = h + self._drop(a, masks, site + 1, rate)
+        f = self._ffn(self._ln(h, f"{p}.final_layer_norm"), p, site, masks)
+        return h + self._drop(f, masks, site + 3, rate)
 
 
 @dataclass

@@ -12,8 +12,14 @@ seed), shaped per leaf:
 * ``masked_spec_embed``: ``U(0, 1)`` (the normal draw through its CDF).
 
 Each leaf is then rounded to the dtype it is served in (:func:`served_dtype`): the compute
-dtype, but float32 for every norm, ``masked_spec_embed`` and the logits layer. Both sides
-start from these rounded values.
+dtype, but float32 for every norm, ``masked_spec_embed`` and the logits layer. So a conv
+layer's bias (``conv_bias``) is served in the compute dtype and its LayerNorm
+(``feat_extract_norm="layer"``) in float32. Both sides start from these rounded values.
+
+The architecture keys add leaves and never move one: a conv layer's ``conv.bias`` follows
+its ``conv.weight``, its ``layer_norm`` follows that, and the pre-norm encoder has the same
+leaves as the post-norm one. So a group-norm configuration without conv biases draws what
+it drew before these keys were read, bit for bit.
 """
 
 from __future__ import annotations
@@ -32,8 +38,10 @@ def leaf_shapes(cfg: ModelConfig) -> list[tuple[str, tuple[int, ...]]]:
     fe = "encoder.feature_extractor.conv_layers"
     for i, (ci, co, k) in enumerate(zip(cin, cfg.conv_dim, cfg.conv_kernel)):
         out.append((f"{fe}.{i}.conv.weight", (co, ci, k)))
-        if i == 0:
-            out += [(f"{fe}.0.layer_norm.weight", (co,)), (f"{fe}.0.layer_norm.bias", (co,))]
+        if cfg.conv_bias:
+            out.append((f"{fe}.{i}.conv.bias", (co,)))
+        if i == 0 or cfg.feat_extract_norm == "layer":
+            out += [(f"{fe}.{i}.layer_norm.weight", (co,)), (f"{fe}.{i}.layer_norm.bias", (co,))]
     c, d, f = cfg.conv_dim[-1], cfg.hidden_size, cfg.intermediate_size
     fp = "encoder.feature_projection"
     out += [(f"{fp}.layer_norm.weight", (c,)), (f"{fp}.layer_norm.bias", (c,)),
