@@ -174,7 +174,12 @@ Phases, each of which exits non-zero on failure:
    deterministic algorithms on the plain version. Every bfloat16 path phase above counts
    the positional conv's launches with the other kernels' (one forward and one backward a
    train step a wav2vec2 encoder, one forward an eval batch); float32 models keep
-   nn.Conv1d's call and launch none.
+   nn.Conv1d's call and launch none;
+26. (run right after phase 25) the stable-layer-norm family at XLS-R 1B's widths: K2's and
+   K4's pre-norm forms at ``[19104, 1280]`` / 5120 and K3b at head dim 80 against their plain
+   versions, timed beside their bounds; a float32 training step of a 2-layer model of those
+   widths, kernels against plain; then XLS-R 1B (48 layers) at B = 96 in bfloat16 through
+   ``SupervisedTrainer`` (a warm-up step, then ``fit``) with every kernel's exact launches.
 
 Prints the card's name and power limit, one JSON line describing the kernels (launches
 from the ``fit`` of the path that runs each kernel: phase 7's K4 route for the CinC
@@ -496,7 +501,11 @@ def kernel_wrappers() -> dict:
             "sinc_delay_grad_d": sinc_delay.sinc_grad_d_kernel,
             "sinc_delay_grad_x": sinc_delay.sinc_grad_x_kernel,
             "pos_conv_fwd": pos_conv.pos_conv_fwd_kernel,
-            "pos_conv_bwd": pos_conv.pos_conv_bwd_kernel}
+            "pos_conv_bwd": pos_conv.pos_conv_bwd_kernel,
+            "resid_prenorm_fwd": resid.resid_prenorm_fwd_kernel,
+            "resid_prenorm_bwd": resid.resid_prenorm_bwd_kernel,
+            "ffn_prenorm_fwd": mk.ffn_prenorm_fwd_kernel,
+            "ffn_prenorm_bwd": mk.ffn_prenorm_bwd_kernel}
 
 
 # The kernels only the vest path runs; their launches come from its fit (phase 11), K7's
@@ -572,6 +581,13 @@ def plain_route():
              (resid, "resid_bwd_kernel", resid.resid_bwd_reference),
              (ffn, "ffn_act_fwd_kernel", ffn.ffn_act_fwd_reference),
              (ffn, "ffn_act_bwd_kernel", ffn.ffn_act_bwd_reference),
+             (resid, "resid_prenorm_fwd_kernel", resid.resid_fwd_reference),
+             (resid, "resid_prenorm_bwd_kernel",
+              lambda g, gs, s, w, *a: resid.resid_bwd_reference(g, s, w, *a, g_stream=gs)),
+             (mk, "ffn_prenorm_fwd_kernel",
+              lambda x, r, *a: mk.ffn_mega_fwd_reference(x, *a, r=r)),
+             (mk, "ffn_prenorm_bwd_kernel",
+              lambda g, gs, *a: mk.ffn_mega_bwd_reference(g, *a, g_stream=gs)),
              (pc, "takes_kernel", lambda x: False)]       # the op's own plain version
     with contextlib.ExitStack() as stack:
         for module, name, plain in pairs:
@@ -1941,6 +1957,8 @@ def phase_conv_kernel() -> dict:
 # (label, B, T, D, groups, kernel).
 POS_CONV_SHAPES = (("base", TRAIN_BATCH, T, HIDDEN, 16, 128),
                    ("large", TRAIN_BATCH, T, 1024, 16, 128),
+                   ("xlsr1b", TRAIN_BATCH, T, 1280, 16, 128),
+                   ("512 in 16 groups", TRAIN_BATCH, T, 512, 16, 128),
                    ("fusion", FUSION_BATCH, FUSION_FRAMES, HIDDEN, 16, 128),
                    ("vest", VEST_BATCH, VEST_FRAMES, HIDDEN, 16, 128),
                    ("tiny", 4, 37, 32, 2, 16))
@@ -2010,7 +2028,7 @@ def phase_pos_conv() -> dict:
         bwd_b = bound(4 * act + 2 * w.numel() * 2, 2 * flops, torch.bfloat16)
         lib_leaves = [v.detach().requires_grad_() for v in (x, w, b)]
         lib_out = pc.pos_conv_gelu_plain(*lib_leaves, groups)
-        heavy = label in ("base", "fusion", "vest")      # cuDNN's default dgrad engine: slow
+        heavy = label not in ("large", "tiny")      # cuDNN's default dgrad engine: slow
         lib_runs = dict(runs=2, batches=1) if heavy else {}
         times = {
             "fwd": device_ms(lambda: pc.pos_conv_fwd_kernel(x, w, b, groups)),
@@ -2058,6 +2076,261 @@ def pos_conv_pre_plain(x, w, b, groups):
     k = w.shape[-1]
     return F.conv1d(x.transpose(1, 2), w, b, padding=k // 2,
                     groups=groups)[..., :x.shape[1]].transpose(1, 2)
+
+
+# The stable-layer-norm family at XLS-R 1B's widths (phase 26): 48 layers, hidden 1280, FFN
+# 5120, 16 heads of 80.
+XLSR_LAYERS, XLSR_HIDDEN, XLSR_FFN, XLSR_HEADS, XLSR_HEAD_DIM = 48, 1280, 5120, 16, 80
+PRENORM_SEED, PRENORM_SITE = 1618033988, 11
+
+
+def stable_per_step(layers: int) -> dict:
+    """Kernel launches of one bfloat16 training step of a stable-layer-norm model of
+    ``layers`` layers, (forward, backward): K1 at the feature projection; K2's pre-norm form
+    on the encoder's input and at each attention tail; K4's at each FFN; K3b a layer; the
+    positional conv once."""
+    return {"dropout": (1, 1), "resid_prenorm_fwd": (layers + 1, 0),
+            "resid_prenorm_bwd": (0, layers + 1), "ffn_prenorm_fwd": (layers, 0),
+            "ffn_prenorm_bwd": (0, layers), "attention_qkv_fwd": (layers, 0),
+            "attention_qkv_bwd": (0, layers), "pos_conv_fwd": (1, 0), "pos_conv_bwd": (0, 1)}
+
+
+def prenorm_tail_check(dtype, rows: int, cols: int, gen) -> tuple:
+    """K2's pre-norm form against its plain version at rate 0.1: s bit for bit, out, and
+    the backward's dh, dx, dweight and dbias (from both cotangents) at phase 5's bars; the
+    mask bit for bit through dh's zero pattern. Returns (forward inputs, backward inputs,
+    worst forward error, worst backward error)."""
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import resid
+
+    bf16 = dtype == torch.bfloat16
+    elem = (1e-2, 1e-2) if bf16 else (1e-5, 1e-5)
+    grad = (1e-2, 1e-2) if bf16 else (1e-4, 1e-4)
+    colsum = (1e-2, 1e-4)
+    h, x, g, gs = (torch.randn(rows, cols, device="cuda", generator=gen).to(dtype)
+                   for _ in range(4))
+    w = 1.0 + 0.1 * torch.randn(cols, device="cuda", generator=gen)
+    b = 0.1 * torch.randn(cols, device="cuda", generator=gen)
+    args = (PRENORM_SEED, PRENORM_SITE, RATE, 1e-5)
+    where = f"{str(dtype)[6:]} [{rows}, {cols}]"
+    out_k, s_k = resid.resid_prenorm_fwd_kernel(h, x, w, b, *args)
+    out_p, s_p = resid.resid_fwd_reference(h, x, w, b, *args)
+    identical(f"resid_prenorm_fwd s {where}", s_k, s_p)
+    err = agree(f"resid_prenorm_fwd out {where}", out_k, out_p, *elem)
+    got = resid.resid_prenorm_bwd_kernel(g, gs, s_p, w, *args)
+    ref = resid.resid_bwd_reference(g, s_p, w, *args, g_stream=gs)
+    err_b = max(agree(f"resid_prenorm_bwd {name} {where}", a, r, *tol)
+                for name, a, r, tol in zip(("dh", "dx", "dweight", "dbias"), got, ref,
+                                           (grad, grad, colsum, colsum)))
+    identical(f"resid_prenorm_bwd zero pattern of dh {where}", got[0] == 0, ref[0] == 0)
+    return (h, x, w, b, *args), (g, gs, s_p, w, *args), err, err_b
+
+
+def ffn_prenorm_check(dtype, rows: int, d: int, f: int, gen) -> tuple:
+    """K4's pre-norm form against its plain version at rate 0.1 (act and hidden): y, s and
+    pre, and the backward's eight outputs at K4's bars (``k4_tolerances``); both masks bit
+    for bit through the zero patterns of the backward's h and dhid. Returns (forward inputs,
+    backward inputs, worst forward error, worst backward error)."""
+    from wav2vec_heart_sounds_tpu_torch.ops import philox
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import megakernel as mk
+
+    elem, grad, colsum = k4_tolerances(dtype)
+    where = f"{str(dtype)[6:]} [{rows}, {d}] -> {f}"
+    x, r, g, gs = (torch.randn(rows, d, device="cuda", generator=gen).to(dtype)
+                   for _ in range(4))
+    w1, b1, w2, b2, lw, lb = k4_weights(gen, dtype, d, f)
+    args = (K4_SEED, *K4_SITES, RATE, RATE, K4_EPS)
+    fwd_in = (x, r, w1, b1, w2, b2, lw, lb, *args)
+    got = mk.ffn_prenorm_fwd_kernel(*fwd_in)
+    y_p, s_p, pre_p = mk.ffn_mega_fwd_reference(x, w1, b1, w2, b2, lw, lb, *args, r=r)
+    err = max(agree(f"ffn_prenorm_fwd {name} {where}", a, p, *elem)
+              for name, a, p in zip(("y", "s", "pre"), got, (y_p, s_p, pre_p)))
+    del got
+    bwd_in = (g, gs, s_p, pre_p, w2, lw, *args)
+    got = mk.ffn_prenorm_bwd_kernel(*bwd_in)
+    ref = mk.ffn_mega_bwd_reference(g, s_p, pre_p, w2, lw, *args, g_stream=gs)
+    names = ("ds", "dhid", "dpre", "h", "db1", "db2", "dweight", "dbias")
+    err_b = max(agree(f"ffn_prenorm_bwd {name} {where}", a, p, *(colsum if i >= 4 else grad))
+                for i, (name, a, p) in enumerate(zip(names, got, ref)))
+    for name, a, p, site, shape in (("h (act mask)", got[3], ref[3], K4_SITES[0], (rows, f)),
+                                    ("dhid (hidden mask)", got[1], ref[1], K4_SITES[1],
+                                     (rows, d))):
+        keep = philox.keep_mask(K4_SEED, site, shape, RATE, "cuda")
+        check(not bool((p[~keep] != 0).any()), f"plain {name} is nonzero off its mask")
+        identical(f"ffn_prenorm_bwd zero pattern of {name} {where}", a == 0, p == 0)
+    return fwd_in, bwd_in, err, err_b
+
+
+def stable_config(layers: int, **kw):
+    """XLS-R 1B's encoder at ``layers`` of its 48 layers, the 512x3 head, random weights."""
+    from wav2vec_heart_sounds_tpu_torch.models.classifier import ClassifierConfig
+    from wav2vec_heart_sounds_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+
+    enc = Wav2Vec2Config(hidden_size=XLSR_HIDDEN, num_layers=layers, num_heads=XLSR_HEADS,
+                         intermediate_size=XLSR_FFN, feat_extract_norm="layer", conv_bias=True,
+                         do_stable_layer_norm=True, activation_dropout=0.0,
+                         mask_time_prob=0.075, **kw)
+    return ClassifierConfig(num_classes=2, head_hidden=(512, 512, 512), fs=FS, random_init=True,
+                            encoder=enc)
+
+
+def stable_fit(card: str) -> None:
+    """Phase 26's path run: XLS-R 1B (48 layers) at B = 96 in bfloat16 through
+    ``SupervisedTrainer`` as phase 7 trains base (a warm-up step by ``_run_epoch``, then
+    ``fit`` of one epoch with its validation): the exact launches of every kernel, a train
+    step's ``stable_per_step(48)`` and an eval batch's K3b a layer and the positional conv
+    once, from this run's own counts; finite losses; the peak device memory."""
+    from wav2vec_heart_sounds_tpu_torch.data.fragments import FragmentDataset
+    from wav2vec_heart_sounds_tpu_torch.data.loader import Batcher
+    from wav2vec_heart_sounds_tpu_torch.experiments.cinc import _device_prep
+    from wav2vec_heart_sounds_tpu_torch.experiments.common import make_loader
+    from wav2vec_heart_sounds_tpu_torch.models.build import build_classifier
+    from wav2vec_heart_sounds_tpu_torch.train.classifier import SupervisedTrainer
+
+    layers = XLSR_LAYERS
+    train = make_loader(FragmentDataset(synthetic_recordings(1, TRAIN_PATIENTS, TRAIN_WINDOWS),
+                                        fs=FS_WIRE), TRAIN_BATCH, train=True)
+    valid = Batcher(FragmentDataset(synthetic_recordings(2), fs=FS_WIRE), TRAIN_BATCH,
+                    train=False)
+    steps, valid_batches = len(train), len(valid)
+    model = build_classifier(stable_config(layers), seed=0, device="cuda",
+                             dtype=torch.bfloat16, train=True)
+    trainer = SupervisedTrainer(model, optimizer_name="sgd", lr=1e-3,
+                                device_preprocess=_device_prep(FS_WIRE, FS, int(WINDOW_S * FS),
+                                                               "cuda"),
+                                log=lambda line: print(f"[stable] XLS-R 1B: {line}"))
+    losses, step = [], trainer._train_step
+
+    def recorded_step(*args):
+        loss, preds = step(*args)
+        losses.append(loss)
+        return loss, preds
+
+    trainer._train_step = recorded_step
+    trainer._run_epoch(train, True, 1)                                   # warm-up step
+    torch.cuda.synchronize()
+    losses.clear()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    best = trainer.fit(train, valid, 1)
+    torch.cuda.synchronize()
+    got = counts()
+    peak = torch.cuda.max_memory_allocated()
+    values = [float(v) for v in losses]
+    check(len(values) == steps and all(np.isfinite(values)), f"stable training losses {values}")
+    per_step = stable_per_step(layers)
+    per_valid = {"attention_qkv_fwd": layers, "pos_conv_fwd": 1}
+    check_launches("stable fit", got, steps, valid_batches, per_step, per_valid)
+    print(f"[stable] XLS-R 1B ({layers} x {XLSR_HIDDEN}) bf16 fit: {steps} steps of "
+          f"B={TRAIN_BATCH} + {valid_batches} valid batches; losses "
+          f"{', '.join(f'{v:.5f}' for v in values)}; best valid MCC {best:.4f}; peak device "
+          f"memory {peak} B; launches {json.dumps({k: v for k, v in got.items() if v})} (per "
+          f"train step fwd+bwd: {per_step_text(per_step)}; per valid batch "
+          f"{json.dumps(per_valid)}); on {card}")
+    del trainer, model
+    torch.cuda.empty_cache()
+
+
+def phase_stable_layer_norm(card: str) -> dict:
+    """Phase 26: the stable-layer-norm family (XLS-R 1B's widths) on the card. K2's and K4's
+    pre-norm forms (``prenorm_tail_check``, ``ffn_prenorm_check``) at ``[19104, 1280]`` /
+    5120 in bfloat16 and at 3264 rows in float32; K3b at head dim 80 on the head view of a
+    ``[96, 199, 48, 80]`` projection (``attention_routes``: K3a equal bit for bit, the
+    backward equal to a second run, against the plain version); each timed by device time
+    beside its bound. Then a model of XLS-R 1B's widths at 2 of its layers, B = 8 windows of
+    4 s: one float32 training step with every kernel against the same step with every
+    kernel's plain version (the loss at 1e-4 relative, each gradient norm at 1e-3 relative,
+    the key biases, whose true gradient is 0, left out). Last the path itself at full size
+    (:func:`stable_fit`): 48 layers at B = 96 in bfloat16 through the trainer, every kernel's
+    exact launches. The positional conv at 80 channels a group runs in phase 25. Returns the
+    bfloat16 records by kernel form."""
+    from wav2vec_heart_sounds_tpu_torch.models.build import build_classifier
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import attention
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import megakernel as mk
+    from wav2vec_heart_sounds_tpu_torch.ops.kernels import resid
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    records = {}
+    d, f = XLSR_HIDDEN, XLSR_FFN
+    for dtype, rows in ((torch.bfloat16, ROWS), (torch.float32, FUSION_BATCH * FUSION_FRAMES)):
+        bf16 = dtype == torch.bfloat16
+        size = dtype.itemsize
+        fwd_in, bwd_in, err, err_b = prenorm_tail_check(dtype, rows, d, gen)
+        rows_d, vectors = rows * d * size, 2 * d * 4
+        if bf16:
+            for name, fn, b_, e in (
+                    ("resid_prenorm_fwd", lambda: resid.resid_prenorm_fwd_kernel(*fwd_in),
+                     bound(4 * rows_d + vectors, 0.0, dtype), err),
+                    ("resid_prenorm_bwd", lambda: resid.resid_prenorm_bwd_kernel(*bwd_in),
+                     bound(5 * rows_d + vectors // 2, 0.0, dtype), err_b)):
+                ms = device_ms(fn)
+                print(f"[stable] {name} bf16 [{rows}, {d}]: {ms:.4f} ms, bound "
+                      f"{b_['bound_ms']:.4f} ms by {b_['bound_by']} (device time)")
+                records[name] = {"ms": ms, "max_abs_err": e, **b_}
+        del fwd_in, bwd_in
+        fwd_in, bwd_in, err, err_b = ffn_prenorm_check(dtype, rows, d, f, gen)
+        if bf16:
+            rows_f, weights = rows * f * size, 2 * d * f * size
+            products = 2.0 * rows * d * f
+            for name, fn, b_, e in (
+                    ("ffn_prenorm_fwd", lambda: mk.ffn_prenorm_fwd_kernel(*fwd_in),
+                     bound(4 * rows_d + weights + rows_f, 2 * products, dtype), err),
+                    ("ffn_prenorm_bwd", lambda: mk.ffn_prenorm_bwd_kernel(*bwd_in),
+                     bound(5 * rows_d + weights // 2 + 3 * rows_f, products, dtype), err_b)):
+                ms = device_ms(fn)
+                print(f"[stable] {name} bf16 [{rows}, {d}] -> {f}: {ms:.4f} ms, bound "
+                      f"{b_['bound_ms']:.4f} ms by {b_['bound_by']} (device time)")
+                records[name] = {"ms": ms, "max_abs_err": e, **b_}
+        del fwd_in, bwd_in
+        torch.cuda.empty_cache()
+
+    attention_routes(gen, TRAIN_BATCH, T, 2718281828, 9, heads=XLSR_HEADS, dim=XLSR_HEAD_DIM)
+    proj = torch.randn(TRAIN_BATCH, T, 3 * XLSR_HEADS, XLSR_HEAD_DIM, device="cuda",
+                       generator=gen).bfloat16()
+    packed = proj.transpose(1, 2)
+    dout = torch.randn(TRAIN_BATCH, XLSR_HEADS, T, XLSR_HEAD_DIM, device="cuda",
+                       generator=gen).bfloat16()
+    args = (T, RATE, 2718281828, 9)
+    out, lse = attention.attention_qkv_fwd(packed, *args, with_lse=True)
+    rows_d = TRAIN_BATCH * T * d * 2
+    qkv, o, lse_b = 3 * rows_d, rows_d, TRAIN_BATCH * XLSR_HEADS * T * 4
+    scores = 4.0 * TRAIN_BATCH * XLSR_HEADS * T * T * XLSR_HEAD_DIM
+    for name, fn, b_ in (
+            ("attention_qkv_fwd d=80", lambda: attention.attention_qkv_fwd(packed, *args),
+             bound(qkv + o + lse_b, scores, torch.bfloat16)),
+            ("attention_qkv_bwd d=80",
+             lambda: attention.attention_qkv_bwd(packed, out, dout, lse, *args),
+             bound(2 * qkv + 2 * o + lse_b, 2.5 * scores, torch.bfloat16))):
+        ms = device_ms(fn)
+        print(f"[stable] {name} bf16 head view of [{TRAIN_BATCH}, {T}, {3 * XLSR_HEADS}, "
+              f"{XLSR_HEAD_DIM}]: {ms:.4f} ms, bound {b_['bound_ms']:.4f} ms by "
+              f"{b_['bound_by']} (device time)")
+        records[name] = {"ms": ms, **b_}
+    del proj, packed, dout, out, lse
+    torch.cuda.empty_cache()
+
+    layers, batch = 2, 8
+    samples = int(WINDOW_S * FS)
+    gen = torch.Generator().manual_seed(26)
+    x = 0.3 * torch.randn(batch, samples, generator=gen)
+    y = torch.arange(batch) % 2
+    cfg = stable_config(layers)
+    model = build_classifier(cfg, seed=0, device="cuda", dtype=torch.float32, train=True)
+    loss_k, norms_k = train_step(model, x.cuda(), y.cuda(), float32_step(stable_per_step(layers)))
+    with plain_route():
+        loss_p, norms_p = train_step(model, x.cuda(), y.cuda(), None)
+    noise = [n for n in norms_p if n.endswith("k_proj.bias")]
+    worst = worst_norm_gap({n: v for n, v in norms_k.items() if n not in noise},
+                           {n: v for n, v in norms_p.items() if n not in noise})
+    print(f"[stable] XLS-R 1B widths, {layers} layers, f32 B={batch}: training step kernels vs "
+          f"plain: loss {loss_k:.7f} vs {loss_p:.7f}; {len(norms_p)} gradient norms, worst "
+          f"relative difference {worst:.3e} (limit 1e-3) outside the {len(noise)} key biases")
+    check(abs(loss_k - loss_p) <= 1e-4 * max(1.0, abs(loss_p)), "stable f32 step losses differ")
+    check(worst <= 1e-3, f"stable f32 gradient norms differ, kernels vs plain: {worst}")
+    del model
+    torch.cuda.empty_cache()
+    stable_fit(card)
+    print(json.dumps({"stable_layer_norm": records}))
+    return records
 
 
 # Kernel launches of one training step of wav2vec2-base (12 layers): (forward, backward), on
@@ -4225,6 +4498,7 @@ def main() -> None:
     measured.update(timed(phase_unpacked_attention))
     measured.update(timed(phase_conv_kernel))
     measured.update(timed(phase_pos_conv))
+    timed(phase_stable_layer_norm, card)
     timed(phase_gated_step)
     timed(phase_fusion_training, card)
     timed(phase_fusion_runner)

@@ -97,6 +97,38 @@ def test_without_a_profiler_span_is_the_shared_noop_and_records_nothing(store):
     assert not store.spans and not store.counts and not store.aliases
 
 
+@pytest.mark.parametrize("norm", ["group", "layer"])
+def test_the_feature_encoder_opens_a_profiler_range_and_no_span(store, norm):
+    """``op_range`` is the shared no-op without a profiler; under one, the feature encoder's
+    forward (either architecture) is a ``record_function`` range whose ops' sequence numbers
+    name its backward's ops, and the store takes no span, so the device work launched inside
+    stays with the enclosing span."""
+    from wav2vec_heart_sounds_tpu_torch.models.wav2vec2 import FeatureEncoder
+
+    assert observe.op_range("r") is observe.OFF
+    cfg = Wav2Vec2Config.tiny(feat_extract_norm=norm, conv_bias=norm == "layer")
+    encoder = FeatureEncoder(cfg, torch.float32)
+    x = torch.randn(2, 400, generator=torch.Generator().manual_seed(0))
+    with Recorded(store) as rec:
+        encoder(x).square().sum().backward()
+    assert not rec.spans
+    events = rec.prof.events()
+    ranges = [e for e in events if e.name == "model.feature_encoder"
+              and e.device_type == DeviceType.CPU]
+    assert len(ranges) == 1
+    numbers = set()
+    stack = list(ranges[0].cpu_children)
+    while stack:
+        e = stack.pop()
+        numbers.add(e.sequence_nr)
+        stack.extend(e.cpu_children)
+    backward = [e.name for e in events
+                if e.name.startswith("autograd::engine::evaluate_function:")
+                and e.sequence_nr in numbers]
+    convs = len(cfg.conv_dim)
+    assert sum("ConvolutionBackward" in name for name in backward) == convs
+
+
 def test_spans_nest_with_parents_threads_and_batches_and_counters_add_up(store):
     main = threading.get_native_id()
     with Recorded(store) as rec:

@@ -2,16 +2,16 @@
 
 The model's ``PositionalConvEmbedding`` used to call its ``nn.Conv1d`` on the transposed view,
 drop an even kernel's trailing frame and take the exact erf GELU (:func:`parent_formulation`
-below). The plain version is that formulation, bit for bit in float32 and bfloat16, forward
-and gradients. The kernels' autograd op runs here with its two wrappers replaced by a plain
+below). The plain version is that formulation, bit for bit in float32 and bfloat16, forward and
+gradients. The kernels' autograd op runs here with its two wrappers replaced by a plain
 statement of the kernels' contract on their own layouts (:func:`contract_fwd`,
 :func:`contract_bwd`: the re-laid weights, the sliding window, the dW partials' order), and is
-held to the parent's formulation in float64: outputs and the gradients of x, W and b, at
-kernels both even and odd, 2 and 16 groups, 16, 48 and 64 channels a group, T shorter and
-longer than the kernel. The module keeps ``nn.Conv1d``'s parameters, so state dicts and the
-HF reader are unchanged; the width check refuses what the kernels do not take; and on the
-CPU no kernel is launched or counted. The kernels themselves are held to the plain version
-by ``chip_smoke.py``'s phase ``pos_conv`` on the card.
+held to the parent's formulation in float64: outputs and the gradients of x, W and b, at kernels
+both even and odd, 2, 4 and 16 groups, 16, 32, 48, 64 and 80 channels a group, T shorter and
+longer than the kernel. The module keeps ``nn.Conv1d``'s parameters, so state dicts and the HF
+reader are unchanged; the width check refuses what the kernels do not take; and on the CPU no
+kernel is launched or counted. The kernels themselves are held to the plain version by
+``chip_smoke.py``'s phase ``pos_conv`` on the card.
 """
 
 import math
@@ -29,7 +29,8 @@ from wav2vec_heart_sounds_tpu_torch.utils import observe
 
 # (groups, channels a group, kernel, T): even and odd kernels, T below and above the kernel.
 CASES = [(2, 16, 16, 5), (2, 16, 16, 37), (2, 16, 15, 9), (16, 48, 128, 40),
-         (16, 48, 7, 30), (16, 64, 12, 20), (2, 64, 5, 3), (16, 48, 128, 130)]
+         (16, 48, 7, 30), (16, 64, 12, 20), (2, 64, 5, 3), (16, 48, 128, 130),
+         (16, 32, 128, 40), (4, 80, 128, 40)]
 
 
 SQRT2 = math.sqrt(2.0)
@@ -270,15 +271,15 @@ def test_hf_layout_weight_loads_through_the_pretrained_reader():
 
 
 WIDTH_CASES = {(768, 16): True, (1024, 16): True, (32, 2): True, (128, 8): True,
-               (40, 2): False, (768, 8): False, (80, 10): False, (512, 16): False,
-               (4096, 64): False}
+               (40, 2): False, (768, 8): False, (80, 10): False, (512, 16): True,
+               (1280, 16): True, (1536, 16): False, (4096, 64): False}
 
 
 @pytest.mark.parametrize("d,groups", sorted(WIDTH_CASES))
 def test_width_check(d, groups):
-    """The kernels take 16, 48 or 64 channels a group (the test config, base, large); 20, 96
-    and 8, which are not multiples of 16, raise, so does 32, which has no instance, and so
-    does a row wider than the dpre pass takes."""
+    """The kernels take 16, 32, 48, 64 or 80 channels a group (the test config, a 512-wide
+    encoder, base, large, XLS-R 1B); 20 and 8, which are not multiples of 16, raise, so does
+    96, which has no instance, and so does a row wider than the dpre pass takes."""
     assert pos_conv.kernel_takes(d, groups) is WIDTH_CASES[(d, groups)]
     if WIDTH_CASES[(d, groups)]:
         assert pos_conv.check_widths("op", d, groups) == d // groups

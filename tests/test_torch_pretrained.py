@@ -13,8 +13,9 @@ model's and the JAX loader's params carried through ``from_jax``, bit for bit; a
 the checkpoint's tiny one (the JAX ``build_classifier`` adopts its architecture) whose
 encoder weights are the checkpoint's, with logits that agree at ``tests/
 test_torch_wav2vec2.py``'s atol 2e-5 on the same variables. A name that is nowhere gives
-``None`` (and ``build_classifier`` one printed line); a truncated or misfit checkpoint raises, and so
-does a config the model does not compute (the ``-lv60`` fields), naming the field.
+``None`` (and ``build_classifier`` one printed line); a truncated or misfit checkpoint raises,
+and so does a config the model does not compute, naming the field; the ``-lv60`` fields are
+adopted.
 """
 
 import json
@@ -212,15 +213,34 @@ def test_unreadable_or_misfit_checkpoint_raises(checkpoints, tmp_path, fault):
                          device="cpu")
 
 
-@pytest.mark.parametrize("field,value", [("feat_extract_norm", "layer"),
-                                         ("do_stable_layer_norm", True), ("conv_bias", True)])
+# The stable-layer-norm family's three keys, which the port now computes, and two values it
+# does not compute.
+LV60_CASES = [("feat_extract_norm", "layer"), ("do_stable_layer_norm", True), ("conv_bias", True),
+              ("feat_extract_norm", "batch"), ("hidden_act", "relu")]
+
+
+@pytest.mark.parametrize("field,value", LV60_CASES)
 def test_lv60_config_raises_naming_the_field(checkpoints, tmp_path, field, value):
+    """An ``-lv60`` key is adopted: the config takes it, and the tiny post-norm checkpoint's
+    weights fit it where the key changes no parameter (the pre-norm encoder) and else raise
+    naming the leaves they lack (every conv layer's LayerNorm, the conv biases). A value the
+    model does not compute raises, naming the field."""
     _, dirs, _ = checkpoints
     d = tmp_path / "lv60"
     shutil.copytree(dirs["safetensors"], d)
     config = json.loads((d / "config.json").read_text())
     config[field] = value
     (d / "config.json").write_text(json.dumps(config))
+    if (field, value) in LV60_CASES[:3]:
+        assert getattr(hf_port.config_from_hf(config), field) == value
+        if field == "do_stable_layer_norm":
+            cfg, _ = hf_port.load_pretrained_encoder(str(d))
+            assert cfg.do_stable_layer_norm
+        else:
+            lacks = "conv_layers.1.layer_norm" if field == "feat_extract_norm" else "conv.bias"
+            with pytest.raises(ValueError, match=f"does not fit its config: missing .*{lacks}"):
+                hf_port.load_pretrained_encoder(str(d))
+        return
     with pytest.raises(ValueError, match=field):
         hf_port.load_pretrained_encoder(str(d))
     with pytest.raises(ValueError, match=field):

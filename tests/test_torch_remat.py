@@ -3,13 +3,13 @@
 One training step of a tiny classifier from one seed, without remat, with ``remat`` and with
 ``remat`` + ``remat_conv``: the loss and every parameter's gradient equal bit for bit, at
 dropout rate 0 and at the default rates with SpecAugment (the recompute regenerates the same
-Philox masks from the step seed), with LoRA on, on the decomposed FFN route, and with K8
-(``conv_fuse``) through its plain version. Forward hooks show that the remat arms run each
-layer's (and the conv stack's) forward twice. At rate 0 the port's ``remat=True,
-remat_conv=True`` gradients agree with the JAX package's on the same variables (its
-``nn.remat`` encoder) at atol 1e-4 / rtol 1e-3, the gradient bar of
-``tests/test_torch_attention_unpacked.py``. Eval, and a training forward without gradients,
-run as before.
+Philox masks from the step seed), with LoRA on, on the decomposed FFN route, with K8
+(``conv_fuse``) through its plain version, and on the stable-layer-norm family's encoder.
+Forward hooks show that the remat arms run each layer's (and the conv stack's) forward twice. At
+rate 0 the port's ``remat=True, remat_conv=True`` gradients agree with the JAX package's on the
+same variables (its ``nn.remat`` encoder) at atol 1e-4 / rtol 1e-3, the gradient bar of
+``tests/test_torch_attention_unpacked.py``. Eval, and a training forward without gradients, run
+as before.
 """
 
 from dataclasses import replace
@@ -40,7 +40,9 @@ CASES = {"rate 0": ({**NO_NOISE}, False, 1200),
          "rate 0.1": ({}, False, 1200),
          "lora": ({}, True, 1200),
          "decomposed ffn": ({"ffn_mega": False}, False, 1200),
-         "conv_fuse": ({**GATED}, False, 8194)}
+         "conv_fuse": ({**GATED}, False, 8194),
+         "stable layer norm": ({"feat_extract_norm": "layer", "conv_bias": True,
+                                "do_stable_layer_norm": True}, False, 1200)}
 ARMS = ({}, {"remat": True}, {"remat": True, "remat_conv": True})
 BATCH = 3
 

@@ -35,6 +35,7 @@ from wav2vec_heart_sounds_tpu_torch.train.classifier import SupervisedTrainer
 BASE = Wav2Vec2Config()
 TINY = Wav2Vec2Config.tiny()
 LARGE = Wav2Vec2Config(hidden_size=1024, num_heads=16, intermediate_size=4096)
+XLSR_1B = Wav2Vec2Config(hidden_size=1280, num_heads=16, intermediate_size=5120)
 # The row counts the base paths run: CinC training (96 x 199), fusion (64 x 51), the vest
 # (16 x 25) and a ragged count.
 BASE_ROWS = (19104, 3264, 400, 127)
@@ -59,10 +60,11 @@ def test_every_gate_takes_the_base_shapes(rows, dtype):
                                                   True)
 
 
-@pytest.mark.parametrize("cfg", [TINY, LARGE], ids=["tiny", "large"])
+@pytest.mark.parametrize("cfg", [TINY, LARGE, XLSR_1B], ids=["tiny", "large", "xlsr1b"])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_every_kernel_takes_the_tiny_and_large_widths(cfg, dtype):
-    """hidden 32, head dim 16, FFN 64; and wav2vec2-large's 1024, 64, 4096."""
+    """hidden 32, head dim 16, FFN 64; wav2vec2-large's 1024, 64, 4096; and XLS-R 1B's
+    1280, 80, 5120."""
     assert _gates(cfg, dtype) == dict.fromkeys(("resid", "attention", "megakernel", "ffn"), True)
 
 
@@ -75,7 +77,8 @@ def test_gates_refuse_other_widths_and_dtypes():
     assert not mk.kernel_takes(768, 3004, torch.bfloat16)
     assert not mk.kernel_takes(36, 64, torch.float32)
     assert attention.kernel_takes(128, torch.bfloat16) and attention.kernel_takes(32, torch.float32)
-    assert not attention.kernel_takes(80, torch.bfloat16)
+    assert attention.kernel_takes(80, torch.bfloat16)
+    assert not attention.kernel_takes(96, torch.bfloat16)
     assert not attention.kernel_takes(8, torch.float32)
     assert not ffn.kernel_takes(14, torch.bfloat16) and ffn.kernel_takes(12, torch.float32)
     for gates in (_gates(BASE, torch.float16), _gates(BASE, torch.float64)):

@@ -1,8 +1,9 @@
 // Tile machinery of the attention kernels (attention_qkv_fwd.cu, attention_qkv_bwd.cu).
 //
-// Every piece is templated on the head width D (on_head_dim: 16, 32, 64 and 128; wav2vec2-base
-// and -large take 64, the test config 16). A block has 4 warps; each warp owns 16 rows of one
-// side (queries, or keys in the dk/dv kernel) and walks 64-row tiles of the other side,
+// Every piece is templated on the head width D (on_head_dim: 16, 32, 64, 80 and 128;
+// wav2vec2-base and -large take 64, XLS-R 1B 80, the test config 16). A block has 4 warps;
+// each warp owns 16 rows of one side (queries, or keys in the dk/dv kernel) and walks 64-row
+// tiles of the other side,
 // staged as padded tiles in shared memory in the input dtype by cp.async. Score-shaped
 // products leave each warp with its 16 x N block in the m16n8 accumulator layout of
 // mma.sync: lane (g = lane >> 2, t = lane & 3) holds columns 8 n + 2 t and 8 n + 2 t + 1 of
@@ -250,6 +251,7 @@ bool on_head_dim(int head_dim, F&& f) {
     case 16: f(std::integral_constant<int, 16>{}); return true;
     case 32: f(std::integral_constant<int, 32>{}); return true;
     case 64: f(std::integral_constant<int, 64>{}); return true;
+    case 80: f(std::integral_constant<int, 80>{}); return true;
     case 128: f(std::integral_constant<int, 128>{}); return true;
     default: return false;
   }

@@ -21,9 +21,15 @@
 // activation site over [N, F], keep_h at the FFN-tail site over [N, D], bit for bit the
 // masks of the decomposed route (K5 + K2).
 // Widths: the hidden size D and the FFN width F are any multiples of 8 (16-byte rows), D at
-// most 1024 (K2's rows): wav2vec2-base's 768 / 3072, wav2vec2-large's 1024 / 4096, the test
-// config's 32 / 64. The tiles' last columns and k steps past D or F read zeros and store
-// nothing.
+// most 1024 or 1280 (K2's rows): wav2vec2-base's 768 / 3072, wav2vec2-large's 1024 / 4096,
+// XLS-R 1B's 1280 / 5120, the test config's 32 / 64. The tiles' last columns and k steps past
+// D or F read zeros and store nothing.
+//
+// Pre-norm form (ffn_prenorm_fwd / ffn_prenorm_bwd; the stable-layer-norm encoder's FFN with
+// the next LayerNorm fused): the FFN reads x (the normalised stream) and adds its output to
+// a separate residual r, s = round_T(r + (keep_h ? y2 * scale_h : 0)) is the new stream and y
+// = LN(s) the next sublayer's input; the backward takes gs, the stream's own gradient, adds
+// it to the LayerNorm's ds (resid.cuh's kStream), and dr = ds, dx = dpre W1 outside.
 //
 // What bounds it on this card (N = 96*199 = 19104 rows, D = 768, F = 3072, bf16): the
 // forward's two products are 2 * 2*N*D*F = 180 GFLOP, 182 us at 989 TFLOP/s, against 215 MB
@@ -313,6 +319,7 @@ constexpr int kLd = w2v::kStageLd;
 // The hidden size the bfloat16 bodies are also built for as a compile-time constant
 // (wav2vec2-base's), so that their tile and index arithmetic folds; kD = 0 reads it from d.
 constexpr int kBaseHidden = 768;
+constexpr int kWideHidden = 1280;      // XLS-R 1B's, a compile-time instance of its own
 
 // Eight consecutive bf16 travel as one 16-byte word; pair i is its 32-bit word i.
 __device__ __forceinline__ float2 pair_of(const uint4& v, int i) {
@@ -518,16 +525,16 @@ template <typename T>
 int ln_rows(const T* s, const float* gamma, const float* beta, T* y, int rows, int d, float eps,
             cudaStream_t st) {
   const int blocks = (rows + w2v::kLnWarps - 1) / w2v::kLnWarps;
-  auto kernel = d == w2v::kResidFullCols ? w2v::ln_rows_kernel<T, true>
-                                         : w2v::ln_rows_kernel<T, false>;
+  auto kernel = w2v::ln_rows_for<T>(d);
   kernel<<<blocks < 65535 ? blocks : 65535, w2v::kLnThreads, 0, st>>>(s, gamma, beta, y, rows,
                                                                       d, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int fwd(const T* x, const T* w1, const T* b1, const T* w2, const T* b2, const float* gamma,
-        const float* beta, T* pre, T* h, T* s, T* y, int rows, int d, int f, uint32_t seed,
+int fwd(const T* x, const T* res, const T* w1, const T* b1, const T* w2, const T* b2,
+        const float* gamma, const float* beta, T* pre, T* h, T* s, T* y, int rows, int d, int f,
+        uint32_t seed,
         uint32_t site_act, uint32_t site_hid, uint32_t thr_act, uint32_t thr_hid,
         float scale_act, float scale_hid, float eps, cudaStream_t st) {
   constexpr bool kTanh = sizeof(T) == 2;
@@ -544,15 +551,31 @@ int fwd(const T* x, const T* w1, const T* b1, const T* w2, const T* b2, const fl
   err = set_smem(down, Up::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   down<<<dim3((d + Up::BN - 1) / Up::BN, row_tiles), kThreads, Up::SMEM, st>>>(
-      h, w2, b2, x, s, rows, d, f, seed, site_hid, thr_hid, scale_hid);
+      h, w2, b2, res, s, rows, d, f, seed, site_hid, thr_hid, scale_hid);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return ln_rows(s, gamma, beta, y, rows, d, eps, st);
 }
 
+// (C)'s launch: the K2 backward row pass with the db2 sums, its pre-norm form when gs is set.
 template <typename T>
-int bwd(const T* g, const T* s, const T* pre, const T* w2, const float* gamma, T* ds, T* dhid,
-        T* dpre, T* h, float* dgamma_part, float* dbeta_part, float* db2_part, float* db1_part,
+cudaError_t row_pass(const T* g, const T* gs, const T* s, const float* gamma, T* dhid, T* ds,
+                     float* dgamma_part, float* dbeta_part, float* db2_part, int rows, int d,
+                     float eps, uint32_t seed, uint32_t site, uint32_t thr, float scale,
+                     int row_blocks, cudaStream_t st) {
+  if (gs != nullptr)
+    return w2v::ResidBwd<T, true, true>::launch(d, row_blocks, st, g, s, gamma, dhid, ds,
+                                                dgamma_part, dbeta_part, db2_part, rows, d, eps,
+                                                seed, site, thr, scale, gs);
+  return w2v::ResidBwd<T, true>::launch(d, row_blocks, st, g, s, gamma, dhid, ds, dgamma_part,
+                                        dbeta_part, db2_part, rows, d, eps, seed, site, thr,
+                                        scale, gs);
+}
+
+template <typename T>
+int bwd(const T* g, const T* gs, const T* s, const T* pre, const T* w2, const float* gamma,
+        T* ds, T* dhid, T* dpre, T* h, float* dgamma_part, float* dbeta_part, float* db2_part,
+        float* db1_part,
         int rows, int d, int f, uint32_t seed, uint32_t site_act, uint32_t site_hid,
         uint32_t thr_act, uint32_t thr_hid, float scale_act, float scale_hid, float eps,
         int row_blocks, cudaStream_t st) {
@@ -561,17 +584,17 @@ int bwd(const T* g, const T* s, const T* pre, const T* w2, const float* gamma, T
   auto dgrad = ffn_dgrad_kernel<T, kTanh>;
   cudaError_t err = set_smem(dgrad, Dg::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = w2v::ResidBwd<T, true>::launch(d, row_blocks, st, g, s, gamma, dhid, ds, dgamma_part,
-                                       dbeta_part, db2_part, rows, d, eps, seed, site_hid,
-                                       thr_hid, scale_hid);
+  err = row_pass(g, gs, s, gamma, dhid, ds, dgamma_part, dbeta_part, db2_part, rows, d, eps,
+                 seed, site_hid, thr_hid, scale_hid, row_blocks, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   dgrad<<<dim3((f + Dg::BN - 1) / Dg::BN, (rows + Dg::BM - 1) / Dg::BM), kThreads, Dg::SMEM, st>>>(
       dhid, w2, pre, dpre, h, db1_part, rows, d, f, seed, site_act, thr_act, scale_act);
   return static_cast<int>(cudaGetLastError());
 }
 
-int fwd_bf16(const bf16* x, const bf16* w1, const bf16* b1, const bf16* w2, const bf16* b2,
-             const float* gamma, const float* beta, bf16* pre, bf16* h, bf16* s, bf16* y,
+int fwd_bf16(const bf16* x, const bf16* res, const bf16* w1, const bf16* b1, const bf16* w2,
+             const bf16* b2, const float* gamma, const float* beta, bf16* pre, bf16* h, bf16* s,
+             bf16* y,
              int rows, int d, int f, uint32_t seed, uint32_t site_act, uint32_t site_hid,
              uint32_t thr_act, uint32_t thr_hid, float scale_act, float scale_hid, float eps,
              cudaStream_t st) {
@@ -581,9 +604,12 @@ int fwd_bf16(const bf16* x, const bf16* w1, const bf16* b1, const bf16* w2, cons
       !w2v::tensor_map(&mh, h, rows, f, w2v::kGemmBM) ||
       !w2v::tensor_map(&mw2, w2, d, f, w2v::kGemmBN))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool base = d == kBaseHidden;
-  auto up = base ? ffn_up_wgmma_kernel<kBaseHidden> : ffn_up_wgmma_kernel<0>;
-  auto down = base ? ffn_down_wgmma_kernel<kBaseHidden> : ffn_down_wgmma_kernel<0>;
+  auto up = d == kBaseHidden   ? ffn_up_wgmma_kernel<kBaseHidden>
+            : d == kWideHidden ? ffn_up_wgmma_kernel<kWideHidden>
+                               : ffn_up_wgmma_kernel<0>;
+  auto down = d == kBaseHidden   ? ffn_down_wgmma_kernel<kBaseHidden>
+              : d == kWideHidden ? ffn_down_wgmma_kernel<kWideHidden>
+                                 : ffn_down_wgmma_kernel<0>;
   cudaError_t err = set_smem(up, KMajor::SMEM);
   if (err == cudaSuccess) err = set_smem(down, KMajor::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -592,14 +618,15 @@ int fwd_bf16(const bf16* x, const bf16* w1, const bf16* b1, const bf16* w2, cons
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   down<<<w2v::gemm_grid(rows, d), w2v::kGemmThreads, KMajor::SMEM, st>>>(
-      mh, mw2, b2, x, s, rows, d, f, seed, site_hid, thr_hid, scale_hid);
+      mh, mw2, b2, res, s, rows, d, f, seed, site_hid, thr_hid, scale_hid);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return ln_rows(s, gamma, beta, y, rows, d, eps, st);
 }
 
-int bwd_bf16(const bf16* g, const bf16* s, const bf16* pre, const bf16* w2, const float* gamma,
-             bf16* ds, bf16* dhid, bf16* dpre, bf16* h, float* dgamma_part, float* dbeta_part,
+int bwd_bf16(const bf16* g, const bf16* gs, const bf16* s, const bf16* pre, const bf16* w2,
+             const float* gamma, bf16* ds, bf16* dhid, bf16* dpre, bf16* h, float* dgamma_part,
+             float* dbeta_part,
              float* db2_part, float* db1_part, int rows, int d, int f, uint32_t seed,
              uint32_t site_act, uint32_t site_hid, uint32_t thr_act, uint32_t thr_hid,
              float scale_act, float scale_hid, float eps, int row_blocks, cudaStream_t st) {
@@ -607,13 +634,13 @@ int bwd_bf16(const bf16* g, const bf16* s, const bf16* pre, const bf16* w2, cons
   if (!w2v::tensor_map(&mdhid, dhid, rows, d, w2v::kGemmBM) ||
       !w2v::tensor_map(&mw2, w2, d, f, w2v::kGemmBK))     // boxes of 64 k rows x 64 columns
     return static_cast<int>(cudaErrorInvalidValue);
-  auto dgrad =
-      d == kBaseHidden ? ffn_dgrad_wgmma_kernel<kBaseHidden> : ffn_dgrad_wgmma_kernel<0>;
+  auto dgrad = d == kBaseHidden   ? ffn_dgrad_wgmma_kernel<kBaseHidden>
+               : d == kWideHidden ? ffn_dgrad_wgmma_kernel<kWideHidden>
+                                  : ffn_dgrad_wgmma_kernel<0>;
   cudaError_t err = set_smem(dgrad, NMajor::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = w2v::ResidBwd<bf16, true>::launch(d, row_blocks, st, g, s, gamma, dhid, ds,
-                                          dgamma_part, dbeta_part, db2_part, rows, d, eps, seed,
-                                          site_hid, thr_hid, scale_hid);
+  err = row_pass(g, gs, s, gamma, dhid, ds, dgamma_part, dbeta_part, db2_part, rows, d, eps,
+                 seed, site_hid, thr_hid, scale_hid, row_blocks, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   dgrad<<<w2v::gemm_grid(rows, f), w2v::kGemmThreads, NMajor::SMEM, st>>>(
       mdhid, mw2, pre, dpre, h, db1_part, rows, d, f, seed, site_act, thr_act, scale_act);
@@ -621,14 +648,80 @@ int bwd_bf16(const bf16* g, const bf16* s, const bf16* pre, const bf16* w2, cons
 }
 
 bool bad_shape(int rows, int d, int f) {
-  return rows <= 0 || d <= 0 || d % 8 || d > w2v::kResidMaxCols || f <= 0 || f % 8;
+  return rows <= 0 || d <= 0 || d % 8 || (d > w2v::kResidMaxCols && d != w2v::kResidWideCols) ||
+         f <= 0 || f % 8;
+}
+
+// Both entries' forward and backward on a dtype code; r (the residual) and gs are the
+// pre-norm form's, x and null in the post-norm one.
+int fwd_any(const void* x, const void* r, const void* w1, const void* b1, const void* w2,
+            const void* b2, const void* gamma, const void* beta, void* pre, void* h, void* s,
+            void* y, int rows, int d, int f, uint32_t seed, uint32_t site_act, uint32_t site_hid,
+            uint32_t thr_act, uint32_t thr_hid, float scale_act, float scale_hid, float eps,
+            int dtype, void* stream) {
+  if (bad_shape(rows, d, f)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* ga = static_cast<const float*>(gamma);
+  const float* be = static_cast<const float*>(beta);
+  switch (dtype) {
+    case 0:
+      return fwd<float>(static_cast<const float*>(x), static_cast<const float*>(r),
+                        static_cast<const float*>(w1), static_cast<const float*>(b1),
+                        static_cast<const float*>(w2), static_cast<const float*>(b2), ga, be,
+                        static_cast<float*>(pre), static_cast<float*>(h), static_cast<float*>(s),
+                        static_cast<float*>(y), rows, d, f, seed, site_act, site_hid, thr_act,
+                        thr_hid, scale_act, scale_hid, eps, st);
+    case 1:
+      return fwd_bf16(static_cast<const bf16*>(x), static_cast<const bf16*>(r),
+                      static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
+                      static_cast<const bf16*>(w2), static_cast<const bf16*>(b2), ga, be,
+                      static_cast<bf16*>(pre), static_cast<bf16*>(h), static_cast<bf16*>(s),
+                      static_cast<bf16*>(y), rows, d, f, seed, site_act, site_hid, thr_act,
+                      thr_hid, scale_act, scale_hid, eps, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int bwd_any(const void* g, const void* gs, const void* s, const void* pre, const void* w2,
+            const void* gamma, void* ds, void* dhid, void* dpre, void* h, void* dgamma_part,
+            void* dbeta_part, void* db2_part, void* db1_part, int rows, int d, int f,
+            uint32_t seed, uint32_t site_act, uint32_t site_hid, uint32_t thr_act,
+            uint32_t thr_hid, float scale_act, float scale_hid, float eps, int row_blocks,
+            int dtype, void* stream) {
+  if (bad_shape(rows, d, f) || row_blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* ga = static_cast<const float*>(gamma);
+  float* dgp = static_cast<float*>(dgamma_part);
+  float* dbp = static_cast<float*>(dbeta_part);
+  float* d2p = static_cast<float*>(db2_part);
+  float* d1p = static_cast<float*>(db1_part);
+  switch (dtype) {
+    case 0:
+      return bwd<float>(static_cast<const float*>(g), static_cast<const float*>(gs),
+                        static_cast<const float*>(s), static_cast<const float*>(pre),
+                        static_cast<const float*>(w2), ga, static_cast<float*>(ds),
+                        static_cast<float*>(dhid), static_cast<float*>(dpre),
+                        static_cast<float*>(h), dgp, dbp, d2p, d1p, rows, d, f, seed, site_act,
+                        site_hid, thr_act, thr_hid, scale_act, scale_hid, eps, row_blocks, st);
+    case 1:
+      return bwd_bf16(static_cast<const bf16*>(g), static_cast<const bf16*>(gs),
+                      static_cast<const bf16*>(s), static_cast<const bf16*>(pre),
+                      static_cast<const bf16*>(w2), ga, static_cast<bf16*>(ds),
+                      static_cast<bf16*>(dhid), static_cast<bf16*>(dpre), static_cast<bf16*>(h),
+                      dgp, dbp, d2p, d1p, rows, d, f, seed, site_act, site_hid, thr_act, thr_hid,
+                      scale_act, scale_hid, eps, row_blocks, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 // C entry points, bound with ctypes. dtype: 0 = float32, 1 = bfloat16; x, the weights, the
 // biases and every [rows, *] tensor are in it; gamma, beta and the partials are float32.
-// d and f are multiples of 8, d at most 1024. Each returns the cudaError_t of its launches.
+// d and f are multiples of 8, d at most 1024 or 1280. Each returns the cudaError_t of its
+// launches.
 
 // Forward: (A) then (B); in bfloat16 (B) writes s and the row LayerNorm pass y. h is
 // [rows, f] scratch between (A) and (B). Every tensor is 16-byte aligned (TMA and the
@@ -639,28 +732,20 @@ extern "C" int ffn_mega_fwd(const void* x, const void* w1, const void* b1, const
                             uint32_t site_act, uint32_t site_hid, uint32_t thr_act,
                             uint32_t thr_hid, float scale_act, float scale_hid, float eps,
                             int dtype, void* stream) {
-  if (bad_shape(rows, d, f)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* ga = static_cast<const float*>(gamma);
-  const float* be = static_cast<const float*>(beta);
-  switch (dtype) {
-    case 0:
-      return fwd<float>(static_cast<const float*>(x), static_cast<const float*>(w1),
-                        static_cast<const float*>(b1), static_cast<const float*>(w2),
-                        static_cast<const float*>(b2), ga, be, static_cast<float*>(pre),
-                        static_cast<float*>(h), static_cast<float*>(s), static_cast<float*>(y),
-                        rows, d, f, seed, site_act, site_hid, thr_act, thr_hid, scale_act,
-                        scale_hid, eps, st);
-    case 1:
-      return fwd_bf16(static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
-                      static_cast<const bf16*>(b1), static_cast<const bf16*>(w2),
-                      static_cast<const bf16*>(b2), ga, be, static_cast<bf16*>(pre),
-                      static_cast<bf16*>(h), static_cast<bf16*>(s), static_cast<bf16*>(y), rows,
-                      d, f, seed, site_act, site_hid, thr_act, thr_hid, scale_act, scale_hid,
-                      eps, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return fwd_any(x, x, w1, b1, w2, b2, gamma, beta, pre, h, s, y, rows, d, f, seed, site_act,
+                 site_hid, thr_act, thr_hid, scale_act, scale_hid, eps, dtype, stream);
+}
+
+// The pre-norm forward: (A) on x, (B) adding to the residual r, then the next LayerNorm of s
+// into y. Tensors as in ffn_mega_fwd; r is [rows, d] like x.
+extern "C" int ffn_prenorm_fwd(const void* x, const void* r, const void* w1, const void* b1,
+                               const void* w2, const void* b2, const void* gamma,
+                               const void* beta, void* pre, void* h, void* s, void* y, int rows,
+                               int d, int f, uint32_t seed, uint32_t site_act, uint32_t site_hid,
+                               uint32_t thr_act, uint32_t thr_hid, float scale_act,
+                               float scale_hid, float eps, int dtype, void* stream) {
+  return fwd_any(x, r, w1, b1, w2, b2, gamma, beta, pre, h, s, y, rows, d, f, seed, site_act,
+                 site_hid, thr_act, thr_hid, scale_act, scale_hid, eps, dtype, stream);
 }
 
 // (C)'s persistent grid for `sms` SMs (resid.cuh's K2 backward row pass with the db2 sums),
@@ -674,6 +759,16 @@ extern "C" int ffn_mega_row_blocks(int rows, int d, int sms, int dtype) {
   }
 }
 
+// The same for the pre-norm backward's (C).
+extern "C" int ffn_prenorm_row_blocks(int rows, int d, int sms, int dtype) {
+  if (bad_shape(rows, d, 8) || sms <= 0) return -1;
+  switch (dtype) {
+    case 0: return w2v::ResidBwd<float, true, true>::grid(rows, d, sms);
+    case 1: return w2v::ResidBwd<bf16, true, true>::grid(rows, d, sms);
+    default: return -1;
+  }
+}
+
 // Backward: (C) then (D). `row_blocks` is (C)'s grid (ffn_mega_row_blocks): the dgamma, dbeta
 // and db2 partials are [row_blocks, d]; the db1 partials are [ceil(rows / 128), f].
 extern "C" int ffn_mega_bwd(const void* g, const void* s, const void* pre, const void* w2,
@@ -683,28 +778,22 @@ extern "C" int ffn_mega_bwd(const void* g, const void* s, const void* pre, const
                             uint32_t site_act, uint32_t site_hid, uint32_t thr_act,
                             uint32_t thr_hid, float scale_act, float scale_hid, float eps,
                             int row_blocks, int dtype, void* stream) {
-  if (bad_shape(rows, d, f) || row_blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* ga = static_cast<const float*>(gamma);
-  float* dgp = static_cast<float*>(dgamma_part);
-  float* dbp = static_cast<float*>(dbeta_part);
-  float* d2p = static_cast<float*>(db2_part);
-  float* d1p = static_cast<float*>(db1_part);
-  switch (dtype) {
-    case 0:
-      return bwd<float>(static_cast<const float*>(g), static_cast<const float*>(s),
-                        static_cast<const float*>(pre), static_cast<const float*>(w2), ga,
-                        static_cast<float*>(ds), static_cast<float*>(dhid),
-                        static_cast<float*>(dpre), static_cast<float*>(h), dgp, dbp, d2p, d1p,
-                        rows, d, f, seed, site_act, site_hid, thr_act, thr_hid, scale_act,
-                        scale_hid, eps, row_blocks, st);
-    case 1:
-      return bwd_bf16(static_cast<const bf16*>(g), static_cast<const bf16*>(s),
-                      static_cast<const bf16*>(pre), static_cast<const bf16*>(w2), ga,
-                      static_cast<bf16*>(ds), static_cast<bf16*>(dhid), static_cast<bf16*>(dpre),
-                      static_cast<bf16*>(h), dgp, dbp, d2p, d1p, rows, d, f, seed, site_act,
-                      site_hid, thr_act, thr_hid, scale_act, scale_hid, eps, row_blocks, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return bwd_any(g, nullptr, s, pre, w2, gamma, ds, dhid, dpre, h, dgamma_part, dbeta_part,
+                 db2_part, db1_part, rows, d, f, seed, site_act, site_hid, thr_act, thr_hid,
+                 scale_act, scale_hid, eps, row_blocks, dtype, stream);
+}
+
+// The pre-norm backward: g the gradient of y, gs that of s (the stream); ds (= dr) is the
+// LayerNorm's gradient plus gs. `row_blocks` from ffn_prenorm_row_blocks.
+extern "C" int ffn_prenorm_bwd(const void* g, const void* gs, const void* s, const void* pre,
+                               const void* w2, const void* gamma, void* ds, void* dhid,
+                               void* dpre, void* h, void* dgamma_part, void* dbeta_part,
+                               void* db2_part, void* db1_part, int rows, int d, int f,
+                               uint32_t seed, uint32_t site_act, uint32_t site_hid,
+                               uint32_t thr_act, uint32_t thr_hid, float scale_act,
+                               float scale_hid, float eps, int row_blocks, int dtype,
+                               void* stream) {
+  return bwd_any(g, gs, s, pre, w2, gamma, ds, dhid, dpre, h, dgamma_part, dbeta_part, db2_part,
+                 db1_part, rows, d, f, seed, site_act, site_hid, thr_act, thr_hid, scale_act,
+                 scale_hid, eps, row_blocks, dtype, stream);
 }

@@ -17,6 +17,9 @@
 //             db = sum_{b, t} dpre, float32 sums over fixed row ranges (partials) reduced in a
 //             fixed order by a last pass: no atomics, the same bits run to run.
 //
+// Widths: C = 16, 32, 48, 64 and 80 channels a group (the test config, a 512-wide encoder in
+// 16 groups, wav2vec2-base, -large and XLS-R 1B), a template instance each.
+//
 // What bounds it (wav2vec2-base: B = 96, T = 199, D = 768, 16 groups of C = 48, K = 128):
 // each of the three products is 2 B T D C K = 180 GFLOP, 0.18 ms at 989 TFLOP/s, against
 // 29 MB for each of x, out, pre, g, dpre, dx (about 9 us each at 3.35 TB/s): operations.
@@ -59,15 +62,22 @@ using bf16 = __nv_bfloat16;
 // Shapes that follow from C, the channels of a group (a template instance each).
 template <int C>
 struct Width {
-  static_assert(C == 16 || C == 48 || C == 64, "channels a group");
+  static_assert(C == 16 || C == 32 || C == 48 || C == 64 || C == 80, "channels a group");
   static constexpr int LD = C + 8;          // shared-memory row: an odd multiple of 16 bytes
   static constexpr int NT = C / 8;          // n8 tiles of the output channels
   static constexpr int KS = C / 16;         // k16 steps of one tap
   static constexpr int TAP = C * LD;        // one tap of the re-laid weight, [C][LD]
-  static constexpr int TAPS = C == 16 ? 16 : C == 48 ? 4 : 2;   // taps a slot
-  static constexpr int SLOT = TAPS * TAP;   // 12-22 KB
+  static constexpr int TAPS = C == 16 ? 16 : C == 32 ? 8 : C == 48 ? 4 : C == 64 ? 2 : 1;
+  static constexpr int SLOT = TAPS * TAP;   // 12-22 KB (80: 14 KB, one tap)
   static constexpr int STAGES = 3;
+  // Blocks an SM the slide kernel's registers must allow: 80 channels hold 80 float sums a
+  // thread, so one.
+  static constexpr int SLIDE_MIN_BLOCKS = C <= 64 ? 2 : 1;
   static constexpr int DW_MIN_BLOCKS = C <= 48 ? 2 : 1;
+  // dW blocks split the output channels in DW_SPLIT parts of DW_MT m16 tiles (the last part
+  // may have fewer): 80 channels in two, so a warp holds at most 3 x 10 n8 tiles of sums.
+  static constexpr int DW_SPLIT = C <= 64 ? 1 : 2;
+  static constexpr int DW_MT = (C / 16 + DW_SPLIT - 1) / DW_SPLIT;
 };
 
 constexpr int kMaxSmem = 232448 - 1024;     // a block's shared memory, less the static part
@@ -79,7 +89,7 @@ constexpr int kThreads = 256;
 // ---- forward and dx: the sliding-window GEMM ----------------------------------------------
 
 template <int C, bool kFwd>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, Width<C>::SLIDE_MIN_BLOCKS)
 pos_conv_slide_kernel(const bf16* __restrict__ in, const bf16* __restrict__ wr,
                       const bf16* __restrict__ bias, bf16* __restrict__ out,
                       bf16* __restrict__ pre, int T, int D, int K, int pad) {
@@ -243,7 +253,8 @@ pos_conv_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dpre,
   constexpr int XR = kDwFrames + kDwTaps;     // window rows (the last one unused)
   __shared__ __align__(128) bf16 ds[2][kDwFrames * W::LD];
   __shared__ __align__(128) bf16 xs[2][XR * W::LD];
-  const int p = blockIdx.x, k0 = blockIdx.y * kDwTaps, g = blockIdx.z;
+  const int p = blockIdx.x, k0 = (blockIdx.y / W::DW_SPLIT) * kDwTaps, g = blockIdx.z;
+  const int mh = blockIdx.y % W::DW_SPLIT;    // the block's part of the output channels
   const int groups = D / C;
   const int per_b = (T + kDwFrames - 1) / kDwFrames, tiles = B * per_b;
   const int lo = static_cast<int>(static_cast<long long>(tiles) * p / n_parts);
@@ -268,13 +279,15 @@ pos_conv_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dpre,
   };
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int k = k0 + warp;                    // the warp's tap
-  float acc[C / 16][W::NT][4];
+  float acc[W::DW_MT][W::NT][4];
 #pragma unroll
-  for (int mt = 0; mt < C / 16; ++mt)
+  for (int mt = 0; mt < W::DW_MT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < W::NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  // The m16 tile mt of the block's part, and whether the width has it.
+  auto m_tile = [&](int mt) { return mh * W::DW_MT + mt; };
   // ldmatrix.trans rows: A = dpre^T (rows: frames, columns: outputs), B = x at the tap's shift.
   const int a_lane = (((lane >> 4) & 1) * 8 + (lane & 7)) * W::LD + ((lane >> 3) & 1) * 8;
   const int b_lane = (warp + (lane & 15)) * W::LD + (lane >> 4) * 8;
@@ -288,16 +301,18 @@ pos_conv_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dpre,
     if (k < K) {
 #pragma unroll
       for (int kk = 0; kk < kDwFrames / 16; ++kk) {
-        uint32_t a[C / 16][4];
+        uint32_t a[W::DW_MT][4];
 #pragma unroll
-        for (int mt = 0; mt < C / 16; ++mt)
-          w2v::ldmatrix_x4_trans(a[mt], &ds[buf][kk * 16 * W::LD + a_lane + mt * 16]);
+        for (int mt = 0; mt < W::DW_MT; ++mt)
+          if (m_tile(mt) < C / 16)
+            w2v::ldmatrix_x4_trans(a[mt], &ds[buf][kk * 16 * W::LD + a_lane + m_tile(mt) * 16]);
 #pragma unroll
         for (int np = 0; np < W::NT / 2; ++np) {
           uint32_t bq[4];
           w2v::ldmatrix_x4_trans(bq, &xs[buf][kk * 16 * W::LD + b_lane + np * 16]);
 #pragma unroll
-          for (int mt = 0; mt < C / 16; ++mt) {
+          for (int mt = 0; mt < W::DW_MT; ++mt) {
+            if (m_tile(mt) >= C / 16) continue;
             w2v::mma_bf16(acc[mt][2 * np], a[mt], bq[0], bq[1]);
             w2v::mma_bf16(acc[mt][2 * np + 1], a[mt], bq[2], bq[3]);
           }
@@ -310,13 +325,15 @@ pos_conv_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dpre,
   float* dst = parts + ((static_cast<size_t>(p) * groups + g) * K + k) * C * C;
   const int row = lane / 4, col = 2 * (lane % 4);
 #pragma unroll
-  for (int mt = 0; mt < C / 16; ++mt)
+  for (int mt = 0; mt < W::DW_MT; ++mt) {
+    if (m_tile(mt) >= C / 16) continue;
 #pragma unroll
     for (int nt = 0; nt < W::NT; ++nt)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<float2*>(dst + (mt * 16 + row + 8 * h) * C + nt * 8 + col) =
+        *reinterpret_cast<float2*>(dst + (m_tile(mt) * 16 + row + 8 * h) * C + nt * 8 + col) =
             make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+  }
 }
 
 // Block d (an output channel gC + o): dw[d] [C, K] = the sum of the parts in order, re-laid
@@ -349,7 +366,7 @@ pos_conv_reduce_kernel(const float* __restrict__ parts, const float* __restrict_
 
 // ---- host ---------------------------------------------------------------------------------
 
-bool takes_width(int C) { return C == 16 || C == 48 || C == 64; }
+bool takes_width(int C) { return C == 16 || C == 32 || C == 48 || C == 64 || C == 80; }
 
 bool bad_shape(int B, int T, int D, int C, int K) {
   return B <= 0 || T <= 0 || K <= 0 || C <= 0 || !takes_width(C) || D % C != 0 || D / 8 > kThreads;
@@ -392,7 +409,9 @@ cudaError_t slide_any(bool fwd, const bf16* in, const bf16* wr, const bf16* bias
                       bf16* pre, int B, int T, int D, int C, int K, int pad, cudaStream_t st) {
   switch (C) {
     case 16: return slide<16>(fwd, in, wr, bias, out, pre, B, T, D, K, pad, st);
+    case 32: return slide<32>(fwd, in, wr, bias, out, pre, B, T, D, K, pad, st);
     case 48: return slide<48>(fwd, in, wr, bias, out, pre, B, T, D, K, pad, st);
+    case 80: return slide<80>(fwd, in, wr, bias, out, pre, B, T, D, K, pad, st);
     default: return slide<64>(fwd, in, wr, bias, out, pre, B, T, D, K, pad, st);
   }
 }
@@ -400,8 +419,9 @@ cudaError_t slide_any(bool fwd, const bf16* in, const bf16* wr, const bf16* bias
 template <int C>
 cudaError_t dw_parts(const bf16* x, const bf16* dpre, float* parts, int B, int T, int D, int K,
                      int pad, int n_parts, cudaStream_t st) {
-  pos_conv_dw_kernel<C><<<dim3(n_parts, (K + kDwTaps - 1) / kDwTaps, D / C), kThreads, 0, st>>>(
-      x, dpre, parts, B, T, D, K, pad, n_parts);
+  const int ys = (K + kDwTaps - 1) / kDwTaps * Width<C>::DW_SPLIT;
+  pos_conv_dw_kernel<C><<<dim3(n_parts, ys, D / C), kThreads, 0, st>>>(x, dpre, parts, B, T, D,
+                                                                       K, pad, n_parts);
   return cudaGetLastError();
 }
 
@@ -409,7 +429,9 @@ cudaError_t dw_parts_any(const bf16* x, const bf16* dpre, float* parts, int B, i
                          int K, int pad, int n_parts, cudaStream_t st) {
   switch (C) {
     case 16: return dw_parts<16>(x, dpre, parts, B, T, D, K, pad, n_parts, st);
+    case 32: return dw_parts<32>(x, dpre, parts, B, T, D, K, pad, n_parts, st);
     case 48: return dw_parts<48>(x, dpre, parts, B, T, D, K, pad, n_parts, st);
+    case 80: return dw_parts<80>(x, dpre, parts, B, T, D, K, pad, n_parts, st);
     default: return dw_parts<64>(x, dpre, parts, B, T, D, K, pad, n_parts, st);
   }
 }

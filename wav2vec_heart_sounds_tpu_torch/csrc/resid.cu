@@ -30,20 +30,22 @@ void on_dtype(int dtype, F&& f) {
 
 // C entry points, bound with ctypes. dtype: 0 = float32, 1 = bfloat16; gamma, beta and the
 // partials are float32. cols is a whole number of 16-byte runs (a multiple of 8 in bfloat16,
-// of 4 in float32), at most 1024. `blocks` is the grid (the backward's partials have `blocks`
-// rows), from resid_blocks for the same rows, cols and dtype. Every [rows, cols] pointer is
-// 16-byte aligned (the bulk copies and 16-byte accesses). Each returns the cudaError_t of its
-// launch (0 = launched).
+// of 4 in float32), at most 1024, or 1280. `blocks` is the grid (the backward's partials have
+// `blocks` rows), from resid_blocks for the same rows, cols, dtype and pass. Every [rows, cols]
+// pointer is 16-byte aligned (the bulk copies and 16-byte accesses). Each returns the
+// cudaError_t of its launch (0 = launched).
 
-// The persistent grid for `sms` SMs (negative on error).
+// The persistent grid for `sms` SMs (negative on error). backward: 0 the forward, 1 the
+// backward, 2 the pre-norm backward.
 extern "C" int resid_blocks(int rows, int cols, int sms, int dtype, int backward) {
   if (sms <= 0) return -1;
   int blocks = -1;
   on_dtype(dtype, [&](auto t) {
     using T = decltype(t);
     if (w2v::resid_bad_shape<T>(rows, cols, 1)) return;
-    blocks = backward ? w2v::ResidBwd<T, false>::grid(rows, cols, sms)
-                      : w2v::ResidFwd<T>::grid(rows, cols, sms);
+    blocks = backward == 2 ? w2v::ResidBwd<T, false, true>::grid(rows, cols, sms)
+             : backward    ? w2v::ResidBwd<T, false>::grid(rows, cols, sms)
+                           : w2v::ResidFwd<T>::grid(rows, cols, sms);
   });
   return blocks;
 }
@@ -77,7 +79,29 @@ extern "C" int resid_bwd(const void* g, const void* s, const void* gamma, void* 
         cols, blocks, static_cast<cudaStream_t>(stream), static_cast<const T*>(g),
         static_cast<const T*>(s), static_cast<const float*>(gamma), static_cast<T*>(dh),
         static_cast<T*>(dx), static_cast<float*>(dgamma_part), static_cast<float*>(dbeta_part),
-        static_cast<float*>(nullptr), rows, cols, eps, seed, site, thr, scale);
+        static_cast<float*>(nullptr), rows, cols, eps, seed, site, thr, scale,
+        static_cast<const T*>(nullptr));
+  });
+  return static_cast<int>(err);
+}
+
+// The pre-norm backward: g is the gradient of out (the next sublayer's input), gs that of s
+// (the residual stream); ds = the LayerNorm's gradient + gs, dx = ds, dh = keep ? ds * scale
+// : 0. `blocks` from resid_blocks(..., backward = 2).
+extern "C" int resid_prenorm_bwd(const void* g, const void* gs, const void* s, const void* gamma,
+                                 void* dh, void* dx, void* dgamma_part, void* dbeta_part,
+                                 int rows, int cols, float eps, uint32_t seed, uint32_t site,
+                                 uint32_t thr, float scale, int blocks, int dtype, void* stream) {
+  cudaError_t err = cudaErrorInvalidValue;
+  on_dtype(dtype, [&](auto t) {
+    using T = decltype(t);
+    if (w2v::resid_bad_shape<T>(rows, cols, blocks)) return;
+    err = w2v::ResidBwd<T, false, true>::launch(
+        cols, blocks, static_cast<cudaStream_t>(stream), static_cast<const T*>(g),
+        static_cast<const T*>(s), static_cast<const float*>(gamma), static_cast<T*>(dh),
+        static_cast<T*>(dx), static_cast<float*>(dgamma_part), static_cast<float*>(dbeta_part),
+        static_cast<float*>(nullptr), rows, cols, eps, seed, site, thr, scale,
+        static_cast<const T*>(gs));
   });
   return static_cast<int>(err);
 }

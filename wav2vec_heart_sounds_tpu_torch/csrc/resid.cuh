@@ -13,8 +13,14 @@
 //             (the bias gradient of the product that made h). Partials, not atomics, so every
 //             run and the comparison with the plain version reproduce.
 // Rows are any width up to 1024 columns (wav2vec2-large's hidden size) that is a whole
-// number of 16-byte runs: a multiple of 8 columns in bfloat16, of 4 in float32. 768 columns
-// (wav2vec2-base's) take an unguarded instantiation; every other width the guarded one.
+// number of 16-byte runs: a multiple of 8 columns in bfloat16, of 4 in float32, and 1280
+// (XLS-R 1B's). 768 columns (wav2vec2-base's) and 1280 take unguarded instantiations of their
+// own width; every other width the guarded one.
+//
+// Pre-norm form (kStream, resid_prenorm_bwd and K4's pre-norm backward): the forward is the
+// same, with s the residual stream and out the next sublayer's input; the backward also takes
+// gs, the stream's own gradient, and its ds is the LayerNorm's gradient plus gs (float32),
+// so dx = round(ds) and dh = keep ? ds * scale : 0.
 //
 // What bounds it: bytes. The forward reads h and x and writes out and s, the backward reads g
 // and s and writes dx and dh: 4 x 29 MB a pass at [96*199, 768] bf16, ~35 us at 3.35 TB/s.
@@ -77,10 +83,26 @@ namespace w2v {
 
 constexpr int kResidFullCols = 768;                        // the unguarded instantiation's rows
 constexpr int kResidMaxCols = 1024;                        // the widest row (guarded)
+constexpr int kResidWideCols = 1280;                       // a second unguarded width (XLS-R 1B)
 constexpr int kResidWarps = 8;                             // a row each per tile
 constexpr int kResidThreads = kResidWarps * 32;
 constexpr int kResidBarHeader = 128;                       // dynamic smem: the barriers first
-constexpr int kResidVecBytes = 2 * kResidMaxCols * 4;      // then gamma and beta, float32
+
+// An instance's row width: kCols columns exactly, or 0 for the guarded instance (up to
+// kResidMaxCols). Its gamma and beta sit in shared memory for this many columns each.
+template <int kCols>
+__host__ __device__ constexpr int resid_vec_cols() {
+  return kCols > kResidMaxCols ? kCols : kResidMaxCols;
+}
+template <int kCols>
+__host__ __device__ constexpr int resid_vec_bytes() {      // gamma and beta, float32
+  return 2 * resid_vec_cols<kCols>() * 4;
+}
+// Blocks an SM an instance's register budget must allow: the wide rows' sums take one.
+template <int kCols>
+__host__ __device__ constexpr int resid_min_blocks() {
+  return kCols > kResidMaxCols ? 1 : W2V_RESID_MIN_BLOCKS;
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -92,14 +114,14 @@ __device__ __forceinline__ float warp_sum(float v) {
 template <typename T>
 inline bool resid_bad_shape(int rows, int cols, int blocks) {
   return rows <= 0 || cols <= 0 || cols % (16 / static_cast<int>(sizeof(T))) ||
-         cols > kResidMaxCols || blocks <= 0;
+         (cols > kResidMaxCols && cols != kResidWideCols) || blocks <= 0;
 }
 
-// Passes of 32 runs of N columns that a lane makes over a row: kResidFullCols in the
-// unguarded instantiation, up to kResidMaxCols in the guarded one.
-template <int N, bool kFull>
+// Passes of 32 runs of N columns that a lane makes over a row: kCols in an unguarded
+// instantiation, up to kResidMaxCols in the guarded one (kCols = 0).
+template <int N, int kCols>
 __host__ __device__ constexpr int resid_passes() {
-  return (kFull ? kResidFullCols : kResidMaxCols) / (32 * N);
+  return (kCols ? kCols : kResidMaxCols) / (32 * N);
 }
 
 // The keep bits of the run of N elements at row-major index `index` (a multiple of N): one
@@ -141,8 +163,9 @@ constexpr bool kResidBwdRing = W2V_RESID_BWD_RING;
 constexpr bool kResidBulkStore = W2V_RESID_BULK_STORE;
 
 // The ring and the block's vectors in dynamic shared memory: barriers, then gamma and beta
-// (float32, in vec_slot order), then S slots of two [R, cols] tiles (h and x, or g and s).
-template <typename T>
+// (float32, in vec_slot order, V columns each), then S slots of two [R, cols] tiles (h and x,
+// or g and s).
+template <typename T, int V = kResidMaxCols>
 struct ResidSmem {
   unsigned char* base;
   int cols;
@@ -154,9 +177,9 @@ struct ResidSmem {
   __device__ __forceinline__ float* gamma() const {
     return reinterpret_cast<float*>(base + kResidBarHeader);
   }
-  __device__ __forceinline__ float* beta() const { return gamma() + kResidMaxCols; }
+  __device__ __forceinline__ float* beta() const { return gamma() + V; }
   __device__ __forceinline__ unsigned char* after_vectors() const {
-    return base + kResidBarHeader + kResidVecBytes;
+    return base + kResidBarHeader + 2 * V * 4;
   }
   __device__ __forceinline__ T* tile(int s, int which) const {
     return reinterpret_cast<T*>(after_vectors()) + (static_cast<size_t>(2 * s + which) * R) * cols;
@@ -168,15 +191,15 @@ struct ResidSmem {
 // tiles 0 .. S - 2 up front, then tile k + S - 1 as the block starts tile k, once every warp
 // has released that slot (its tile k - 1): the copies of the next S - 1 tiles are in flight
 // while a tile is reduced.
-template <typename T, bool kRing>
+template <typename T, bool kRing, int V = kResidMaxCols>
 struct ResidRing {
   static constexpr int R = kResidRows, S = kResidStages<T>;
-  const ResidSmem<T>& sm;
+  const ResidSmem<T, V>& sm;
   const T* a;
   const T* b;
   int rows, cols, count;
 
-  __device__ __forceinline__ ResidRing(const ResidSmem<T>& sm_, const T* a_, const T* b_,
+  __device__ __forceinline__ ResidRing(const ResidSmem<T, V>& sm_, const T* a_, const T* b_,
                                        int rows_, int cols_)
       : sm(sm_), a(a_), b(b_), rows(rows_), cols(cols_) {
     const int tiles = (rows + R - 1) / R;
@@ -225,12 +248,12 @@ struct ResidRing {
 };
 
 // Block set-up: the ring's barriers, and gamma (and beta) into shared memory.
-template <typename T, bool kRing>
-__device__ __forceinline__ void resid_setup(const ResidSmem<T>& sm, const float* gamma,
+template <typename T, bool kRing, int V>
+__device__ __forceinline__ void resid_setup(const ResidSmem<T, V>& sm, const float* gamma,
                                             const float* beta, int cols) {
   if (kRing && threadIdx.x == 0) {
 #pragma unroll
-    for (int s = 0; s < ResidSmem<T>::S; ++s) {
+    for (int s = 0; s < ResidSmem<T, V>::S; ++s) {
       mbar_init(sm.full(s), 1);
       mbar_init(sm.empty(s), kResidWarps);
     }
@@ -244,26 +267,28 @@ __device__ __forceinline__ void resid_setup(const ResidSmem<T>& sm, const float*
   __syncthreads();
 }
 
-// Forward. kFull: rows of kResidFullCols columns (every lane has a run in every pass, no guard).
-// With bulk stores, s and out are staged in place of h and x.
-template <typename T, bool kFull>
-__global__ void __launch_bounds__(kResidThreads, W2V_RESID_MIN_BLOCKS)
+// Forward. kCols: rows of kCols columns (every lane has a run in every pass, no guard), or 0
+// for the guarded rows. With bulk stores, s and out are staged in place of h and x.
+template <typename T, int kCols>
+__global__ void __launch_bounds__(kResidThreads, resid_min_blocks<kCols>())
 resid_fwd_kernel(const T* __restrict__ h, const T* __restrict__ x,
                  const float* __restrict__ gamma, const float* __restrict__ beta,
                  T* __restrict__ out, T* __restrict__ s_out, int rows, int cols, float eps,
                  uint32_t seed, uint32_t site, uint32_t thr, float scale) {
   constexpr bool kRing = kResidFwdRing, kBulkStore = kResidBulkStore && kRing;
+  constexpr bool kFull = kCols != 0;
+  constexpr int VC = resid_vec_cols<kCols>();
   using V = Run16<T>;
   constexpr int N = V::N;
-  constexpr int P = resid_passes<N, kFull>();
+  constexpr int P = resid_passes<N, kCols>();
   extern __shared__ __align__(16) unsigned char resid_smem[];
-  const ResidSmem<T> sm{resid_smem, cols};
+  const ResidSmem<T, VC> sm{resid_smem, cols};
   resid_setup<T, kRing>(sm, gamma, beta, cols);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int runs = kFull ? 32 * P : cols / N;
   const float* gs = sm.gamma();
   const float* bs = sm.beta();
-  const ResidRing<T, kRing> ring(sm, h, x, rows, cols);
+  const ResidRing<T, kRing, VC> ring(sm, h, x, rows, cols);
   ring.prologue();
   for (int k = 0; k < ring.count; ++k) {
     ring.acquire(k);
@@ -340,22 +365,24 @@ resid_fwd_kernel(const T* __restrict__ h, const T* __restrict__ x,
   }
 }
 
-// Backward; kFull as in the forward. With bulk stores, dx and dh are staged in place of g
-// and s.
-template <typename T, bool kDhSums, bool kFull>
-__global__ void __launch_bounds__(kResidThreads, W2V_RESID_MIN_BLOCKS)
+// Backward; kCols as in the forward. kStream: the pre-norm form, gs (the stream's gradient)
+// added to ds. With bulk stores, dx and dh are staged in place of g and s.
+template <typename T, bool kDhSums, int kCols, bool kStream = false>
+__global__ void __launch_bounds__(kResidThreads, resid_min_blocks<kCols>())
 resid_bwd_kernel(const T* __restrict__ g, const T* __restrict__ s,
                  const float* __restrict__ gamma, T* __restrict__ dh, T* __restrict__ dx,
                  float* __restrict__ dgamma_part, float* __restrict__ dbeta_part,
                  float* __restrict__ dh_part, int rows, int cols, float eps, uint32_t seed,
-                 uint32_t site, uint32_t thr, float scale) {
+                 uint32_t site, uint32_t thr, float scale, const T* __restrict__ g_stream) {
   constexpr bool kRing = kResidBwdRing, kBulkStore = kResidBulkStore && kRing;
+  constexpr bool kFull = kCols != 0;
+  constexpr int VC = resid_vec_cols<kCols>();
   using V = Run16<T>;
   constexpr int N = V::N;
-  constexpr int P = resid_passes<N, kFull>();
+  constexpr int P = resid_passes<N, kCols>();
   constexpr int kSums = kDhSums ? 3 : 2;
   extern __shared__ __align__(16) unsigned char resid_smem[];
-  const ResidSmem<T> sm{resid_smem, cols};
+  const ResidSmem<T, VC> sm{resid_smem, cols};
   resid_setup<T, kRing>(sm, gamma, nullptr, cols);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int runs = kFull ? 32 * P : cols / N;
@@ -368,7 +395,7 @@ resid_bwd_kernel(const T* __restrict__ g, const T* __restrict__ s,
 #pragma unroll
       for (int j = 0; j < N; ++j) acc[a][i][j] = 0.f;
 
-  const ResidRing<T, kRing> ring(sm, g, s, rows, cols);
+  const ResidRing<T, kRing, VC> ring(sm, g, s, rows, cols);
   ring.prologue();
   for (int k = 0; k < ring.count; ++k) {
     ring.acquire(k);
@@ -424,16 +451,21 @@ resid_bwd_kernel(const T* __restrict__ g, const T* __restrict__ s,
         const int run = lane + 32 * i;
         if (!kFull && run >= runs) break;
         const int col = N * run;
-        float sv[N], gv[N], wv[N], dsv[N], dhv[N];
+        float sv[N], gv[N], wv[N], dsv[N], dhv[N], gsv[N];
         V::unpack(load(srow, col), sv);
         V::unpack(load(grow, col), gv);
         load_vec<N>(gm, i, lane, wv);
+        if constexpr (kStream) {
+          const uint4 raw = __ldg(reinterpret_cast<const uint4*>(g_stream + base + col));
+          V::unpack(raw, gsv);
+        }
         const uint32_t keep = run_keep<N>(seed, site, base + col, thr);
 #pragma unroll
         for (int j = 0; j < N; ++j) {
           const float shat = (sv[j] - mean) * rstd;
           const float gs = gv[j] * wv[j];
           dsv[j] = rstd * (gs - mean_gs - shat * mean_gss);
+          if constexpr (kStream) dsv[j] += gsv[j];
           dhv[j] = (keep >> j) & 1u ? dsv[j] * scale : 0.f;
           if (kDhSums) acc[kSums - 1][i][j] += round_to<T>(dhv[j]);
         }
@@ -498,7 +530,9 @@ inline int resid_smem(bool ring, bool backward, int cols) {
   const int slots =
       ring ? 2 * kResidStages<T> * kResidRows * cols * static_cast<int>(sizeof(T)) : 0;
   const int red = backward ? kResidWarps * cols * 4 : 0;
-  return kResidBarHeader + kResidVecBytes + (slots > red ? slots : red);
+  const int vec = cols == kResidWideCols ? resid_vec_bytes<kResidWideCols>()
+                                         : resid_vec_bytes<0>();
+  return kResidBarHeader + vec + (slots > red ? slots : red);
 }
 
 // The grid of a persistent launch of `kernel`: as many blocks as fit on the `sms` SMs (by the
@@ -525,12 +559,14 @@ inline cudaError_t resid_launch(K kernel, int smem, int blocks, cudaStream_t st,
   return cudaGetLastError();
 }
 
-// The forward's and the backward's launches: the unguarded instantiation for rows of
-// kResidFullCols columns, the guarded one for every other width.
+// The forward's and the backward's launches: the unguarded instantiations for rows of
+// kResidFullCols and kResidWideCols columns, the guarded one for every other width.
 template <typename T>
 struct ResidFwd {
   static auto kernel(int cols) {
-    return cols == kResidFullCols ? &resid_fwd_kernel<T, true> : &resid_fwd_kernel<T, false>;
+    return cols == kResidFullCols   ? &resid_fwd_kernel<T, kResidFullCols>
+           : cols == kResidWideCols ? &resid_fwd_kernel<T, kResidWideCols>
+                                    : &resid_fwd_kernel<T, 0>;
   }
   static int smem(int cols) { return resid_smem<T>(kResidFwdRing, false, cols); }
   static int grid(int rows, int cols, int sms) {
@@ -542,11 +578,12 @@ struct ResidFwd {
   }
 };
 
-template <typename T, bool kDhSums>
+template <typename T, bool kDhSums, bool kStream = false>
 struct ResidBwd {
   static auto kernel(int cols) {
-    return cols == kResidFullCols ? &resid_bwd_kernel<T, kDhSums, true>
-                                 : &resid_bwd_kernel<T, kDhSums, false>;
+    return cols == kResidFullCols   ? &resid_bwd_kernel<T, kDhSums, kResidFullCols, kStream>
+           : cols == kResidWideCols ? &resid_bwd_kernel<T, kDhSums, kResidWideCols, kStream>
+                                    : &resid_bwd_kernel<T, kDhSums, 0, kStream>;
   }
   static int smem(int cols) { return resid_smem<T>(kResidBwdRing, true, cols); }
   static int grid(int rows, int cols, int sms) {
@@ -562,19 +599,20 @@ struct ResidBwd {
 // (the K4 forward's last pass, after its (B) epilogue formed s): the statistics of
 // resid_fwd_kernel (float32, var = E[s^2] - E[s]^2 clamped at 0, warp sums in a fixed
 // order). One warp a row; a lane reads runs of 16 bytes at N (lane + 32 i), so a row of up to
-// kResidMaxCols columns, a whole number of runs, is read once into registers. kFull as in
-// resid_fwd_kernel: rows of kResidFullCols columns, no guard.
+// kResidMaxCols columns, a whole number of runs, is read once into registers. kCols as in
+// resid_fwd_kernel: rows of kCols columns, no guard, or 0 for the guarded rows.
 constexpr int kLnWarps = 4;
 constexpr int kLnThreads = kLnWarps * 32;
 
-template <typename T, bool kFull>
+template <typename T, int kCols>
 __global__ void __launch_bounds__(kLnThreads)
 ln_rows_kernel(const T* __restrict__ s, const float* __restrict__ gamma,
                const float* __restrict__ beta, T* __restrict__ out, int rows, int cols,
                float eps) {
+  constexpr bool kFull = kCols != 0;
   using V = Run16<T>;
   constexpr int N = V::N;
-  constexpr int P = resid_passes<N, kFull>();
+  constexpr int P = resid_passes<N, kCols>();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int runs = cols / N;
   for (int row = blockIdx.x * kLnWarps + warp; row < rows;
@@ -611,6 +649,14 @@ ln_rows_kernel(const T* __restrict__ s, const float* __restrict__ gamma,
       *reinterpret_cast<uint4*>(out + base + col) = V::pack(o);
     }
   }
+}
+
+// The row LayerNorm's instance for rows of `cols` columns (as ResidFwd picks).
+template <typename T>
+inline auto ln_rows_for(int cols) {
+  return cols == kResidFullCols   ? &ln_rows_kernel<T, kResidFullCols>
+         : cols == kResidWideCols ? &ln_rows_kernel<T, kResidWideCols>
+                                  : &ln_rows_kernel<T, 0>;
 }
 
 }  // namespace w2v

@@ -33,7 +33,7 @@ def build_classifier(cfg: ClassifierConfig, seed: int = 0, device="cuda",
     on every device. With ``cfg.random_init`` False the encoder takes the pretrained
     ``cfg.pretrained_name`` (a directory, or a hub name in the local HF cache:
     :func:`.hf_port.load_pretrained_encoder`) when it is there, with its architecture (the
-    ten fields of :data:`.hf_port.ARCHITECTURE`; dropouts, SpecAugment, LoRA, routes and
+    fields of :data:`.hf_port.ARCHITECTURE`; dropouts, SpecAugment, LoRA, routes and
     remat stay the caller's), as the JAX package's ``build_classifier`` does; the encoder is then loaded
     strictly, only the LoRA adapters keeping their init. Without a checkpoint it keeps its
     random init and says so in one printed line. A multichannel config gets the sinc

@@ -14,11 +14,13 @@ except for the weight-normed positional conv (legacy ``weight_g``/``weight_v`` o
 ``parametrizations`` keys), which is materialised as ``g * v / ||v||`` (norm over dims
 (0, 1), torch ``weight_norm(dim=2)``) in float64, as in the JAX package.
 
-Unlike the JAX loader, which turns every exception into ``None``, only a checkpoint that is
-not there gives ``None``: one that cannot be read, that does not fit its config, or whose
-config asks for an architecture the model does not compute (the layer-norm feature
-extractor, the stable-layer-norm encoder or conv biases of the ``-lv60`` checkpoints)
-raises.
+The three architecture keys of the stable-layer-norm family (the ``-lv60`` checkpoints,
+XLSR-53, XLS-R: ``feat_extract_norm="layer"``, ``conv_bias``, ``do_stable_layer_norm``) are
+adopted like the shapes; the conv biases and every conv layer's LayerNorm load under their HF
+keys. Unlike the JAX loader, which turns every exception into ``None``, only a checkpoint that
+is not there gives ``None``: one that cannot be read, that does not fit its config, or whose
+config asks for an architecture the model does not compute (another feature-encoder norm,
+another activation) raises.
 """
 
 from __future__ import annotations
@@ -63,14 +65,18 @@ FIELDS = (("conv_dim", "conv_dim"), ("conv_kernel", "conv_kernel"),
           ("activation_dropout", "activation_dropout"),
           ("feat_proj_dropout", "feat_proj_dropout"), ("mask_time_prob", "mask_time_prob"),
           ("mask_time_length", "mask_time_length"))
+# The stable-layer-norm family's architecture keys (port field = HF key), which the JAX
+# package does not compute.
+FAMILY_FIELDS = ("feat_extract_norm", "conv_bias", "do_stable_layer_norm")
 # The architecture fields ``build_classifier`` takes from a checkpoint (as the JAX one does);
 # dropouts, SpecAugment, LoRA, routes and remat stay the caller's.
 ARCHITECTURE = ("conv_dim", "conv_kernel", "conv_stride", "hidden_size", "num_layers",
                 "num_heads", "intermediate_size", "pos_conv_kernel", "pos_conv_groups",
-                "layer_norm_eps")
-# HF keys whose other values name an architecture the model does not compute.
-COMPUTED = {"feat_extract_norm": "group", "do_stable_layer_norm": False, "conv_bias": False,
-            "hidden_act": "gelu", "feat_extract_activation": "gelu"}
+                "layer_norm_eps") + FAMILY_FIELDS
+# HF keys and the values the model computes; any other value names an architecture it does
+# not compute.
+COMPUTED = {"feat_extract_norm": ("group", "layer"), "hidden_act": ("gelu",),
+            "feat_extract_activation": ("gelu",)}
 # Roots of a ``Wav2Vec2Model`` state dict; a head model's other keys are dropped.
 ENCODER_ROOTS = ("feature_extractor", "feature_projection", "encoder", "masked_spec_embed")
 BASE_PREFIX = "wav2vec2."
@@ -87,11 +93,12 @@ def config_from_hf(hf_config) -> Wav2Vec2Config:
             return hf_config.get(key, HF_DEFAULTS[key])
         return getattr(hf_config, key, HF_DEFAULTS[key])
 
-    for key, value in COMPUTED.items():
-        if get(key) != value:
+    for key, values in COMPUTED.items():
+        if get(key) not in values:
             raise ValueError(f"checkpoint config {key}={get(key)!r}: the model computes only "
-                             f"{key}={value!r}")
+                             + " or ".join(f"{key}={v!r}" for v in values))
     kw = {field: get(key) for field, key in FIELDS}
+    kw.update({field: get(field) for field in FAMILY_FIELDS})
     for field in ("conv_dim", "conv_kernel", "conv_stride"):
         kw[field] = tuple(kw[field])
     return Wav2Vec2Config(**kw)

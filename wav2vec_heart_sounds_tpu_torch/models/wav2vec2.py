@@ -44,6 +44,19 @@ the backward runs their forward again. The recompute draws nothing: the step see
 SpecAugment spans are drawn before the encoder, and every mask inside is Philox of
 ``(seed, site)``, so it regenerates the same masks and the same saved tensors.
 
+The stable-layer-norm family (the ``-lv60`` checkpoints, XLSR-53, XLS-R), under HF's three
+architecture keys, which the JAX package does not compute: ``feat_extract_norm="layer"``
+puts a LayerNorm over channels (float32 statistics, torch's default eps 1e-5, as HF builds
+it) on every conv layer, ``conv_bias`` gives the convs biases, and ``do_stable_layer_norm``
+makes the encoder pre-norm: ``h + gelu(pos(h))`` without a norm, dropout at
+``SITE_ENCODER``, layers of ``h + drop(attn(LN1(h)))`` then ``h + drop(ffn(LN2(h)))``, and the
+encoder's LayerNorm after the last layer, at the post-norm layers' dropout sites. In
+training each LayerNorm is fused with the residual add before it: the attention tail is K2's
+pre-norm form (:func:`..ops.kernels.resid.dropout_add_layernorm_prenorm`, the stream and
+``LN2`` of it) and the FFN sublayer K4's (:func:`..ops.kernels.megakernel.ffn_block_prenorm`,
+the stream and the next layer's ``LN1``, or the encoder's LayerNorm after the last); the
+first ``LN1`` takes the encoder's input dropout through K2's pre-norm form on a zero stream.
+
 Not ported: ``conv_time_plan``'s tile padding, which gives the same numbers as the exact
 lengths used here.
 """
@@ -62,11 +75,15 @@ from ..ops.kernels import attention as _attention
 from ..ops.kernels.conv import conv_gelu
 from ..ops.kernels.dropout import dropout
 from ..ops.kernels.ffn import dense_gelu_dropout
-from ..ops.kernels.megakernel import ffn_block
+from ..ops.kernels.megakernel import ffn_block, ffn_block_prenorm
 from ..ops.kernels.pos_conv import pos_conv_gelu
-from ..ops.kernels.resid import dropout_add_layernorm
+from ..ops.kernels.resid import dropout_add_layernorm, dropout_add_layernorm_prenorm
+from ..utils.observe import op_range
 
 HIDDEN = 768  # wav2vec2-base hidden size
+# The feature encoder's norms take torch's default eps, as HF builds them (``nn.GroupNorm``,
+# ``nn.LayerNorm`` without an eps): the layer-norm variant's LayerNorms.
+FEATURE_NORM_EPS = 1e-5
 
 # Dropout sites: each keys its Philox mask with (step seed, site).
 SITE_FEATURE_PROJECTION, SITE_ENCODER = 0, 1
@@ -118,6 +135,12 @@ class Wav2Vec2Config:
     # one more forward of them in the backward), the JAX package's nn.remat.
     remat: bool = False
     remat_conv: bool = False
+    # The architecture (HF's keys; the defaults are wav2vec2-base's): "group" (GroupNorm on
+    # conv 0) or "layer" (LayerNorm over channels on every conv layer), conv biases, and the
+    # pre-norm encoder with its LayerNorm after the last layer.
+    feat_extract_norm: str = "group"
+    conv_bias: bool = False
+    do_stable_layer_norm: bool = False
 
     @classmethod
     def tiny(cls, **kw) -> "Wav2Vec2Config":
@@ -157,6 +180,22 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias, self.eps, self.dtype)
 
 
+class ChannelLayerNorm(nn.Module):
+    """LayerNorm over the channels of ``[B, C, T]`` (HF's ``nn.LayerNorm(C)`` keys, applied
+    on the transposed view): float32 statistics, the compute dtype out."""
+
+    def __init__(self, channels: int, eps: float, dtype: torch.dtype):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.eps, self.dtype = eps, dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.layer_norm(x.transpose(1, 2).float(), x.shape[1:2], self.weight, self.bias,
+                         self.eps)
+        return h.to(self.dtype).transpose(1, 2)
+
+
 class ChannelGroupNorm(nn.Module):
     """Per-channel GroupNorm over time on ``[B, C, T]`` (HF's ``GroupNorm(C, C)`` keys).
 
@@ -182,12 +221,14 @@ class ChannelGroupNorm(nn.Module):
 def conv_fuse_layers(cfg: Wav2Vec2Config, num_samples: int) -> list[bool]:
     """Which conv layers run as K8 on a ``num_samples`` waveform: the JAX package's
     ``fused`` rule (``wav2vec2.py:454-458``): ``conv_fuse`` and k = 3, s = 2, both channel
-    counts multiples of 128 and at least 4096 real output frames."""
+    counts multiples of 128 and at least 4096 real output frames. K8 has neither a norm nor a
+    bias, so the layer-norm variant and conv biases fuse no layer."""
     cin = (1,) + cfg.conv_dim[:-1]
+    fuse = cfg.conv_fuse and cfg.feat_extract_norm == "group" and not cfg.conv_bias
     fused, n = [], num_samples
     for ci, co, k, s in zip(cin, cfg.conv_dim, cfg.conv_kernel, cfg.conv_stride):
         n = (n - k) // s + 1
-        fused.append(cfg.conv_fuse and k == 3 and s == 2 and ci % 128 == 0 and co % 128 == 0
+        fused.append(fuse and k == 3 and s == 2 and ci % 128 == 0 and co % 128 == 0
                      and n >= 4096)
     return fused
 
@@ -199,13 +240,16 @@ def step_seed(generator: torch.Generator | None) -> int:
 
 class ConvLayer(nn.Module):
     """``gelu(norm?(conv(x)))`` on ``[B, C, T]``: one layer of the feature encoder; with
-    ``fused`` (a layer without norm) K8's ``gelu(conv(x))`` with the erf GELU."""
+    ``fused`` (a layer without norm) K8's ``gelu(conv(x))`` with the erf GELU. ``norm``:
+    ``"group"`` (:class:`ChannelGroupNorm`), ``"layer"`` (:class:`ChannelLayerNorm`) or
+    ``None``."""
 
-    def __init__(self, cin: int, cout: int, kernel: int, stride: int, group_norm: bool,
-                 eps: float, dtype: torch.dtype):
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int, norm: str | None,
+                 eps: float, dtype: torch.dtype, bias: bool = False):
         super().__init__()
-        self.conv = nn.Conv1d(cin, cout, kernel, stride=stride, bias=False, dtype=dtype)
-        self.layer_norm = ChannelGroupNorm(cout, eps, dtype) if group_norm else None
+        self.conv = nn.Conv1d(cin, cout, kernel, stride=stride, bias=bias, dtype=dtype)
+        norms = {"group": ChannelGroupNorm, "layer": ChannelLayerNorm}
+        self.layer_norm = norms[norm](cout, eps, dtype) if norm else None
 
     def forward(self, x: torch.Tensor, fused: bool = False) -> torch.Tensor:
         if fused:
@@ -216,23 +260,35 @@ class ConvLayer(nn.Module):
         return cascade_gelu(h)
 
 
+def conv_norms(cfg: Wav2Vec2Config) -> list[str | None]:
+    """Each conv layer's norm: GroupNorm on the first (``"group"``) or a LayerNorm on every
+    layer (``"layer"``)."""
+    if cfg.feat_extract_norm == "layer":
+        return ["layer"] * len(cfg.conv_dim)
+    return ["group"] + [None] * (len(cfg.conv_dim) - 1)
+
+
 class FeatureEncoder(nn.Module):
-    """Raw waveform ``[B, T]`` -> conv features ``[B, C, T']`` (group-norm variant)."""
+    """Raw waveform ``[B, T]`` -> conv features ``[B, C, T']`` (the config's norm variant)."""
 
     def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype):
         super().__init__()
         cin = (1,) + cfg.conv_dim[:-1]
         self.cfg, self.dtype = cfg, dtype
+        # The group-norm variant keeps its norms' eps at layer_norm_eps (1e-5 in every
+        # published config), as it always had.
+        eps = FEATURE_NORM_EPS if cfg.feat_extract_norm == "layer" else cfg.layer_norm_eps
         self.conv_layers = nn.ModuleList(
-            ConvLayer(ci, co, k, s, i == 0, cfg.layer_norm_eps, dtype)
-            for i, (ci, co, k, s) in enumerate(zip(cin, cfg.conv_dim, cfg.conv_kernel,
-                                                   cfg.conv_stride)))
+            ConvLayer(ci, co, k, s, norm, eps, dtype, cfg.conv_bias)
+            for ci, co, k, s, norm in zip(cin, cfg.conv_dim, cfg.conv_kernel, cfg.conv_stride,
+                                          conv_norms(cfg)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = x[:, None, :].to(self.dtype)
-        for layer, fused in zip(self.conv_layers, conv_fuse_layers(self.cfg, x.shape[1])):
-            h = layer(h, fused)
-        return h
+        with op_range("model.feature_encoder"):
+            h = x[:, None, :].to(self.dtype)
+            for layer, fused in zip(self.conv_layers, conv_fuse_layers(self.cfg, x.shape[1])):
+                h = layer(h, fused)
+            return h
 
 
 class FeatureProjection(nn.Module):
@@ -337,11 +393,15 @@ class FeedForward(nn.Module):
 
 
 class EncoderLayer(nn.Module):
-    """Post-norm transformer block: LN(x + attn(x)), then LN(x + ffn(x)).
+    """Post-norm transformer block: LN(x + attn(x)), then LN(x + ffn(x)); under
+    ``do_stable_layer_norm`` pre-norm: x + attn(LN1(x)), then x + ffn(LN2(x)).
 
     In training (``seed`` given) the attention tail is ``LN(x + dropout(h))`` (K2) and the
     FFN sublayer is K4, or with ``ffn_mega=False`` the activation kernel
-    ``dropout(gelu(.))`` (K5) after the first product, then the second product and K2."""
+    ``dropout(gelu(.))`` (K5) after the first product, then the second product and K2. The
+    pre-norm layer in training takes the stream ``x``, ``u = LN1(x)`` and the LayerNorm that
+    follows it, and returns the new stream and that norm of it (:meth:`_prenorm_train`), its
+    FFN always K4's pre-norm form (:class:`Encoder` refuses ``ffn_mega=False`` with it)."""
 
     def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype, index: int = 0):
         super().__init__()
@@ -352,7 +412,13 @@ class EncoderLayer(nn.Module):
         self.feed_forward = FeedForward(cfg, dtype)
         self.final_layer_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype)
 
-    def forward(self, x: torch.Tensor, seed: int | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seed: int | None = None, u: torch.Tensor | None = None,
+                next_norm: LayerNorm | None = None):
+        if seed is not None and self.cfg.do_stable_layer_norm:
+            return self._prenorm_train(x, u, seed, next_norm)
+        if seed is None and self.cfg.do_stable_layer_norm:
+            x = x + self.attention(self.layer_norm(x))
+            return x + self.feed_forward(self.final_layer_norm(x))
         if seed is None:
             x = self.layer_norm(x + self.attention(x))
             return self.final_layer_norm(x + self.feed_forward(x))
@@ -371,8 +437,26 @@ class EncoderLayer(nn.Module):
         h = ffn.output_dense(h)
         return dropout_add_layernorm(h, x, ln.weight, ln.bias, seed, s_tail2, rate, eps)
 
+    def _prenorm_train(self, s: torch.Tensor, u: torch.Tensor, seed: int,
+                       next_norm: LayerNorm) -> tuple[torch.Tensor, torch.Tensor]:
+        """The pre-norm layer in training on the stream ``s`` and ``u = LN1(s)``: returns the
+        new stream and ``next_norm`` of it (the next layer's LN1, or the encoder's LayerNorm
+        after the last layer). K3b, K2's pre-norm form (the stream and LN2 of it), and K4's
+        (the FFN on LN2's output added to the stream, and ``next_norm``)."""
+        cfg, (s_attn, s_tail1, s_act, s_tail2) = self.cfg, self.sites
+        eps, rate = cfg.layer_norm_eps, cfg.hidden_dropout
+        attn = self.attention(u, seed, s_attn, cfg.attention_dropout)
+        s, v = dropout_add_layernorm_prenorm(attn, s, self.final_layer_norm.weight,
+                                             self.final_layer_norm.bias, seed, s_tail1, rate,
+                                             eps)
+        ffn = self.feed_forward
+        return ffn_block_prenorm(v, s, ffn.intermediate_dense.weight,
+                                 ffn.intermediate_dense.bias, ffn.output_dense.weight,
+                                 ffn.output_dense.bias, next_norm.weight, next_norm.bias, seed,
+                                 s_act, s_tail2, cfg.activation_dropout, rate, eps)
 
-def rematerialised(module: nn.Module, *args) -> torch.Tensor:
+
+def rematerialised(module: nn.Module, *args):
     """``module(*args)`` keeping only its inputs for the backward, which runs it again. The
     module draws from no RNG state (its masks are Philox of (seed, site)), so none is kept."""
     return checkpoint(module, *args, use_reentrant=False, preserve_rng_state=False)
@@ -381,12 +465,19 @@ def rematerialised(module: nn.Module, *args) -> torch.Tensor:
 class Encoder(nn.Module):
     def __init__(self, cfg: Wav2Vec2Config, dtype: torch.dtype):
         super().__init__()
+        if cfg.do_stable_layer_norm and not cfg.ffn_mega:
+            raise ValueError("do_stable_layer_norm trains its FFN sublayers through K4's "
+                             "pre-norm form only; ffn_mega=False (the decomposed K5 + K2 "
+                             "route) is not computed for it")
         self.rate, self.remat = cfg.hidden_dropout, cfg.remat
+        self.stable = cfg.do_stable_layer_norm
         self.pos_conv_embed = PositionalConvEmbedding(cfg, dtype)
         self.layer_norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype)
         self.layers = nn.ModuleList(EncoderLayer(cfg, dtype, i) for i in range(cfg.num_layers))
 
     def forward(self, h: torch.Tensor, seed: int | None = None) -> torch.Tensor:
+        if self.stable:
+            return self._stable(h, seed)
         h = self.layer_norm(h + self.pos_conv_embed(h))
         if seed is not None:
             h = dropout(h, seed, SITE_ENCODER, self.rate)
@@ -394,6 +485,23 @@ class Encoder(nn.Module):
         for layer in self.layers:
             h = rematerialised(layer, h, seed) if remat else layer(h, seed)
         return h
+
+    def _stable(self, h: torch.Tensor, seed: int | None) -> torch.Tensor:
+        """The pre-norm encoder: ``h + gelu(pos(h))``, dropout, the layers, the LayerNorm."""
+        h = h + self.pos_conv_embed(h)
+        if seed is None:
+            for layer in self.layers:
+                h = layer(h)
+            return self.layer_norm(h)
+        norms = [layer.layer_norm for layer in self.layers] + [self.layer_norm]
+        first = norms[0]
+        s, u = dropout_add_layernorm_prenorm(h, torch.zeros_like(h), first.weight, first.bias,
+                                             seed, SITE_ENCODER, self.rate, first.eps)
+        remat = self.remat and torch.is_grad_enabled()
+        for layer, next_norm in zip(self.layers, norms[1:]):
+            args = (s, seed, u, next_norm)
+            s, u = rematerialised(layer, *args) if remat else layer(*args)
+        return u
 
 
 class Wav2Vec2Model(nn.Module):

@@ -45,8 +45,8 @@ from .dropout import on_card
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The head widths the kernels are built for (one instantiation each): wav2vec2-base's and
-# -large's 64, the test config's 16.
-HEAD_DIMS = (16, 32, 64, 128)
+# -large's 64, XLS-R 1B's 80, the test config's 16.
+HEAD_DIMS = (16, 32, 64, 80, 128)
 _P, _I, _U32, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 
 

@@ -20,6 +20,15 @@ wrappers take dense rows whose base and row stride are multiples of 16 bytes, an
 that :func:`kernel_takes` names, and raise ``ValueError`` otherwise before any CUDA call.
 :func:`ffn_block` takes the plain versions only for CPU tensors; CUDA tensors go to the
 kernels or raise.
+
+The pre-norm form (:func:`ffn_block_prenorm`, the stable-layer-norm encoder's FFN with the
+next LayerNorm fused): the FFN reads ``x`` (the normalised stream) and adds its dropped output
+to a separate residual ``r``: ``s = r + drop(W2 drop(gelu(W1 x + b1)) + b2)`` is the new
+stream and ``LN(s)`` the next sublayer's input. The same stages with (B) adding to ``r``; its
+backward takes the stream's own gradient beside the LayerNorm output's (K2's pre-norm
+backward row pass, :func:`.resid.resid_bwd_reference` with ``g_stream``), ``dr = ds`` and
+``dx = dpre W1``. Its kernels count their launches apart (``ffn_prenorm_*_kernel.launches``,
+the counter ``ffn.prenorm.launches``).
 """
 
 from __future__ import annotations
@@ -30,11 +39,13 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ...utils.observe import count
 from .. import philox
 from . import build
 from .dropout import DTYPE_CODES, check_cuda, on_card, sm_count
 from .ffn import ffn_act_bwd_reference, ffn_act_fwd_reference
-from .resid import MAX_COLS, dropout_add_reference, resid_bwd_reference, resid_fwd_reference
+from .resid import (MAX_COLS, WIDE_COLS, dropout_add_reference, resid_bwd_reference,
+                    resid_fwd_reference)
 
 _P, _U32, _F, _I = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float, ctypes.c_int
 UP_ROWS = 128       # row tile of (A) and (D): the db1 partials have ceil(N / 128) rows
@@ -43,27 +54,32 @@ UP_ROWS = 128       # row tile of (A) and (D): the db1 partials have ceil(N / 12
 def kernel_takes(hidden: int, ffn: int, dtype: torch.dtype) -> bool:
     """Whether the kernels take a sublayer of ``hidden`` and ``ffn`` widths in ``dtype``:
     float32 or bfloat16, both widths multiples of 8 (16-byte rows), the hidden size at most
-    1024 (K2's rows): wav2vec2-base's 768 / 3072, wav2vec2-large's 1024 / 4096, the test
-    config's 32 / 64. The wrappers raise on anything else."""
-    return (dtype in DTYPE_CODES and 0 < hidden <= MAX_COLS and hidden % 8 == 0 and ffn > 0
-            and ffn % 8 == 0)
+    1024 or in :data:`.resid.WIDE_COLS` (K2's rows): wav2vec2-base's 768 / 3072,
+    wav2vec2-large's 1024 / 4096, XLS-R 1B's 1280 / 5120, the test config's 32 / 64. The
+    wrappers raise on anything else."""
+    return (dtype in DTYPE_CODES and (0 < hidden <= MAX_COLS or hidden in WIDE_COLS)
+            and hidden % 8 == 0 and ffn > 0 and ffn % 8 == 0)
 
 
 def ffn_mega_fwd_reference(x, w1, b1, w2, b2, weight, bias, seed: int, s_act: int, s_hid: int,
-                           rate_act: float, rate_hid: float, eps: float):
-    """Plain forward over ``[N, D]`` rows: ``(y, s, pre)``, each in ``x.dtype``."""
+                           rate_act: float, rate_hid: float, eps: float, r=None):
+    """Plain forward over ``[N, D]`` rows: ``(y, s, pre)``, each in ``x.dtype``. With ``r``
+    (the pre-norm form) the residual is ``r`` in place of ``x``."""
     pre = F.linear(x, w1, b1)
     h = ffn_act_fwd_reference(pre, seed, s_act, rate_act)
-    y, s = resid_fwd_reference(F.linear(h, w2, b2), x, weight, bias, seed, s_hid, rate_hid, eps)
+    y, s = resid_fwd_reference(F.linear(h, w2, b2), x if r is None else r, weight, bias, seed,
+                               s_hid, rate_hid, eps)
     return y, s, pre
 
 
 def ffn_mega_bwd_reference(g, s, pre, w2, weight, seed: int, s_act: int, s_hid: int,
-                           rate_act: float, rate_hid: float, eps: float):
+                           rate_act: float, rate_hid: float, eps: float, g_stream=None):
     """Plain backward without the three large products: ``(ds, dhid, dpre, h, db1, db2,
     dweight, dbias)``. ``dh = dhid W2`` is rounded to the compute dtype, as the decomposed
-    route materialises it; db2 is that route's bias gradient (a sum in the compute dtype)."""
-    dhid, ds, dweight, dbias = resid_bwd_reference(g, s, weight, seed, s_hid, rate_hid, eps)
+    route materialises it; db2 is that route's bias gradient (a sum in the compute dtype).
+    With ``g_stream`` (the pre-norm form) that gradient of ``s`` is added to ``ds``."""
+    dhid, ds, dweight, dbias = resid_bwd_reference(g, s, weight, seed, s_hid, rate_hid, eps,
+                                                   g_stream)
     dh = dhid @ w2
     dpre, db1 = ffn_act_bwd_reference(dh, pre, seed, s_act, rate_act)
     h = ffn_act_fwd_reference(pre, seed, s_act, rate_act)
@@ -92,7 +108,8 @@ def _check(name: str, rows_like: torch.Tensor, f: int, *vectors: torch.Tensor) -
     """(rows, hidden size) of ``[N, D]`` rows whose widths :func:`kernel_takes`."""
     if rows_like.dim() != 2 or not kernel_takes(rows_like.shape[1], f, rows_like.dtype):
         raise ValueError(f"{name}: takes [N, D] rows and an FFN width F, multiples of 8 with D "
-                         f"at most {MAX_COLS}, got {tuple(rows_like.shape)} and {f}")
+                         f"at most {MAX_COLS} or in {WIDE_COLS}, got {tuple(rows_like.shape)} "
+                         f"and {f}")
     d = rows_like.shape[1]
     for v in vectors:
         if v.dtype != torch.float32 or tuple(v.shape) != (d,):
@@ -113,41 +130,98 @@ def _same(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
                              f"{t.stride(0) * t.element_size()}")
 
 
+def _fwd(name, x, r, w1, b1, w2, b2, weight, bias, seed: int, s_act: int, s_hid: int,
+         rate_act: float, rate_hid: float, eps: float):
+    f = w1.shape[0]
+    rows, d = _check(name, x, f, weight, bias)
+    if tuple(w1.shape) != (f, d) or tuple(w2.shape) != (d, f):
+        raise ValueError(f"{name}: w1 must be [F, {d}] and w2 [{d}, F]")
+    tensors = (x, w1, b1, w2, b2) if r is None else (x, r, w1, b1, w2, b2)
+    if r is not None and r.shape != x.shape:
+        raise ValueError(f"{name}: the residual must be [N, {d}] like x")
+    _same(name, x.dtype, *tensors)
+    check_cuda(name, *tensors, weight, bias)
+    pre = x.new_empty((rows, f))
+    h = torch.empty_like(pre)
+    s, y = torch.empty_like(x), torch.empty_like(x)
+    ptrs = (x.data_ptr(),) if r is None else (x.data_ptr(), r.data_ptr())
+    entry = "ffn_mega_fwd" if r is None else "ffn_prenorm_fwd"
+    fn = build.entry("ffn_mega", entry,
+                     (_P,) * (10 + len(ptrs)) + (_I, _I, _I) + (_U32,) * 5 + (_F, _F, _F, _I, _P))
+    build.check(fn(*ptrs, w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                   weight.data_ptr(), bias.data_ptr(), pre.data_ptr(), h.data_ptr(),
+                   s.data_ptr(), y.data_ptr(), rows, d, f, seed, s_act, s_hid,
+                   philox.threshold(rate_act), philox.threshold(rate_hid),
+                   philox.keep_scale(rate_act), philox.keep_scale(rate_hid), eps,
+                   DTYPE_CODES[x.dtype], build.stream(x)), name)
+    return y, s, pre
+
+
 def ffn_mega_fwd_kernel(x, w1, b1, w2, b2, weight, bias, seed: int, s_act: int, s_hid: int,
                         rate_act: float, rate_hid: float, eps: float):
     """Launch the forward of ``csrc/ffn_mega.cu`` ((A), (B) and the row LayerNorm); counts
     calls in ``.launches``. ``x`` is ``[N, D]``; the weights are ``nn.Linear``'s
     ``[out, in]``."""
-    f = w1.shape[0]
-    rows, d = _check("ffn_mega_fwd_kernel", x, f, weight, bias)
-    if tuple(w1.shape) != (f, d) or tuple(w2.shape) != (d, f):
-        raise ValueError(f"ffn_mega_fwd_kernel: w1 must be [F, {d}] and w2 [{d}, F]")
-    _same("ffn_mega_fwd_kernel", x.dtype, x, w1, b1, w2, b2)
-    check_cuda("ffn_mega_fwd_kernel", x, w1, b1, w2, b2, weight, bias)
-    pre = x.new_empty((rows, f))
-    h = torch.empty_like(pre)
-    s, y = torch.empty_like(x), torch.empty_like(x)
-    fn = build.entry("ffn_mega", "ffn_mega_fwd",
-                     (_P,) * 11 + (_I, _I, _I) + (_U32,) * 5 + (_F, _F, _F, _I, _P))
-    build.check(fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                   weight.data_ptr(), bias.data_ptr(), pre.data_ptr(), h.data_ptr(),
-                   s.data_ptr(), y.data_ptr(), rows, d, f, seed, s_act, s_hid,
-                   philox.threshold(rate_act), philox.threshold(rate_hid),
-                   philox.keep_scale(rate_act), philox.keep_scale(rate_hid), eps,
-                   DTYPE_CODES[x.dtype], build.stream(x)), "ffn_mega_fwd_kernel")
+    out = _fwd("ffn_mega_fwd_kernel", x, None, w1, b1, w2, b2, weight, bias, seed, s_act, s_hid,
+               rate_act, rate_hid, eps)
     ffn_mega_fwd_kernel.launches += 1
-    return y, s, pre
+    return out
+
+
+def ffn_prenorm_fwd_kernel(x, r, w1, b1, w2, b2, weight, bias, seed: int, s_act: int,
+                           s_hid: int, rate_act: float, rate_hid: float, eps: float):
+    """Launch the pre-norm forward of ``csrc/ffn_mega.cu`` ((A) on ``x``, (B) adding to the
+    residual ``r``, the next row LayerNorm); counts calls in ``.launches`` and
+    ``ffn.prenorm.launches``. Returns ``(y, s, pre)``."""
+    out = _fwd("ffn_prenorm_fwd_kernel", x, r, w1, b1, w2, b2, weight, bias, seed, s_act, s_hid,
+               rate_act, rate_hid, eps)
+    ffn_prenorm_fwd_kernel.launches += 1
+    count("ffn.prenorm.launches")
+    return out
 
 
 @functools.cache
-def _row_blocks(rows: int, d: int, dtype: torch.dtype, device: torch.device) -> int:
-    """(C)'s persistent grid (K2's backward row pass, ``csrc/resid.cuh``) on ``device``: the
-    dgamma, dbeta and db2 partials have this many rows."""
-    fn = build.entry("ffn_mega", "ffn_mega_row_blocks", (_I, _I, _I, _I))
+def _row_blocks(rows: int, d: int, dtype: torch.dtype, device: torch.device,
+                prenorm: bool = False) -> int:
+    """(C)'s persistent grid (K2's backward row pass, ``csrc/resid.cuh``; its pre-norm form
+    with ``prenorm``) on ``device``: the dgamma, dbeta and db2 partials have this many rows."""
+    entry = "ffn_prenorm_row_blocks" if prenorm else "ffn_mega_row_blocks"
+    fn = build.entry("ffn_mega", entry, (_I, _I, _I, _I))
     blocks = fn(rows, d, sm_count(device), DTYPE_CODES[dtype])
     if blocks <= 0:
         raise RuntimeError(f"ffn_mega_row_blocks: no grid for {rows} rows of {d} in {dtype}")
     return blocks
+
+
+def _bwd(name, g, gs, s, pre, w2, weight, seed: int, s_act: int, s_hid: int,
+         rate_act: float, rate_hid: float, eps: float):
+    f = pre.shape[-1]
+    rows, d = _check(name, g, f, weight)
+    if s.shape != g.shape or tuple(pre.shape) != (rows, f) or tuple(w2.shape) != (d, f) or \
+            (gs is not None and gs.shape != g.shape):
+        raise ValueError(f"{name}: g, s [N, {d}], pre [N, F] and w2 [{d}, F]")
+    rows_like = (g, s, pre, w2) if gs is None else (g, gs, s, pre, w2)
+    _same(name, g.dtype, *rows_like)
+    check_cuda(name, *rows_like, weight)
+    row_blocks = _row_blocks(rows, d, g.dtype, g.device, gs is not None)
+    ds, dhid = torch.empty_like(g), torch.empty_like(g)
+    dpre, h = torch.empty_like(pre), torch.empty_like(pre)
+    parts = torch.empty((3, row_blocks, d), dtype=torch.float32, device=g.device)
+    db1_parts = torch.empty((-(-rows // UP_ROWS), f), dtype=torch.float32, device=g.device)
+    ptrs = (g.data_ptr(),) if gs is None else (g.data_ptr(), gs.data_ptr())
+    entry = "ffn_mega_bwd" if gs is None else "ffn_prenorm_bwd"
+    fn = build.entry("ffn_mega", entry,
+                     (_P,) * (12 + len(ptrs)) + (_I, _I, _I) + (_U32,) * 5
+                     + (_F, _F, _F, _I, _I, _P))
+    build.check(fn(*ptrs, s.data_ptr(), pre.data_ptr(), w2.data_ptr(), weight.data_ptr(),
+                   ds.data_ptr(), dhid.data_ptr(), dpre.data_ptr(), h.data_ptr(),
+                   parts[0].data_ptr(), parts[1].data_ptr(), parts[2].data_ptr(),
+                   db1_parts.data_ptr(), rows, d, f, seed, s_act, s_hid,
+                   philox.threshold(rate_act), philox.threshold(rate_hid),
+                   philox.keep_scale(rate_act), philox.keep_scale(rate_hid), eps, row_blocks,
+                   DTYPE_CODES[g.dtype], build.stream(g)), name)
+    dweight, dbias, db2 = parts.sum(dim=1)
+    return ds, dhid, dpre, h, db1_parts.sum(0), db2, dweight, dbias
 
 
 def ffn_mega_bwd_kernel(g, s, pre, w2, weight, seed: int, s_act: int, s_hid: int,
@@ -155,33 +229,28 @@ def ffn_mega_bwd_kernel(g, s, pre, w2, weight, seed: int, s_act: int, s_hid: int
     """Launch the backward of ``csrc/ffn_mega.cu`` ((C) then (D)); counts calls in
     ``.launches``. Returns what :func:`ffn_mega_bwd_reference` returns; the vector
     gradients are float32."""
-    f = pre.shape[-1]
-    rows, d = _check("ffn_mega_bwd_kernel", g, f, weight)
-    if s.shape != g.shape or tuple(pre.shape) != (rows, f) or tuple(w2.shape) != (d, f):
-        raise ValueError(f"ffn_mega_bwd_kernel: g, s [N, {d}], pre [N, F] and w2 [{d}, F]")
-    _same("ffn_mega_bwd_kernel", g.dtype, g, s, pre, w2)
-    check_cuda("ffn_mega_bwd_kernel", g, s, pre, w2, weight)
-    row_blocks = _row_blocks(rows, d, g.dtype, g.device)
-    ds, dhid = torch.empty_like(g), torch.empty_like(g)
-    dpre, h = torch.empty_like(pre), torch.empty_like(pre)
-    parts = torch.empty((3, row_blocks, d), dtype=torch.float32, device=g.device)
-    db1_parts = torch.empty((-(-rows // UP_ROWS), f), dtype=torch.float32, device=g.device)
-    fn = build.entry("ffn_mega", "ffn_mega_bwd",
-                     (_P,) * 13 + (_I, _I, _I) + (_U32,) * 5 + (_F, _F, _F, _I, _I, _P))
-    build.check(fn(g.data_ptr(), s.data_ptr(), pre.data_ptr(), w2.data_ptr(), weight.data_ptr(),
-                   ds.data_ptr(), dhid.data_ptr(), dpre.data_ptr(), h.data_ptr(),
-                   parts[0].data_ptr(), parts[1].data_ptr(), parts[2].data_ptr(),
-                   db1_parts.data_ptr(), rows, d, f, seed, s_act, s_hid,
-                   philox.threshold(rate_act), philox.threshold(rate_hid),
-                   philox.keep_scale(rate_act), philox.keep_scale(rate_hid), eps, row_blocks,
-                   DTYPE_CODES[g.dtype], build.stream(g)), "ffn_mega_bwd_kernel")
+    out = _bwd("ffn_mega_bwd_kernel", g, None, s, pre, w2, weight, seed, s_act, s_hid,
+               rate_act, rate_hid, eps)
     ffn_mega_bwd_kernel.launches += 1
-    dweight, dbias, db2 = parts.sum(dim=1)
-    return ds, dhid, dpre, h, db1_parts.sum(0), db2, dweight, dbias
+    return out
+
+
+def ffn_prenorm_bwd_kernel(g, g_stream, s, pre, w2, weight, seed: int, s_act: int, s_hid: int,
+                           rate_act: float, rate_hid: float, eps: float):
+    """Launch the pre-norm backward of ``csrc/ffn_mega.cu`` (``g`` the gradient of ``y``,
+    ``g_stream`` that of ``s``); counts calls in ``.launches`` and ``ffn.prenorm.launches``.
+    Returns what :func:`ffn_mega_bwd_reference` returns with ``g_stream``."""
+    out = _bwd("ffn_prenorm_bwd_kernel", g, g_stream, s, pre, w2, weight, seed, s_act, s_hid,
+               rate_act, rate_hid, eps)
+    ffn_prenorm_bwd_kernel.launches += 1
+    count("ffn.prenorm.launches")
+    return out
 
 
 ffn_mega_fwd_kernel.launches = 0
 ffn_mega_bwd_kernel.launches = 0
+ffn_prenorm_fwd_kernel.launches = 0
+ffn_prenorm_bwd_kernel.launches = 0
 
 
 class _FfnBlock(torch.autograd.Function):
@@ -229,3 +298,54 @@ def ffn_block(x, w1, b1, w2, b2, weight, bias, seed: int, s_act: int, s_hid: int
     float32 LayerNorm parameters. Differentiable."""
     return _FfnBlock.apply(x, w1, b1, w2, b2, weight, bias, seed, s_act, s_hid, rate_act,
                            rate_hid, eps)
+
+
+class _FfnPrenorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, r, w1, b1, w2, b2, weight, bias, seed, s_act, s_hid, rate_act, rate_hid,
+                eps):
+        args = (seed, s_act, s_hid, rate_act, rate_hid, eps)
+        x2, r2 = x.reshape(-1, x.shape[-1]), r.reshape(-1, r.shape[-1])
+        if on_card(x):
+            y, s, pre = ffn_prenorm_fwd_kernel(x2.contiguous(), r2.contiguous(), w1.contiguous(),
+                                               b1, w2.contiguous(), b2, weight, bias, *args)
+        else:
+            y, s, pre = ffn_mega_fwd_reference(x2, w1, b1, w2, b2, weight, bias, *args, r=r2)
+        ctx.save_for_backward(x2, w1, w2, weight, s, pre)
+        ctx.args = args
+        ctx.dtypes = (b1.dtype, b2.dtype)
+        ctx.x_shape = x.shape
+        return s.reshape(x.shape), y.reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, g_stream, g):
+        x2, w1, w2, weight, s, pre = ctx.saved_tensors
+        g2 = torch.zeros_like(s) if g is None else g.reshape(s.shape)
+        gs2 = torch.zeros_like(s) if g_stream is None else g_stream.reshape(s.shape)
+        if on_card(g2):
+            ds, dhid, dpre, h, db1, db2, dweight, dbias = ffn_prenorm_bwd_kernel(
+                g2.contiguous(), gs2.contiguous(), s, pre, w2.contiguous(), weight, *ctx.args)
+        else:
+            ds, dhid, dpre, h, db1, db2, dweight, dbias = ffn_mega_bwd_reference(
+                g2, s, pre, w2, weight, *ctx.args, g_stream=gs2)
+        # The three large products, as in the post-norm op; the residual's gradient is ds.
+        need = ctx.needs_input_grad
+        dx = (dpre @ w1).reshape(ctx.x_shape) if need[0] else None
+        dr = ds.reshape(ctx.x_shape) if need[1] else None
+        dw1 = dpre.t() @ x2 if need[2] else None
+        dw2 = dhid.t() @ h if need[4] else None
+        b1_dtype, b2_dtype = ctx.dtypes
+        return (dx, dr, dw1, db1.to(b1_dtype) if need[3] else None, dw2,
+                db2.to(b2_dtype) if need[5] else None, dweight if need[6] else None,
+                dbias if need[7] else None, None, None, None, None, None, None)
+
+
+def ffn_block_prenorm(x, r, w1, b1, w2, b2, weight, bias, seed: int, s_act: int, s_hid: int,
+                      rate_act: float, rate_hid: float, eps: float = 1e-5
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pre-norm FFN sublayer with the next LayerNorm: ``(s, LN(s))`` with the stream
+    ``s = r + dropout(W2 dropout(gelu(W1 x + b1)) + b2)`` over the last axis, in ``x.dtype``;
+    ``w1``/``w2`` are ``nn.Linear``'s ``[out, in]``, ``weight``/``bias`` the float32 parameters
+    of the LayerNorm that follows. Differentiable in both outputs."""
+    return _FfnPrenorm.apply(x, r.to(x.dtype), w1, b1, w2, b2, weight, bias, seed, s_act, s_hid,
+                             rate_act, rate_hid, eps)

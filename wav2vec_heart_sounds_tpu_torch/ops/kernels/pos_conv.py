@@ -11,7 +11,7 @@ bound.
 
 :func:`pos_conv_gelu` is the op, one algorithm chosen by what its input is: bfloat16 CUDA
 tensors take ``csrc/pos_conv.cu`` through :class:`_PosConvGelu` (the channels of a group,
-16, 48 or 64, pick a template instance; any other width raises); float32 CUDA tensors
+16, 32, 48, 64 or 80, pick a template instance; any other width raises); float32 CUDA tensors
 and CPU tensors take :func:`pos_conv_gelu_plain`, the ``nn.Conv1d`` formulation the model
 has always had, with PyTorch's autograd. The kernels' contract: the products of bfloat16
 summed in float32; ``pre`` (the conv plus bias) rounded to bfloat16 and kept for the
@@ -34,15 +34,17 @@ from . import build
 from .dropout import check_cuda, sm_count
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-WIDTHS = (16, 48, 64)       # channels a group (test config, base, large): a template instance each
+# Channels a group (the test config, a 512-wide encoder in 16 groups, base, large, XLS-R 1B):
+# a template instance each.
+WIDTHS = (16, 32, 48, 64, 80)
 ROW_PAD = 8                 # the re-laid weight's rows: C + 8 bfloat16, as in shared memory
 MAX_WIDTH = 2048            # D: the dpre pass takes a row in 16-byte runs of one block
 DW_FRAMES, DW_TAPS = 64, 8  # a dW block: 64-frame row tiles, 8 taps (csrc/pos_conv.cu)
 
 
 def kernel_takes(d: int, groups: int) -> bool:
-    """Whether the kernels take ``d`` channels in ``groups`` groups: a width a group of 16,
-    48 or 64 and at most :data:`MAX_WIDTH` channels."""
+    """Whether the kernels take ``d`` channels in ``groups`` groups: a width a group in
+    :data:`WIDTHS` and at most :data:`MAX_WIDTH` channels."""
     return d % groups == 0 and d // groups in WIDTHS and d <= MAX_WIDTH
 
 

@@ -12,6 +12,13 @@ of consecutive rows, tile t on block ``t % blocks``; the backward writes one flo
 row of each column sum per block, which the wrapper adds in block order. Rows move by bulk
 copies and 16-byte accesses, so every ``[rows, cols]`` tensor starts on 16 bytes
 (:func:`.dropout.check_aligned`).
+
+The pre-norm form (:func:`dropout_add_layernorm_prenorm`, the stable-layer-norm encoder's
+sublayer tail): the same forward, returning the residual stream ``s`` beside the next
+sublayer's input ``LN(s)``; its backward takes both their gradients, and the LayerNorm's
+``ds`` plus the stream's own gradient is ``dx``, masked and scaled into ``dh``. Its kernels
+count their launches apart (``resid_prenorm_*_kernel.launches``, the counter
+``resid.prenorm.launches``).
 """
 
 from __future__ import annotations
@@ -21,20 +28,22 @@ import functools
 
 import torch
 
+from ...utils.observe import count
 from .. import philox
 from . import build
 from .dropout import (DTYPE_CODES, VECTOR_BYTES, aligned, check_aligned, check_cuda, on_card,
                       sm_count)
 
 _P, _U32, _F, _I = ctypes.c_void_p, ctypes.c_uint32, ctypes.c_float, ctypes.c_int
-MAX_COLS = 1024     # widest row the kernel takes (wav2vec2-large's hidden size)
+MAX_COLS = 1024     # widest row of the guarded instance (wav2vec2-large's hidden size)
+WIDE_COLS = (1280,)  # wider rows with an instance of their own (XLS-R 1B's hidden size)
 
 
 def kernel_takes(cols: int, dtype: torch.dtype) -> bool:
     """Whether the kernels take rows of ``cols`` in ``dtype``: float32 or bfloat16 rows of
     whole 16-byte runs (a multiple of 8 columns in bfloat16, of 4 in float32) up to 1024
-    columns. The wrappers raise on anything else."""
-    return (dtype in DTYPE_CODES and 0 < cols <= MAX_COLS
+    columns, or of :data:`WIDE_COLS`. The wrappers raise on anything else."""
+    return (dtype in DTYPE_CODES and (0 < cols <= MAX_COLS or cols in WIDE_COLS)
             and cols * dtype.itemsize % VECTOR_BYTES == 0)
 
 
@@ -64,14 +73,19 @@ def resid_fwd_reference(h, x, weight, bias, seed: int, site: int, rate: float, e
     return layer_norm_reference(s, weight, bias, eps), s
 
 
-def resid_bwd_reference(g, s, weight, seed: int, site: int, rate: float, eps: float):
-    """Plain backward: ``(dh, dx, dweight, dbias)``; the vector gradients are float32."""
+def resid_bwd_reference(g, s, weight, seed: int, site: int, rate: float, eps: float,
+                        g_stream=None):
+    """Plain backward: ``(dh, dx, dweight, dbias)``; the vector gradients are float32. With
+    ``g_stream`` (the pre-norm form) that gradient of ``s`` is added to the LayerNorm's in
+    float32."""
     sf, gf = s.float(), g.float()
     mean, rstd = _stats(sf, eps)
     shat = (sf - mean) * rstd
     gs = gf * weight
     ds = rstd * (gs - gs.mean(dim=-1, keepdim=True)
                  - shat * (gs * shat).mean(dim=-1, keepdim=True))
+    if g_stream is not None:
+        ds = ds + g_stream.float()
     keep = philox.keep_mask(seed, site, g.shape, rate, g.device)
     dh = torch.where(keep, ds * philox.keep_scale(rate), 0.0).to(g.dtype)
     c = g.shape[-1]
@@ -80,9 +94,10 @@ def resid_bwd_reference(g, s, weight, seed: int, site: int, rate: float, eps: fl
 
 @functools.cache
 def grid_blocks(rows: int, cols: int, dtype: torch.dtype, device: torch.device,
-                backward: bool) -> int:
+                backward: int) -> int:
     """The kernels' persistent grid on ``device``: as many blocks as fit on its SMs (at most
-    two an SM, by the occupancy API in ``csrc/resid.cu``), at most one per tile."""
+    two an SM, by the occupancy API in ``csrc/resid.cu``), at most one per tile. ``backward``:
+    0 the forward, 1 the backward, 2 the pre-norm backward."""
     fn = build.entry("resid", "resid_blocks", (_I, _I, _I, _I, _I))
     blocks = fn(rows, cols, sm_count(device), DTYPE_CODES[dtype], int(backward))
     if blocks <= 0:
@@ -101,13 +116,12 @@ def _check(name, rows_like: torch.Tensor, *vectors: torch.Tensor) -> tuple[int, 
     return rows_like.numel() // c, c
 
 
-def resid_fwd_kernel(h, x, weight, bias, seed: int, site: int, rate: float, eps: float):
-    """Launch the forward of ``csrc/resid.cu``; counts launches in ``.launches``."""
-    check_cuda("resid_fwd_kernel", h, x)
-    check_aligned("resid_fwd_kernel", h, x)
+def _fwd(name, h, x, weight, bias, seed: int, site: int, rate: float, eps: float):
+    check_cuda(name, h, x)
+    check_aligned(name, h, x)
     if x.dtype != h.dtype or x.shape != h.shape:
-        raise ValueError("resid_fwd_kernel: h and x must share shape and dtype")
-    rows, cols = _check("resid_fwd_kernel", h, weight, bias)
+        raise ValueError(f"{name}: h and x must share shape and dtype")
+    rows, cols = _check(name, h, weight, bias)
     out, s = torch.empty_like(h), torch.empty_like(h)
     fn = build.entry("resid", "resid_fwd",
                      (_P, _P, _P, _P, _P, _P, _I, _I, _F, _U32, _U32, _U32, _F, _I, _I, _P))
@@ -115,8 +129,24 @@ def resid_fwd_kernel(h, x, weight, bias, seed: int, site: int, rate: float, eps:
     build.check(fn(h.data_ptr(), x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
                    out.data_ptr(), s.data_ptr(), rows, cols, eps, seed, site,
                    philox.threshold(rate), philox.keep_scale(rate), blocks,
-                   DTYPE_CODES[h.dtype], build.stream(h)), "resid_fwd_kernel")
+                   DTYPE_CODES[h.dtype], build.stream(h)), name)
+    return out, s
+
+
+def resid_fwd_kernel(h, x, weight, bias, seed: int, site: int, rate: float, eps: float):
+    """Launch the forward of ``csrc/resid.cu``; counts launches in ``.launches``."""
+    out, s = _fwd("resid_fwd_kernel", h, x, weight, bias, seed, site, rate, eps)
     resid_fwd_kernel.launches += 1
+    return out, s
+
+
+def resid_prenorm_fwd_kernel(h, x, weight, bias, seed: int, site: int, rate: float,
+                             eps: float):
+    """The pre-norm form's forward: the forward of ``csrc/resid.cu``, ``(out, s)``; counts
+    launches in ``.launches`` and ``resid.prenorm.launches``."""
+    out, s = _fwd("resid_prenorm_fwd_kernel", h, x, weight, bias, seed, site, rate, eps)
+    resid_prenorm_fwd_kernel.launches += 1
+    count("resid.prenorm.launches")
     return out, s
 
 
@@ -127,7 +157,7 @@ def resid_bwd_kernel(g, s, weight, seed: int, site: int, rate: float, eps: float
     if s.dtype != g.dtype or s.shape != g.shape:
         raise ValueError("resid_bwd_kernel: g and s must share shape and dtype")
     rows, cols = _check("resid_bwd_kernel", g, weight)
-    blocks = grid_blocks(rows, cols, g.dtype, g.device, True)
+    blocks = grid_blocks(rows, cols, g.dtype, g.device, 1)
     dh, dx = torch.empty_like(g), torch.empty_like(g)
     parts = torch.empty((2, blocks, cols), dtype=torch.float32, device=g.device)
     fn = build.entry("resid", "resid_bwd",
@@ -141,8 +171,38 @@ def resid_bwd_kernel(g, s, weight, seed: int, site: int, rate: float, eps: float
     return dh, dx, dweight, dbias
 
 
+def resid_prenorm_bwd_kernel(g, g_stream, s, weight, seed: int, site: int, rate: float,
+                             eps: float):
+    """Launch the pre-norm backward of ``csrc/resid.cu`` (``g`` the gradient of ``out``,
+    ``g_stream`` that of ``s``); counts launches in ``.launches`` and
+    ``resid.prenorm.launches``. Returns what :func:`resid_bwd_reference` returns with
+    ``g_stream``."""
+    name = "resid_prenorm_bwd_kernel"
+    check_cuda(name, g, g_stream, s)
+    check_aligned(name, g, g_stream, s)
+    if s.dtype != g.dtype or s.shape != g.shape or g_stream.dtype != g.dtype or \
+            g_stream.shape != g.shape:
+        raise ValueError(f"{name}: g, g_stream and s must share shape and dtype")
+    rows, cols = _check(name, g, weight)
+    blocks = grid_blocks(rows, cols, g.dtype, g.device, 2)
+    dh, dx = torch.empty_like(g), torch.empty_like(g)
+    parts = torch.empty((2, blocks, cols), dtype=torch.float32, device=g.device)
+    fn = build.entry("resid", "resid_prenorm_bwd",
+                     (_P,) * 8 + (_I, _I, _F, _U32, _U32, _U32, _F, _I, _I, _P))
+    build.check(fn(g.data_ptr(), g_stream.data_ptr(), s.data_ptr(), weight.data_ptr(),
+                   dh.data_ptr(), dx.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(), rows,
+                   cols, eps, seed, site, philox.threshold(rate), philox.keep_scale(rate), blocks,
+                   DTYPE_CODES[g.dtype], build.stream(g)), name)
+    resid_prenorm_bwd_kernel.launches += 1
+    count("resid.prenorm.launches")
+    dweight, dbias = parts.sum(dim=1)
+    return dh, dx, dweight, dbias
+
+
 resid_fwd_kernel.launches = 0
 resid_bwd_kernel.launches = 0
+resid_prenorm_fwd_kernel.launches = 0
+resid_prenorm_bwd_kernel.launches = 0
 
 
 class _ResidTail(torch.autograd.Function):
@@ -174,3 +234,37 @@ def dropout_add_layernorm(h, x, weight, bias, seed: int, site: int, rate: float,
     """``LayerNorm(x + dropout(h))`` over the last axis, in ``h.dtype``; differentiable."""
     return _ResidTail.apply(h, x.to(h.dtype), weight, bias, seed, site, rate, eps)
 
+
+
+class _PrenormTail(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, x, weight, bias, seed, site, rate, eps):
+        args = (seed, site, rate, eps)
+        if on_card(h):
+            out, s = resid_prenorm_fwd_kernel(aligned(h), aligned(x), weight, bias, *args)
+        else:
+            out, s = resid_fwd_reference(h, x, weight, bias, *args)
+        ctx.save_for_backward(s, weight)
+        ctx.args = args
+        return s, out
+
+    @staticmethod
+    def backward(ctx, g_stream, g):
+        s, weight = ctx.saved_tensors
+        g = torch.zeros_like(s) if g is None else g
+        g_stream = torch.zeros_like(s) if g_stream is None else g_stream
+        if on_card(g):
+            dh, dx, dw, db = resid_prenorm_bwd_kernel(aligned(g), aligned(g_stream), s, weight,
+                                                      *ctx.args)
+        else:
+            dh, dx, dw, db = resid_bwd_reference(g, s, weight, *ctx.args, g_stream=g_stream)
+        need = ctx.needs_input_grad
+        return (dh, dx if need[1] else None, dw if need[2] else None, db if need[3] else None,
+                None, None, None, None)
+
+
+def dropout_add_layernorm_prenorm(h, x, weight, bias, seed: int, site: int, rate: float,
+                                  eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pre-norm tail: ``(s, LayerNorm(s))`` with the stream ``s = x + dropout(h)`` in
+    ``h.dtype``; differentiable in both outputs."""
+    return _PrenormTail.apply(h, x.to(h.dtype), weight, bias, seed, site, rate, eps)

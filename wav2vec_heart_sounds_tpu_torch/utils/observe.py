@@ -19,6 +19,11 @@ thread, ``batch`` the serial of the batch the span serves. A span without a ``ba
 its parent's, else the serial of its thread's last closed span that had one; a
 ``batch.gather`` span (:func:`gathered`) starts a new serial. :func:`spans` and
 :func:`counters` read the store over a time range.
+
+:func:`op_range` is for a module whose forward a trace reader follows into its backward: a
+``record_function`` range while a profiler records (the ops inside carry the autograd
+sequence numbers of their backward), :data:`OFF` otherwise. It is no span: the device work
+launched inside stays with the enclosing span.
 """
 
 from __future__ import annotations
@@ -195,6 +200,14 @@ def span(name: str, batch: int | None = None):
     if not _profiler._is_profiler_enabled:
         return OFF
     return _Span(STORE, name, batch)
+
+
+def op_range(name: str):
+    """A ``record_function`` range named ``name`` while a profiler records; :data:`OFF`
+    otherwise."""
+    if not _profiler._is_profiler_enabled:
+        return OFF
+    return _profiler.record_function(name)
 
 
 def count(name: str, n: int = 1) -> None:
